@@ -17,8 +17,11 @@ class ColumnTable:
     named 1-D numpy columns of equal length, read from and written to a
     numpy structured array."""
 
-    def __init__(self):
+    def __init__(self, data=None):
         self._cols: dict[str, np.ndarray] = {}
+        if data is not None:
+            for key, value in data.items():
+                self[key] = value
 
     @property
     def colnames(self) -> list[str]:
@@ -30,10 +33,41 @@ class ColumnTable:
     def __getitem__(self, key: str) -> np.ndarray:
         return self._cols[key]
 
+    def __setitem__(self, key, value):
+        value = np.asarray(value)
+        if value.ndim == 0:
+            value = np.repeat(value, len(self)) if self._cols else value[None]
+        if self._cols and len(value) != len(self):
+            raise ValueError(
+                f"Column {key!r} has length {len(value)}, expected "
+                f"{len(self)}.")
+        self._cols[key] = value
+
     def __len__(self):
         if not self._cols:
             return 0
         return len(next(iter(self._cols.values())))
+
+    def __iter__(self):
+        return iter(self._cols)
+
+    def remove_column(self, key):
+        del self._cols[key]
+
+    def copy(self):
+        out = ColumnTable()
+        for name, col in self._cols.items():
+            out._cols[name] = col.copy()
+        return out
+
+    def sort(self, keys):
+        """Sort the rows in place by ``keys`` (the first is the primary
+        key), with ``np.lexsort`` as tabcorr_tpu sorts them."""
+        if isinstance(keys, str):
+            keys = [keys]
+        order = np.lexsort([self._cols[k] for k in reversed(keys)])
+        for name in self._cols:
+            self._cols[name] = self._cols[name][order]
 
     def as_structured_array(self) -> np.ndarray:
         # dtype.str drops the metadata h5py attaches to string dtypes,

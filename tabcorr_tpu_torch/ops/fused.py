@@ -1,28 +1,37 @@
-"""Bundle predictor: occupation quadrature and every table's contraction.
+"""Fused predictors: the hand-written CUDA kernels and their plain versions.
 
-Port of ``tabcorr_tpu/ops/fused.py:make_fused_bundle_predictor``.  For a
-batch of parameter vectors and a list of tabulations it computes, per
-table, the per-bin galaxy density
+Ports of the three Pallas kernels of ``tabcorr_tpu/ops/fused.py`` that
+the port's entry points run.  Every kernel has a plain version in float32
+tensor ops beside it; a wrapper runs the plain version for CPU tensors
+and launches the kernel (or raises) for CUDA tensors.  Every output is
+full float32: the TPU build's bf16 pass emulation and its 'scaled' pass
+classes have no counterpart here, so both accuracy contracts
+('elementwise', 'scaled') run at the same precision.
 
-    n[b, i] = sum_g occ(params_b, node_ig) * quad_weight[i, g] * n_h[i]
+* **Bundle (B1)**, port of ``make_fused_bundle_predictor``: for a batch of
+  parameter vectors and a list of tabulations, the per-bin galaxy density
 
-(occupation at the float64 Gauss-Legendre nodes, residual absorbed), and
+      n[b, i] = sum_g occ(params_b, node_ig) * quad_weight[i, g] * n_h[i]
 
-    auto:  xi[b, k] = n_b^T F_k n_b / (sum_i n_bi)^2
-    cross: xi[b, k] = (F n_b)_k / sum_i n_bi
+  (occupation at the float64 Gauss-Legendre nodes, residual absorbed),
+  then per table
 
-Two implementations share one set of host constants (:class:`BundleTable`):
+      auto:  xi[b, k] = n_b^T F_k n_b / (sum_i n_bi)^2
+      cross: xi[b, k] = (F n_b)_k / sum_i n_bi
 
-* :func:`bundle_launch` -- the hand-written CUDA kernel
-  (``csrc/bundle.cu``), one launch for all tables.  It evaluates zheng07.
-* :func:`bundle_predict_plain` -- the same computation in tensor ops,
-  batch-chunked; any occupation model.  The CPU path and the tests run it.
-
-:func:`make_fused_bundle_predictor` returns a predictor that launches the
-kernel for CUDA parameter tensors and runs the plain version for CPU
-ones.  Every output is full float32: the TPU build's bf16 pass emulation
-and its 'scaled' pass classes have no counterpart here, so both accuracy
-contracts ('elementwise', 'scaled') run at the same precision.
+  :func:`bundle_launch` (``csrc/bundle.cu``, zheng07) and
+  :func:`bundle_predict_plain` (any model).
+* **Contraction (B3)**, port of ``make_fused_contraction`` and
+  ``make_fused_predictor``: the same contraction for one table from a
+  given density ``n`` -- the occupation runs before it in tensor ops, so
+  any model takes this route.  :func:`contraction_launch`
+  (``csrc/bundle.cu``) and :func:`contraction_plain`.
+* **Grid (B2)**, port of ``_make_grid_packed_predictor`` behind
+  ``make_fused_grid_predictor``: an Interpolator grid of one halo binning,
+  every node's statistics from the packed symmetric matrices, optionally
+  reduced in the kernel by the grid spline's per-sample node weights.
+  :func:`grid_launch` (``csrc/grid.cu``, zheng07) and
+  :func:`grid_predict_plain`.  The 'slab' layout (B4) is not ported.
 """
 
 from __future__ import annotations
@@ -36,28 +45,127 @@ import torch
 
 from ..models.protocol import occupation_functions
 from ..models.zheng07 import Zheng07Model
-from ..utils.build import load_library
-from .predict import AUTO, TableData, occupation_with_residual
+from ..utils.build import build_libraries, load_library
+from .predict import AUTO, TableData, mean_occupation, occupation_with_residual
 
-# Launches of the CUDA bundle kernel in this process (see bundle_launch).
+# Launches of each CUDA kernel in this process (see the launch functions).
 BUNDLE_LAUNCHES = 0
+CONTRACTION_LAUNCHES = 0
+GRID_LAUNCHES = 0
 
 ACCURACY_CONTRACTS = ("elementwise", "scaled")
 
-# Tile geometry of csrc/bundle.cu: the contraction stages F in chunks of
-# _KT rows and _CT columns, and each thread owns 4 consecutive columns.
+# The CUDA sources of each library (one nvcc each).
+KERNEL_SOURCES = {"bundle": ("bundle.cu",), "grid": ("grid.cu",)}
+
+# Tile geometry of csrc/bundle.cu and csrc/grid.cu: the contraction stages
+# its matrix in chunks of _KT rows and _CT columns, and each thread owns 4
+# consecutive columns.
 _TB = 64
 _KT = 32
 _CT = 128
 _MAX_TABLES = 4
 _SMEM_LIMIT = 232448          # bytes a block may use on sm_90
 _PLAIN_CHUNK = 4096
+# Rows per tensor-op occupation pass ahead of the contraction kernel: it
+# bounds the (chunk, n_bins, n_gauss) intermediates.
+_OCC_CHUNK = 32768
+# Batch rows per block the grid kernel may take, largest first.
+_GRID_BLOCK_ROWS = (64, 32)
 
 
 def _round_up(n, m):
     return -(-n // m) * m
 
 
+def _tensor(a, device, dtype=np.float32):
+    return torch.tensor(np.ascontiguousarray(a, dtype=dtype), device=device)
+
+
+def _quadrature_arrays(table: TableData):
+    """Per-bin quadrature in the kernels' layout, float32 (n_bins,
+    n_gauss): node, its float64 residual, secondary percentile, and
+    quad_weight * n_h (port of ``_quad_segment_constants``)."""
+    n_gauss = table.log_prim_quad.shape[1]
+    logm = table.log_prim_quad.cpu().numpy().astype(np.float32)
+    res = (np.zeros_like(logm) if table.log_prim_quad_lo is None else
+           table.log_prim_quad_lo.cpu().numpy().astype(np.float32))
+    weight = (table.quad_weight.cpu().numpy().astype(np.float64) *
+              table.n_h.cpu().numpy().astype(np.float64)[:, None])
+    sec = np.repeat(table.sec_perc.cpu().numpy().astype(np.float32)[:, None],
+                    n_gauss, axis=1)
+    device = table.n_h.device
+    return dict(logm=_tensor(logm, device), logm_res=_tensor(res, device),
+                sec=_tensor(sec, device), weight=_tensor(weight, device))
+
+
+def _check_tensor(a, device, dtype, what):
+    if a.device != device or a.dtype != dtype or not a.is_contiguous():
+        raise ValueError(f"{what} must be contiguous {dtype} on {device}.")
+
+
+def _check_params(pmat):
+    if not pmat.is_cuda:
+        raise ValueError("the kernels need CUDA tensors.")
+    if pmat.dtype != torch.float32 or pmat.dim() != 2 or \
+            pmat.shape[1] != len(Zheng07Model.param_names):
+        raise ValueError(f"params must be (B, 5) float32, got "
+                         f"{tuple(pmat.shape)} {pmat.dtype}.")
+    if not pmat.is_contiguous():
+        raise ValueError("params must be contiguous.")
+    if pmat.shape[0] >= 2 ** 31:
+        raise ValueError("batch too large.")
+
+
+def _raise_on_error(code, what, err_str):
+    if code != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {code} "
+                           f"({err_str(code).decode()})")
+
+
+def _plain_ngal(c, p, occupation_cen, occupation_sat):
+    """n[b, i] in tensor ops from a table's quadrature arrays (``c`` has
+    ``logm``, ``logm_res``, ``sec``, ``weight`` and ``n_centrals``) for
+    the parameter chunk ``p`` of (chunk, 1, 1) tensors."""
+    nc = c.n_centrals
+    occ_c = occupation_with_residual(occupation_cen, p, c.logm[:nc],
+                                     c.logm_res[:nc], c.sec[:nc])
+    occ_s = occupation_with_residual(occupation_sat, p, c.logm[nc:],
+                                     c.logm_res[nc:], c.sec[nc:])
+    return torch.cat([torch.sum(occ_c * c.weight[:nc], dim=-1),
+                      torch.sum(occ_s * c.weight[nc:], dim=-1)], dim=-1)
+
+
+def _total(ngal):
+    # Summed in float64 like the kernels: xi scales as 1/total^2, and a
+    # float32 sum over ~100 bins can carry ~5e-7 relative error.
+    return torch.sum(ngal, dim=-1, dtype=torch.float64).to(ngal.dtype)
+
+
+def load_kernels():
+    """Build every kernel library now, in parallel, and load them (they
+    are otherwise built at first use)."""
+    build_libraries(KERNEL_SOURCES)
+    _bundle_lib()
+    _grid_lib()
+
+
+def check_accuracy(accuracy, n_tables):
+    """Validated per-table accuracy contracts ('elementwise' default)."""
+    if accuracy is None:
+        return ("elementwise",) * n_tables
+    accuracy = tuple(accuracy)
+    if len(accuracy) != n_tables:
+        raise ValueError("accuracy must give one contract per table.")
+    for a in accuracy:
+        if a not in ACCURACY_CONTRACTS:
+            raise ValueError(f"Unknown accuracy contract: {a!r}")
+    return accuracy
+
+
+# ----------------------------------------------------------------------
+# Bundle (B1) and contraction (B3): constants, plain versions, kernels
+# ----------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class BundleTable:
     """Host-built constants of one table, as float32 tensors on one device.
@@ -65,7 +173,7 @@ class BundleTable:
     ``logm``, ``logm_res``, ``sec`` and ``weight`` hold the quadrature
     nodes per bin (n_bins, n_gauss): float32 node, its float64 residual,
     secondary percentile, and quad_weight * n_h.  ``f_t`` is the matrix in
-    the kernel's layout (k_pad, c_pad), zero-padded:
+    the kernels' layout (k_pad, c_pad), zero-padded:
 
     * auto:  ``f_t[j, k * nbp + i] = F[k, i, j]``, with ``nbp`` the bin
       count rounded up to 4, so each thread's 4 columns share one k;
@@ -100,7 +208,6 @@ class BundleTable:
 def bundle_table_constants(table: TableData) -> BundleTable:
     """Per-table constants (port of ``_quad_segment_constants`` and the
     table part of ``_bundle_table_constants``)."""
-    device = table.n_h.device
     nb = table.n_bins
     auto = table.mode == AUTO
     dense = table.tpcf_dense.cpu().numpy().astype(np.float32)
@@ -115,30 +222,13 @@ def bundle_table_constants(table: TableData) -> BundleTable:
     else:
         f_t = np.zeros((k_pad, _round_up(n_xi, _CT)), np.float32)
         f_t[:nb, :n_xi] = dense.T
-    n_gauss = table.log_prim_quad.shape[1]
-    logm = table.log_prim_quad.cpu().numpy().astype(np.float32)
-    res = (np.zeros_like(logm) if table.log_prim_quad_lo is None else
-           table.log_prim_quad_lo.cpu().numpy().astype(np.float32))
-    weight = (table.quad_weight.cpu().numpy().astype(np.float64) *
-              table.n_h.cpu().numpy().astype(np.float64)[:, None])
-    sec = np.repeat(table.sec_perc.cpu().numpy().astype(np.float32)[:, None],
-                    n_gauss, axis=1)
-
-    def tensor(a):
-        return torch.tensor(np.ascontiguousarray(a, dtype=np.float32),
-                            device=device)
-
     return BundleTable(auto=auto, n_bins=nb, n_centrals=table.n_centrals,
                        n_xi=n_xi, nbp=nbp,
                        tpcf_shape=tuple(table.tpcf_shape),
-                       logm=tensor(logm), logm_res=tensor(res),
-                       sec=tensor(sec), weight=tensor(weight),
-                       f_t=tensor(f_t))
+                       f_t=_tensor(f_t, table.n_h.device),
+                       **_quadrature_arrays(table))
 
 
-# ----------------------------------------------------------------------
-# Plain version
-# ----------------------------------------------------------------------
 def bundle_predict_plain(consts, params, occupation_cen, occupation_sat):
     """The bundle in float32 tensor ops, ``_PLAIN_CHUNK`` batch rows at a
     time (bounding the (chunk, n_xi * nbp) contraction intermediate).
@@ -146,28 +236,27 @@ def bundle_predict_plain(consts, params, occupation_cen, occupation_sat):
     Returns ``[(total (B,), xi (B, n_xi)), ...]`` per table.
     """
     batch = next(iter(params.values())).shape[0]
-    chunk = _PLAIN_CHUNK
     outs = [([], []) for _ in consts]
-    for lo in range(0, batch, chunk):
-        p = {k: v[lo:lo + chunk, None, None] for k, v in params.items()}
+    for lo in range(0, batch, _PLAIN_CHUNK):
+        p = {k: v[lo:lo + _PLAIN_CHUNK, None, None] for k, v in params.items()}
         for c, (totals, xis) in zip(consts, outs):
-            total, xi = _plain_chunk(c, p, occupation_cen, occupation_sat)
+            total, xi = _contract_chunk(
+                c, _plain_ngal(c, p, occupation_cen, occupation_sat))
             totals.append(total)
             xis.append(xi)
     return [(torch.cat(t), torch.cat(x)) for t, x in outs]
 
 
-def _plain_chunk(c: BundleTable, p, occupation_cen, occupation_sat):
-    nc = c.n_centrals
-    occ_c = occupation_with_residual(occupation_cen, p, c.logm[:nc],
-                                     c.logm_res[:nc], c.sec[:nc])
-    occ_s = occupation_with_residual(occupation_sat, p, c.logm[nc:],
-                                     c.logm_res[nc:], c.sec[nc:])
-    ngal = torch.cat([torch.sum(occ_c * c.weight[:nc], dim=-1),
-                      torch.sum(occ_s * c.weight[nc:], dim=-1)], dim=-1)
-    # Summed in float64 like the kernel: xi scales as 1/total^2, and a
-    # float32 sum over ~100 bins can carry ~5e-7 relative error.
-    total = torch.sum(ngal, dim=-1, dtype=torch.float64).to(ngal.dtype)
+def contraction_plain(c: BundleTable, ngal):
+    """The contraction kernel's plain version: ngal (B, n_bins) float32 ->
+    (total (B,), xi (B, n_xi)), ``_PLAIN_CHUNK`` rows at a time."""
+    outs = [_contract_chunk(c, ngal[lo:lo + _PLAIN_CHUNK])
+            for lo in range(0, ngal.shape[0], _PLAIN_CHUNK)]
+    return (torch.cat([t for t, _ in outs]), torch.cat([x for _, x in outs]))
+
+
+def _contract_chunk(c: BundleTable, ngal):
+    total = _total(ngal)
     ngal = torch.nn.functional.pad(ngal, (0, c.k_pad - c.n_bins))
     t = ngal @ c.f_t
     if not c.auto:
@@ -177,36 +266,39 @@ def _plain_chunk(c: BundleTable, p, occupation_cen, occupation_sat):
     return total, q / (total * total)[:, None]
 
 
-# ----------------------------------------------------------------------
-# CUDA kernel
-# ----------------------------------------------------------------------
 @functools.cache
-def _bundle_fn():
-    """Build (first call only) and bind the kernel's C entry point."""
-    lib = load_library("bundle", ("bundle.cu",))
-    fn = lib.tabcorr_bundle
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.tabcorr_cuda_error_string.argtypes = [ctypes.c_int]
+def _bundle_lib():
+    """Build (first call only) and bind the entry points of bundle.cu."""
+    lib = load_library("bundle", KERNEL_SOURCES["bundle"])
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.tabcorr_bundle.argtypes = [vp, i, i, i, ctypes.POINTER(vp),
+                                   ctypes.POINTER(i), i, vp]
+    lib.tabcorr_contraction.argtypes = [vp, i, vp, vp, vp] + [i] * 7 + [vp]
+    lib.tabcorr_bundle.restype = lib.tabcorr_contraction.restype = i
+    lib.tabcorr_cuda_error_string.argtypes = [i]
     lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
-    return fn, lib.tabcorr_cuda_error_string
-
-
-def load_bundle_kernel():
-    """Build and load the kernel now (it is otherwise built at first use)."""
-    _bundle_fn()
+    return lib
 
 
 def _smem_bytes(consts) -> int:
-    """Dynamic shared memory of one block of the kernel for these tables
-    (the layout ``tabcorr_bundle`` in csrc/bundle.cu carves)."""
+    """Dynamic shared memory of one block of csrc/bundle.cu's kernels for
+    these tables (the layout ``smem_floats`` carves)."""
     k_pad = max(c.k_pad for c in consts)
     n_xi = max(c.n_xi for c in consts)
     return 4 * (k_pad * _TB + _KT * _CT + _TB * (_CT // 4) + _TB * n_xi +
                 7 * _TB)
+
+
+def _check_smem(smem):
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"tables too large for the kernel's shared memory "
+                         f"({smem} > {_SMEM_LIMIT} bytes).")
+
+
+def contraction_fits(n_bins, n_xi) -> bool:
+    """Whether the contraction kernel takes a table of this shape."""
+    return 4 * (_round_up(n_bins, _KT) * _TB + _KT * _CT + _TB * (_CT // 4) +
+                _TB * n_xi + 7 * _TB) <= _SMEM_LIMIT
 
 
 def bundle_launch(consts, pmat, modulate_with_cenocc=False):
@@ -218,32 +310,17 @@ def bundle_launch(consts, pmat, modulate_with_cenocc=False):
     the kernel does not take and on any launch error.
     """
     global BUNDLE_LAUNCHES
-    if not pmat.is_cuda:
-        raise ValueError("bundle_launch needs CUDA tensors.")
-    if pmat.dtype != torch.float32 or pmat.dim() != 2 or \
-            pmat.shape[1] != len(Zheng07Model.param_names):
-        raise ValueError(f"params must be (B, 5) float32, got "
-                         f"{tuple(pmat.shape)} {pmat.dtype}.")
-    if not pmat.is_contiguous():
-        raise ValueError("params must be contiguous.")
+    _check_params(pmat)
     if not 1 <= len(consts) <= _MAX_TABLES:
         raise ValueError(f"the kernel takes 1 to {_MAX_TABLES} tables.")
-    smem = _smem_bytes(consts)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"tables too large for the kernel's shared memory "
-                         f"({smem} > {_SMEM_LIMIT} bytes).")
+    _check_smem(_smem_bytes(consts))
     batch = pmat.shape[0]
-    if batch >= 2 ** 31:
-        raise ValueError("batch too large.")
     device = pmat.device
     ptrs, dims, outs = [], [], []
     for c in consts:
         arrays = (c.logm, c.logm_res, c.weight, c.f_t)
         for a in arrays:
-            if a.device != device or a.dtype != torch.float32 or \
-                    not a.is_contiguous():
-                raise ValueError("table constants must be contiguous "
-                                 "float32 on the parameters' device.")
+            _check_tensor(a, device, torch.float32, "table constants")
         total = torch.empty(batch, device=device, dtype=torch.float32)
         xi = torch.empty((batch, c.n_xi), device=device, dtype=torch.float32)
         outs.append((total, xi))
@@ -251,32 +328,44 @@ def bundle_launch(consts, pmat, modulate_with_cenocc=False):
                                                   xi.data_ptr()]
         dims += [c.n_bins, c.n_centrals, c.n_gauss, c.n_xi, c.nbp, c.k_pad,
                  c.c_pad, int(c.auto)]
-    fn, err_str = _bundle_fn()
+    lib = _bundle_lib()
     stream = torch.cuda.current_stream(device).cuda_stream
-    code = fn(pmat.data_ptr(), batch, int(bool(modulate_with_cenocc)),
-              len(consts), (ctypes.c_void_p * len(ptrs))(*ptrs),
-              (ctypes.c_int * len(dims))(*dims), device.index, stream)
-    if code != 0:
-        raise RuntimeError(f"bundle kernel launch failed: CUDA error {code} "
-                           f"({err_str(code).decode()})")
+    code = lib.tabcorr_bundle(
+        pmat.data_ptr(), batch, int(bool(modulate_with_cenocc)), len(consts),
+        (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_int * len(dims))(*dims), device.index, stream)
+    _raise_on_error(code, "bundle", lib.tabcorr_cuda_error_string)
     BUNDLE_LAUNCHES += 1
     return outs
 
 
-# ----------------------------------------------------------------------
-# Predictor
-# ----------------------------------------------------------------------
-def check_accuracy(accuracy, n_tables):
-    """Validated per-table accuracy contracts ('elementwise' default)."""
-    if accuracy is None:
-        return ("elementwise",) * n_tables
-    accuracy = tuple(accuracy)
-    if len(accuracy) != n_tables:
-        raise ValueError("accuracy must give one contract per table.")
-    for a in accuracy:
-        if a not in ACCURACY_CONTRACTS:
-            raise ValueError(f"Unknown accuracy contract: {a!r}")
-    return accuracy
+def contraction_launch(c: BundleTable, ngal):
+    """Launch the CUDA contraction kernel on ngal (B, n_bins) float32 on
+    the table's CUDA device.  Returns (total (B,), xi (B, n_xi)); raises
+    on any input the kernel does not take and on any launch error."""
+    global CONTRACTION_LAUNCHES
+    if not ngal.is_cuda:
+        raise ValueError("contraction_launch needs CUDA tensors.")
+    if ngal.dim() != 2 or ngal.shape[1] != c.n_bins:
+        raise ValueError(f"ngal must be (B, {c.n_bins}), got "
+                         f"{tuple(ngal.shape)}.")
+    _check_tensor(ngal, c.f_t.device, torch.float32, "ngal")
+    _check_smem(_smem_bytes([c]))
+    batch = ngal.shape[0]
+    if batch >= 2 ** 31:
+        raise ValueError("batch too large.")
+    device = ngal.device
+    total = torch.empty(batch, device=device, dtype=torch.float32)
+    xi = torch.empty((batch, c.n_xi), device=device, dtype=torch.float32)
+    lib = _bundle_lib()
+    code = lib.tabcorr_contraction(
+        ngal.data_ptr(), batch, c.f_t.data_ptr(), total.data_ptr(),
+        xi.data_ptr(), c.n_bins, c.n_xi, c.nbp, c.k_pad, c.c_pad,
+        int(c.auto), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on_error(code, "contraction", lib.tabcorr_cuda_error_string)
+    CONTRACTION_LAUNCHES += 1
+    return total, xi
 
 
 def shaped(consts, results):
@@ -312,21 +401,338 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
     device = consts[0].logm.device
     if any(c.logm.device != device for c in consts):
         raise ValueError("all tables must be on one device.")
-    if device.type == "cuda" and not isinstance(model, Zheng07Model):
-        raise ValueError("the CUDA bundle kernel evaluates Zheng07Model "
-                         f"occupations only, not {type(model).__name__}.")
+    _check_kernel_model(device, model, "bundle")
     occ_cen, occ_sat = occupation_functions(model)
 
     def predict_batch(params):
-        p_device = next(iter(params.values())).device
-        if p_device != device:
-            raise ValueError(f"parameters on {p_device}, tables on {device}.")
+        _check_params_device(params, device)
         if device.type == "cpu":
             results = bundle_predict_plain(consts, params, occ_cen, occ_sat)
         else:
-            pmat = torch.stack([params[k] for k in Zheng07Model.param_names],
-                               dim=1)
-            results = bundle_launch(consts, pmat, model.modulate_with_cenocc)
+            results = bundle_launch(consts, _param_matrix(params),
+                                    model.modulate_with_cenocc)
         return shaped(consts, results)
 
     return predict_batch
+
+
+def _check_kernel_model(device, model, what):
+    if device.type == "cuda" and not isinstance(model, Zheng07Model):
+        raise ValueError(f"the CUDA {what} kernel evaluates Zheng07Model "
+                         f"occupations only, not {type(model).__name__}.")
+
+
+def _check_params_device(params, device):
+    p_device = next(iter(params.values())).device
+    if p_device != device:
+        raise ValueError(f"parameters on {p_device}, tables on {device}.")
+
+
+def _param_matrix(params):
+    return torch.stack([params[k] for k in Zheng07Model.param_names], dim=1)
+
+
+def make_fused_contraction(table: TableData, accuracy="elementwise"):
+    """Fused contraction ``ngal (B, n_bins) -> (total (B,), xi (B,
+    n_xi))`` for one float32 table: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    check_accuracy([accuracy], 1)
+    c = bundle_table_constants(table)
+
+    def contract(ngal):
+        if ngal.device.type == "cpu":
+            return contraction_plain(c, ngal)
+        return contraction_launch(c, ngal)
+
+    return contract
+
+
+def occupation_density(table: TableData, model, params):
+    """The per-bin density n[b, i] = <N>(params_b) n_h[i] (B, n_bins) in
+    tensor ops, ``_OCC_CHUNK`` rows at a time: the contraction kernel's
+    input."""
+    occ_cen, occ_sat = occupation_functions(model)
+    batch = next(iter(params.values())).shape[0]
+    return torch.cat([
+        mean_occupation(table, occ_cen, occ_sat,
+                        {k: v[lo:lo + _OCC_CHUNK] for k, v in params.items()})
+        * table.n_h for lo in range(0, batch, _OCC_CHUNK)])
+
+
+def make_fused_predictor(table: TableData, model, accuracy="elementwise"):
+    """Batched predictor ``f(params dict of (B,)) -> (ngal, xi (B,
+    *tpcf_shape))`` for one float32 table and any model: the occupation
+    quadrature in tensor ops (:func:`occupation_density`), then the
+    contraction kernel (:func:`make_fused_contraction`)."""
+    contract = make_fused_contraction(table, accuracy)
+
+    def predict_batch(params):
+        total, xi = contract(occupation_density(table, model, params))
+        return total, xi.reshape((xi.shape[0],) + tuple(table.tpcf_shape))
+
+    return predict_batch
+
+
+# ----------------------------------------------------------------------
+# Grid (B2): constants, plain version, kernel
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class GridTable:
+    """Host-built constants of a stacked Interpolator grid (one halo
+    binning), as tensors on one device.
+
+    ``logm``, ``logm_res``, ``sec`` and ``weight`` are the quadrature as in
+    :class:`BundleTable`.  ``pair_i``/``pair_j`` (int32, auto mode) list
+    the packed pairs i <= j in ``np.triu_indices`` order; cross mode
+    contracts the densities themselves (``npair == n_bins``).  ``fp`` is
+    the packed matrix (k_pad, c_pad), zero-padded, with node-major
+    columns: ``fp[p, node * nxp + k] = (2 - delta_ij) F_node[k, i_p, j_p]``
+    (auto) or ``F_node[k, p]`` (cross), ``nxp`` the statistic count
+    rounded up to 4 so each thread's 4 columns share one node.
+    """
+
+    auto: bool
+    n_bins: int
+    n_centrals: int
+    n_nodes: int
+    n_xi: int
+    nxp: int
+    npair: int
+    logm: torch.Tensor
+    logm_res: torch.Tensor
+    sec: torch.Tensor
+    weight: torch.Tensor
+    pair_i: torch.Tensor
+    pair_j: torch.Tensor
+    fp: torch.Tensor
+
+    @property
+    def n_gauss(self):
+        return self.logm.shape[1]
+
+    @property
+    def k_pad(self):
+        return self.fp.shape[0]
+
+    @property
+    def c_pad(self):
+        return self.fp.shape[1]
+
+
+def grid_layout_for(table: TableData):
+    """The layout tabcorr_tpu's 'auto' picks for ``table``: 'packed'
+    where the packed pair row fits 8192 lanes (every published table),
+    else 'slab'."""
+    return _grid_layout(table.n_bins, table.mode)
+
+
+def _grid_layout(n_bins, mode):
+    npair_pad = _round_up(n_bins * (n_bins + 1) // 2, 128)
+    return "packed" if mode != AUTO or npair_pad <= 8192 else "slab"
+
+
+def grid_fits(n_bins, mode, n_xi) -> bool:
+    """Whether the grid kernel takes a grid of this shape (the packed
+    layout, and one block's densities in shared memory)."""
+    return (_grid_layout(n_bins, mode) == "packed" and
+            grid_block_rows(n_bins, n_xi) is not None)
+
+
+def grid_table_constants(table: TableData, n_nodes) -> GridTable:
+    """Constants of the stacked grid ``table`` (every node's rows stacked
+    on the statistic axis, node-major)."""
+    nb = table.n_bins
+    auto = table.mode == AUTO
+    dense = table.tpcf_dense.cpu().numpy().astype(np.float32)
+    if dense.shape[0] % n_nodes:
+        raise ValueError("Stacked row count must be divisible by n_nodes.")
+    n_xi = dense.shape[0] // n_nodes
+    dense = dense.reshape((n_nodes, n_xi) + dense.shape[1:])
+    if auto:
+        idx_i, idx_j = np.triu_indices(nb)
+        prefac = np.where(idx_i == idx_j, 1.0, 2.0).astype(np.float32)
+        packed = dense[:, :, idx_i, idx_j] * prefac      # (nodes, n_xi, np)
+    else:
+        idx_i = idx_j = np.zeros(0, np.int64)
+        packed = dense                                    # (nodes, n_xi, nb)
+    npair = packed.shape[2]
+    nxp = _round_up(n_xi, 4)
+    blocks = np.zeros((npair, n_nodes, nxp), np.float32)
+    blocks[:, :, :n_xi] = packed.transpose(2, 0, 1)
+    fp = np.zeros((_round_up(npair, _KT), _round_up(n_nodes * nxp, _CT)),
+                  np.float32)
+    fp[:npair, :n_nodes * nxp] = blocks.reshape(npair, -1)
+    device = table.n_h.device
+    return GridTable(auto=auto, n_bins=nb, n_centrals=table.n_centrals,
+                     n_nodes=n_nodes, n_xi=n_xi, nxp=nxp, npair=npair,
+                     pair_i=_tensor(idx_i, device, np.int32),
+                     pair_j=_tensor(idx_j, device, np.int32),
+                     fp=_tensor(fp, device), **_quadrature_arrays(table))
+
+
+def grid_predict_plain(g: GridTable, params, node_weights, occupation_cen,
+                       occupation_sat):
+    """The grid kernel's plain version, ``_PLAIN_CHUNK`` batch rows at a
+    time (bounding the (chunk, npair) pair weights and the (chunk,
+    n_nodes, n_xi) per-node statistics).
+
+    The densities and pair weights are float32, as in the kernel; the
+    contraction over the pairs and the node fold run in float64 and round
+    to float32 at the end.  A float32 matrix product sums the 1830 pairs
+    of the 64-node grid in long float32 runs and lands up to ~3e-6
+    (scaled) from the float64 result, more than the kernel, which sums in
+    two levels (csrc/grid.cu).
+
+    Returns (total (B,), xi): with ``node_weights`` (B, n_nodes) the
+    folded (B, n_xi), else the per-node (B, n_nodes, n_xi).
+    """
+    batch = next(iter(params.values())).shape[0]
+    pair_i, pair_j = g.pair_i.long(), g.pair_j.long()
+    fp = g.fp[:g.npair, :g.n_nodes * g.nxp].double()
+    totals, xis = [], []
+    for lo in range(0, batch, _PLAIN_CHUNK):
+        p = {k: v[lo:lo + _PLAIN_CHUNK, None, None] for k, v in params.items()}
+        ngal = _plain_ngal(g, p, occupation_cen, occupation_sat)
+        total = _total(ngal)
+        w = ngal[:, pair_i] * ngal[:, pair_j] if g.auto else ngal
+        t = (w.double() @ fp).reshape(-1, g.n_nodes, g.nxp)[:, :, :g.n_xi]
+        den = total * total if g.auto else total
+        if node_weights is None:
+            xi = t.float() / den[:, None, None]
+        else:
+            # Elementwise, so a NaN weight reaches every xi of its row.
+            nw = node_weights[lo:lo + _PLAIN_CHUNK].double()
+            xi = torch.sum(nw[:, :, None] * t, dim=1).float() / den[:, None]
+        totals.append(total)
+        xis.append(xi)
+    return torch.cat(totals), torch.cat(xis)
+
+
+@functools.cache
+def _grid_lib():
+    """Build (first call only) and bind the entry point of grid.cu."""
+    lib = load_library("grid", KERNEL_SOURCES["grid"])
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.tabcorr_grid.argtypes = ([vp, vp, i, i, vp, vp, vp, i, i, i, vp, vp,
+                                  i, vp] + [i] * 7 + [vp, vp, i, vp])
+    lib.tabcorr_grid.restype = i
+    lib.tabcorr_cuda_error_string.argtypes = [i]
+    lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _grid_smem_bytes(tb, n_bins, nxp) -> int:
+    """Dynamic shared memory of one block of csrc/grid.cu's kernel with
+    ``tb`` rows (the layout ``smem_floats`` carves)."""
+    return 4 * (_round_up(n_bins, _KT) * tb + _KT * tb + _KT * _CT +
+                tb * _CT + 2 * tb * nxp + 7 * tb)
+
+
+def grid_block_rows(n_bins, n_xi):
+    """Batch rows per block of the grid kernel for a table of this shape:
+    64, or 32 where 64 rows' densities do not fit in shared memory; None
+    where neither fits."""
+    nxp = _round_up(n_xi, 4)
+    for tb in _GRID_BLOCK_ROWS:
+        if _grid_smem_bytes(tb, n_bins, nxp) <= _SMEM_LIMIT:
+            return tb
+    return None
+
+
+def grid_launch(g: GridTable, pmat, node_weights=None,
+                modulate_with_cenocc=False):
+    """Launch the CUDA grid kernel once.
+
+    ``pmat`` is the (B, 5) float32 zheng07 parameter matrix on the grid's
+    CUDA device; ``node_weights`` (B, n_nodes) float32 folds the nodes
+    (returns xi (B, n_xi)), None returns the per-node xi (B, n_nodes,
+    n_xi).  Raises on any input the kernel does not take and on any
+    launch error.
+    """
+    global GRID_LAUNCHES
+    _check_params(pmat)
+    device = pmat.device
+    for a in (g.logm, g.logm_res, g.weight, g.fp):
+        _check_tensor(a, device, torch.float32, "grid constants")
+    for a in (g.pair_i, g.pair_j):
+        _check_tensor(a, device, torch.int32, "pair indices")
+    batch = pmat.shape[0]
+    if node_weights is not None:
+        _check_tensor(node_weights, device, torch.float32, "node weights")
+        if tuple(node_weights.shape) != (batch, g.n_nodes):
+            raise ValueError(f"node weights must be ({batch}, {g.n_nodes}), "
+                             f"got {tuple(node_weights.shape)}.")
+    tb = grid_block_rows(g.n_bins, g.n_xi)
+    if tb is None:
+        raise ValueError(f"{g.n_bins} bins are too many for the grid "
+                         "kernel's shared memory.")
+    total = torch.empty(batch, device=device, dtype=torch.float32)
+    shape = ((batch, g.n_xi) if node_weights is not None else
+             (batch, g.n_nodes, g.n_xi))
+    xi = torch.empty(shape, device=device, dtype=torch.float32)
+    lib = _grid_lib()
+    code = lib.tabcorr_grid(
+        pmat.data_ptr(),
+        None if node_weights is None else node_weights.data_ptr(), batch,
+        int(bool(modulate_with_cenocc)), g.logm.data_ptr(),
+        g.logm_res.data_ptr(), g.weight.data_ptr(), g.n_bins, g.n_centrals,
+        g.n_gauss, g.pair_i.data_ptr(), g.pair_j.data_ptr(), g.npair,
+        g.fp.data_ptr(), g.k_pad, g.c_pad, g.n_nodes, g.n_xi, g.nxp,
+        int(g.auto), tb, total.data_ptr(), xi.data_ptr(), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on_error(code, "grid", lib.tabcorr_cuda_error_string)
+    GRID_LAUNCHES += 1
+    return total, xi
+
+
+def make_fused_grid_predictor(table: TableData, n_nodes, model,
+                              accuracy="elementwise", layout="auto",
+                              fold_spline=False):
+    """Predictor over a stacked Interpolator grid of one halo binning.
+
+    Parameters
+    ----------
+    table : TableData
+        float32; every node's statistic rows stacked node-major on the
+        statistic axis ((n_nodes * n_xi, ...)), sharing one quadrature.
+    n_nodes : int
+    model : HodModel
+        On a CUDA device a :class:`Zheng07Model`, the occupation the
+        kernel evaluates; on the CPU any model (plain version).
+    accuracy : str
+        'elementwise' or 'scaled'; both run at full float32 precision.
+    layout : str
+        'packed', or 'auto' (tabcorr_tpu's rule, :func:`grid_layout_for`).
+        The 'slab' layout (B4) is not ported and raises
+        NotImplementedError, so does 'auto' where it would pick it.
+    fold_spline : bool
+        True: the callable takes ``(params, node_weights (B, n_nodes))``
+        and returns ``(ngal (B,), xi (B, n_xi))``, the nodes reduced by
+        the weights inside the kernel.  False: ``f(params) -> (ngal,
+        xi (B, n_nodes, n_xi))``.
+    """
+    check_accuracy([accuracy], 1)
+    if layout == "auto":
+        layout = grid_layout_for(table)
+    if layout == "slab":
+        raise NotImplementedError(
+            "the 'slab' grid layout (tabcorr_tpu's node-streamed slab "
+            "kernel, B4 in ROADMAP.md) is not ported.")
+    if layout != "packed":
+        raise ValueError(f"Unknown layout: {layout!r}")
+    g = grid_table_constants(table, n_nodes)
+    device = g.fp.device
+    _check_kernel_model(device, model, "grid")
+    occ_cen, occ_sat = occupation_functions(model)
+
+    def run(params, node_weights):
+        _check_params_device(params, device)
+        if device.type == "cpu":
+            return grid_predict_plain(g, params, node_weights, occ_cen,
+                                      occ_sat)
+        return grid_launch(g, _param_matrix(params), node_weights,
+                           model.modulate_with_cenocc)
+
+    if fold_spline:
+        return run
+    return lambda params: run(params, None)

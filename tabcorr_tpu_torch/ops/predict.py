@@ -156,3 +156,38 @@ def predict_from_occupation(table: TableData, mean_occ):
         xi = torch.einsum("ki,...i->...k", table.tpcf_dense, ngal)
         xi = xi / total[..., None]
     return total, xi
+
+
+def predict_from_occupation_separate(table: TableData, mean_occ):
+    """Per-galaxy-type decomposition (reference: tabcorr/tabcorr.py:652-683).
+
+    Returns (ngal_dict, xi_dict); auto-mode keys are 'centrals-centrals',
+    'centrals-satellites' and 'satellites-satellites', cross-mode keys
+    'centrals' and 'satellites'.
+    """
+    ngal = mean_occ * table.n_h
+    mask_c = (torch.arange(table.n_bins, device=ngal.device) <
+              table.n_centrals).to(ngal.dtype)
+    n_cen = ngal * mask_c
+    n_sat = ngal * (1.0 - mask_c)
+    total = torch.sum(ngal, dim=-1)
+    ngal_dict = {"centrals": torch.sum(n_cen, dim=-1),
+                 "satellites": torch.sum(n_sat, dim=-1)}
+    if table.mode == AUTO:
+        denom = total[..., None] ** 2
+
+        def quad(a, b):
+            t = torch.einsum("kij,...j->...ki", table.tpcf_dense, b)
+            return torch.einsum("...ki,...i->...k", t, a) / denom
+
+        xi_dict = {"centrals-centrals": quad(n_cen, n_cen),
+                   "centrals-satellites": 2.0 * quad(n_cen, n_sat),
+                   "satellites-satellites": quad(n_sat, n_sat)}
+    else:
+        denom = total[..., None]
+        xi_dict = {
+            "centrals": torch.einsum("ki,...i->...k", table.tpcf_dense,
+                                     n_cen) / denom,
+            "satellites": torch.einsum("ki,...i->...k", table.tpcf_dense,
+                                       n_sat) / denom}
+    return ngal_dict, xi_dict

@@ -1,47 +1,333 @@
-"""Batched prediction: the port's main entry points.
+"""Batched prediction: the port's entry points.
 
-:func:`make_multi_predictor` turns several tabulations plus an HOD model
-into one function
+:func:`make_predictor` turns a :class:`~.table.TabCorr` or an
+:class:`~.interpolator.Interpolator` plus an HOD model into one function
 
-    f(params: dict[str, (B,) tensor]) -> [(ngal (B,), xi (B, *tpcf_shape)), ...]
+    f(params: dict[str, (B,) tensor]) -> (ngal (B,), xi (B, *tpcf_shape))
 
-that evaluates every statistic for a whole parameter batch -- on a CUDA
-device through one launch of the hand-written bundle kernel
-(``ops.fused``).  :func:`make_predictor` is the plain tensor path for one
-tabulation.
+that evaluates a whole parameter batch.  Its engines:
+
+* 'fused' -- on a CUDA device a hand-written kernel per call (``ops.fused``):
+  for a TabCorr the occupation in tensor ops, then the contraction kernel;
+  for an Interpolator the grid kernel with the grid spline folded in.  On
+  the CPU the same call runs the kernels' plain versions.
+* 'plain' -- tensor ops only: per node mean occupation and contraction,
+  then the grid splines (the reference pipeline, heterogeneous node
+  binnings included; reference: tabcorr/interpolator.py:124-216).
+* 'auto' (default) -- 'fused' on CUDA where the object, model and dtype
+  allow it, 'plain' otherwise.
+
+:func:`make_multi_predictor` evaluates several tabulations at once through
+one launch of the bundle kernel.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
+from .interpolator import Interpolator, spline_eval
 from .models.protocol import occupation_functions
+from .models.zheng07 import Zheng07Model
 from .ops import fused
-from .ops.predict import mean_occupation, predict_from_occupation
+from .ops.predict import (TableData, mean_occupation, predict_from_occupation,
+                          predict_from_occupation_separate)
 from .table import TabCorr
 from .utils.device import resolve_device
 
 __all__ = ["occupation_functions", "make_predictor", "make_multi_predictor",
-           "params_batch"]
+           "make_occupation_predictor", "params_batch", "stacked_grid",
+           "grid_node_weights"]
+
+ENGINES = ("auto", "fused", "plain")
 
 
-def make_predictor(halotab: TabCorr, model, n_gauss=10, dtype=torch.float32,
-                   *, device):
-    """Batched predictor for one tabulation through plain tensor ops.
-
-    Returns ``f(params dict of (B,) tensors) -> (ngal (B,), xi (B,
-    *tpcf_shape))``.  ``dtype=torch.float64`` matches the float64 host
-    path to rounding.
-    """
+def _tabcorr_predict_fn(halotab, model, n_gauss, dtype, separate_gal_type,
+                        device):
     table = halotab.table_data(n_gauss=n_gauss, dtype=dtype, device=device)
     occ_cen, occ_sat = occupation_functions(model)
 
     def predict(params):
         mean_occ = mean_occupation(table, occ_cen, occ_sat, params)
+        if separate_gal_type:
+            return predict_from_occupation_separate(table, mean_occ)
         ngal, xi = predict_from_occupation(table, mean_occ)
         return ngal, xi.reshape(xi.shape[:-1] + table.tpcf_shape)
 
     return predict
+
+
+def _pad_table_data(table: TableData, n_cen, n_sat) -> TableData:
+    """Pad a TableData to (n_cen centrals + n_sat satellites) bins.
+
+    Bins are ordered [centrals..., satellites...]; zero bins are inserted
+    after each block.  Padded bins carry quad_weight = 0 (mean occupation
+    exactly 0), n_h = 0 and zero matrix rows and columns, so they add
+    nothing to any contraction; this lets Interpolator nodes with
+    different halo binnings share one stack (reference: interpolator.py:
+    63-70).
+    """
+    old_cen = table.n_centrals
+    pad_c = n_cen - old_cen
+    pad_s = n_sat - (table.n_bins - old_cen)
+    if pad_c == 0 and pad_s == 0:
+        return table
+    if pad_c < 0 or pad_s < 0:
+        raise ValueError("Cannot pad to fewer bins.")
+
+    def pad_axis(x, axis):
+        if x is None:
+            return None
+        parts = []
+        for lo, hi, pad in ((0, old_cen, pad_c),
+                            (old_cen, x.shape[axis], pad_s)):
+            parts.append(x.narrow(axis, lo, hi - lo))
+            shape = list(x.shape)
+            shape[axis] = pad
+            parts.append(x.new_zeros(shape))
+        return torch.cat(parts, dim=axis)
+
+    dense = pad_axis(table.tpcf_dense, 1)
+    if table.mode == "auto":
+        dense = pad_axis(dense, 2)
+    return dataclasses.replace(
+        table, tpcf_dense=dense, n_h=pad_axis(table.n_h, 0),
+        log_prim_quad=pad_axis(table.log_prim_quad, 0),
+        quad_weight=pad_axis(table.quad_weight, 0),
+        sec_perc=pad_axis(table.sec_perc, 0), n_centrals=n_cen,
+        log_prim_quad_lo=pad_axis(table.log_prim_quad_lo, 0))
+
+
+def _spline_constants(interp, dtype, device):
+    xp = [torch.tensor(x, dtype=dtype, device=device) for x in interp.xp]
+    a = [torch.tensor(x, dtype=dtype, device=device) for x in interp.a]
+    return tuple(interp.keys), xp, a
+
+
+def _axis_weights(x, xp, a, extrapolate):
+    """(B, len(xp)) weights of one grid axis: the spline applied to the
+    identity ordinates."""
+    eye = torch.eye(xp.shape[0], dtype=xp.dtype, device=xp.device)
+    return spline_eval(x, xp, a, eye, extrapolate=extrapolate)
+
+
+def _spline_over_grid(params, keys, xp_dev, a_dev, grid_shape, values,
+                      extrapolate=True):
+    """Reduce the grid axes of ``values`` (B, n_nodes, ...), one spline
+    pass per key; returns (B, ...)."""
+    y = values.reshape(values.shape[:1] + tuple(grid_shape) +
+                       values.shape[2:])
+    for key, xp, a in zip(keys, xp_dev, a_dev):
+        w = _axis_weights(params[key], xp, a, extrapolate)
+        y = torch.einsum("bj,bj...->b...", w, y)
+    return y
+
+
+def _grid_node_weights(params, keys, xp_dev, a_dev, extrapolate=True):
+    """Per-sample node weights (B, n_nodes) of the multi-axis grid spline.
+
+    Each spline pass is linear in its ordinates, so the whole grid
+    reduction is one weight vector per sample: the outer product of the
+    axis weights, flattened in C (grid) order, so that
+    ``_spline_over_grid(values) == node_weights @ values`` up to float32
+    summation order.  NaN (``extrapolate=False`` outside the grid) appears
+    in every weight of the offending sample.
+    """
+    w = None
+    for key, xp, a in zip(keys, xp_dev, a_dev):
+        wk = _axis_weights(params[key], xp, a, extrapolate)
+        w = wk if w is None else (
+            w[:, :, None] * wk[:, None, :]).reshape(w.shape[0], -1)
+    return w
+
+
+def _grid_order(interp):
+    """Node indices in grid order (the sorted ``param_dict_table``)."""
+    return [int(i) for i in interp.param_dict_table["tabcorr_index"]]
+
+
+def _interpolator_predict_fn(interp, model, n_gauss, dtype,
+                             separate_gal_type, extrapolate, device):
+    """The plain engine: tensor-op occupation once per unique halo
+    binning, every node's contraction, then the grid splines."""
+    order = _grid_order(interp)
+    tables = [interp.tabcorr_list[i].table_data(
+        n_gauss=n_gauss, dtype=dtype, device=device) for i in order]
+    # Heterogeneous node binnings: zero-pad every node to the widest
+    # (centrals, satellites) blocks so that the occupations stack.
+    n_cen = max(t.n_centrals for t in tables)
+    n_sat = max(t.n_bins - t.n_centrals for t in tables)
+    tables = [_pad_table_data(t, n_cen, n_sat) for t in tables]
+    unique_nodes = [order.index(i) if i in order else 0
+                    for i in interp.unique_gal_type_index]
+    inverse_for_node = [int(interp.unique_gal_type_inverse[i])
+                        for i in order]
+    occ_cen, occ_sat = occupation_functions(model)
+    keys, xp_dev, a_dev = _spline_constants(interp, dtype, device)
+    grid_shape = tuple(len(xp) for xp in interp.xp)
+
+    def spline(params, values):
+        return _spline_over_grid(params, keys, xp_dev, a_dev, grid_shape,
+                                 values, extrapolate)
+
+    def predict(params):
+        occ_unique = torch.stack([
+            mean_occupation(tables[k], occ_cen, occ_sat, params)
+            for k in unique_nodes])
+        occ_nodes = [occ_unique[u] for u in inverse_for_node]
+        if separate_gal_type:
+            per_node = [predict_from_occupation_separate(t, o)
+                        for t, o in zip(tables, occ_nodes)]
+            return tuple(
+                {key: spline(params, torch.stack(
+                    [out[part][key] for out in per_node], dim=1))
+                 for key in per_node[0][part]}
+                for part in (0, 1))
+        per_node = [predict_from_occupation(t, o)
+                    for t, o in zip(tables, occ_nodes)]
+        ngal = spline(params, torch.stack([n for n, _ in per_node], dim=1))
+        xi = spline(params, torch.stack([x for _, x in per_node], dim=1))
+        return ngal, xi.reshape(xi.shape[:1] + tables[0].tpcf_shape)
+
+    return predict
+
+
+def stacked_grid(interp, n_gauss=10, *, device):
+    """An Interpolator whose nodes share one halo binning as one float32
+    TableData: every node's statistic rows stacked in grid order on the
+    statistic axis.  Returns (stacked table, n_nodes, one node's
+    tpcf_shape)."""
+    if len(interp.unique_gal_type_index) != 1:
+        raise ValueError("engine='fused' requires all Interpolator nodes "
+                         "to share one halo binning.")
+    tables = [interp.tabcorr_list[i].table_data(
+        n_gauss=n_gauss, dtype=torch.float32, device=device)
+        for i in _grid_order(interp)]
+    base = tables[0]
+    stacked = dataclasses.replace(
+        base, tpcf_dense=torch.cat([t.tpcf_dense for t in tables]),
+        tpcf_shape=(len(tables) * base.tpcf_dense.shape[0],))
+    return stacked, len(tables), base.tpcf_shape
+
+
+def grid_node_weights(interp, params, extrapolate=False):
+    """(B, n_nodes) float32 weights of the grid spline for the batch
+    ``params``, on its device (NaN rows outside the grid unless
+    ``extrapolate``)."""
+    device = next(iter(params.values())).device
+    keys, xp_dev, a_dev = _spline_constants(interp, torch.float32, device)
+    return _grid_node_weights(params, keys, xp_dev, a_dev, extrapolate)
+
+
+def _interpolator_fused_predict_fn(interp, model, n_gauss, extrapolate,
+                                   accuracy, device):
+    """The fused engine for an Interpolator whose nodes share one halo
+    binning: one grid kernel per call evaluates the occupation, every
+    node's contraction and the grid spline (folded in as per-sample node
+    weights).  Samples outside the grid (NaN weights) get NaN ngal and
+    xi, as the plain engine's splined ngal does."""
+    stacked, n_nodes, tpcf_shape = stacked_grid(interp, n_gauss,
+                                                device=device)
+    node_fn = fused.make_fused_grid_predictor(
+        stacked, n_nodes, model, accuracy=accuracy, fold_spline=True)
+    keys, xp_dev, a_dev = _spline_constants(interp, torch.float32, device)
+
+    def predict_batch(params):
+        batch = next(iter(params.values())).shape[0]
+        nw = _grid_node_weights(params, keys, xp_dev, a_dev, extrapolate)
+        total, xi = node_fn(params, nw)
+        # ngal is the same at every node of a shared binning, so in-grid
+        # samples pass it through exactly; out-of-grid samples are
+        # poisoned like their xi (reference: interpolator.py:196-205).
+        total = torch.where(torch.isnan(nw.sum(dim=-1)), torch.nan, total)
+        return total, xi.reshape((batch,) + tuple(tpcf_shape))
+
+    return predict_batch
+
+
+def _fused_kernel_takes(obj, model):
+    """Whether a CUDA kernel takes ``obj``'s shapes (and, for the grid
+    kernel, which evaluates zheng07, the model)."""
+    tab = obj if isinstance(obj, TabCorr) else obj.tabcorr_list[0]
+    n_xi = int(np.prod(tab.tpcf_shape))
+    if isinstance(obj, TabCorr):
+        return fused.contraction_fits(tab.n_bins, n_xi)
+    return (isinstance(model, Zheng07Model) and
+            fused.grid_fits(tab.n_bins, tab.mode, n_xi))
+
+
+def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
+                   separate_gal_type=False, engine="auto", extrapolate=False,
+                   accuracy="elementwise", *, device):
+    """Batched predictor for a tabulation or an interpolator.
+
+    Parameters
+    ----------
+    obj : TabCorr or Interpolator
+    model : HodModel
+        Supplies the occupation functions; an Interpolator's grid keys are
+        read from the parameter dict too.
+    n_gauss : int, optional
+        Gauss-Legendre nodes per halo bin. Default 10.
+    dtype : torch.dtype, optional
+        float32 (the kernels' type) or float64 (plain engine; matches the
+        float64 host path to rounding).
+    separate_gal_type : bool, optional
+        Per-galaxy-type dicts (plain engine).
+    engine : str, optional
+        'fused', 'plain' or 'auto' (default; see the module docstring).
+        'fused' takes float32, no ``separate_gal_type``, and an
+        Interpolator only if its nodes share one halo binning.
+    extrapolate : bool, optional
+        Interpolators only.  False (default) gives NaN for parameters
+        outside the grid -- pair it with a log posterior that maps
+        non-finite predictions to -inf; True clamps to the edge splines.
+    accuracy : str, optional
+        Fused-engine contract, 'elementwise' or 'scaled'; both run at
+        full float32 precision.
+    device : str or torch.device
+        Where the tables live and the batch runs ('cpu' or 'cuda').
+
+    Returns
+    -------
+    callable
+        ``f(params dict of (B,) tensors) -> (ngal, xi)``.
+    """
+    device = resolve_device(device)
+    if engine not in ENGINES:
+        raise ValueError(f"Unknown engine: {engine!r}")
+    if not isinstance(obj, (TabCorr, Interpolator)):
+        raise TypeError(f"Cannot build a predictor for {type(obj)}.")
+    if engine == "fused" and dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "the bfloat16 fused route (tabcorr_tpu's XLA occupation plus "
+            "bf16 contraction) is not ported; ROADMAP.md lists it.")
+    fused_eligible = (not separate_gal_type and dtype == torch.float32 and
+                      (isinstance(obj, TabCorr) or
+                       len(obj.unique_gal_type_index) == 1))
+    if engine == "auto":
+        engine = ("fused" if fused_eligible and device.type == "cuda" and
+                  _fused_kernel_takes(obj, model) else "plain")
+    if engine == "fused":
+        if not fused_eligible:
+            raise ValueError(
+                "engine='fused' requires float32, separate_gal_type=False "
+                "and a TabCorr or an Interpolator whose nodes share one "
+                "halo binning.")
+        if isinstance(obj, Interpolator):
+            return _interpolator_fused_predict_fn(obj, model, n_gauss,
+                                                  extrapolate, accuracy,
+                                                  device)
+        table = obj.table_data(n_gauss=n_gauss, dtype=dtype, device=device)
+        return fused.make_fused_predictor(table, model, accuracy)
+    if isinstance(obj, Interpolator):
+        return _interpolator_predict_fn(obj, model, n_gauss, dtype,
+                                        separate_gal_type, extrapolate,
+                                        device)
+    return _tabcorr_predict_fn(obj, model, n_gauss, dtype, separate_gal_type,
+                               device)
 
 
 def make_multi_predictor(objs, model, n_gauss=10, *, device,
@@ -91,6 +377,34 @@ def make_multi_predictor(objs, model, n_gauss=10, *, device,
             consts, params, occ_cen, occ_sat))
 
     return predict_plain
+
+
+def make_occupation_predictor(obj, dtype=torch.float32,
+                              separate_gal_type=False, *, device):
+    """Batched predictor over raw per-bin mean-occupation vectors.
+
+    The statistic is a quadratic (auto) or linear (cross) form in the
+    occupation vector, so this skips the occupation model entirely
+    (reference: tabcorr/tabcorr.py:616-621, predict with an ndarray).
+    Returns ``f(occ (..., n_bins)) -> (ngal (...,), xi (..., *shape))``
+    with bins ordered [centrals..., satellites...] like
+    :meth:`TabCorr.mean_occupation`; ``separate_gal_type`` returns the
+    per-type dicts instead.
+    """
+    table = (obj.table_data(n_gauss=1, dtype=dtype, device=device)
+             if isinstance(obj, TabCorr) else obj)
+
+    def f(occ):
+        occ = torch.as_tensor(occ, dtype=dtype, device=table.n_h.device)
+        shape = occ.shape[:-1] + tuple(table.tpcf_shape)
+        if separate_gal_type:
+            ngal_dict, xi_dict = predict_from_occupation_separate(table, occ)
+            return ngal_dict, {k: v.reshape(shape)
+                               for k, v in xi_dict.items()}
+        ngal, xi = predict_from_occupation(table, occ)
+        return ngal, xi.reshape(shape)
+
+    return f
 
 
 def params_batch(model, overrides=None, batch_shape=(), dtype=torch.float32,

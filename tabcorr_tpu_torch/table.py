@@ -9,6 +9,7 @@ reference math and serves as the port's accuracy oracle on any machine.
 
 from __future__ import annotations
 
+import itertools
 import json
 
 import numpy as np
@@ -52,44 +53,51 @@ class TabCorr:
         """Read a tabulation from an ``.npz`` file (written by
         :meth:`write_npz`) or from a reference-schema HDF5 file."""
         if str(fname).endswith(".npz"):
-            return cls._read_npz(fname)
+            with np.load(fname, allow_pickle=False) as data:
+                return cls.from_npz_arrays(data)
         import h5py
 
-        halotab = cls()
         with h5py.File(fname, "r") as fstream:
-            halotab.attrs = read_attrs(fstream)
-            # Stored float32, up-cast on read like the reference (:399).
-            halotab.tpcf_matrix = fstream["tpcf_matrix"][()].astype(
-                np.float64)
-            halotab.tpcf_args = tuple(
-                fstream["tpcf_args"][key][()] for key in fstream["tpcf_args"])
-            if "tpcf_kwargs" in fstream:
-                for key in fstream["tpcf_kwargs"]:
-                    halotab.tpcf_kwargs[key] = fstream["tpcf_kwargs"][key][()]
-            halotab.tpcf_shape = tuple(fstream["tpcf_shape"][()])
-            halotab.gal_type = ColumnTable.read_hdf5(fstream, "gal_type")
+            return cls.read_hdf5_group(fstream)
+
+    @classmethod
+    def read_hdf5_group(cls, group):
+        """Read a tabulation from an open h5py file or group."""
+        halotab = cls()
+        halotab.attrs = read_attrs(group)
+        # Stored float32, up-cast on read like the reference (:399).
+        halotab.tpcf_matrix = group["tpcf_matrix"][()].astype(np.float64)
+        halotab.tpcf_args = tuple(
+            group["tpcf_args"][key][()] for key in group["tpcf_args"])
+        if "tpcf_kwargs" in group:
+            for key in group["tpcf_kwargs"]:
+                halotab.tpcf_kwargs[key] = group["tpcf_kwargs"][key][()]
+        halotab.tpcf_shape = tuple(group["tpcf_shape"][()])
+        halotab.gal_type = ColumnTable.read_hdf5(group, "gal_type")
         return halotab
 
     @classmethod
-    def _read_npz(cls, fname):
+    def from_npz_arrays(cls, data, prefix=""):
+        """A tabulation from the arrays :meth:`npz_arrays` made, each
+        name preceded by ``prefix`` (a mapping or an open ``.npz``)."""
+        def names(start):
+            return [k for k in data.keys() if k.startswith(prefix + start)]
+
         halotab = cls()
-        with np.load(fname, allow_pickle=False) as data:
-            halotab.attrs = json.loads(str(data["attrs"]))
-            halotab.tpcf_matrix = data["tpcf_matrix"].astype(np.float64)
-            halotab.tpcf_shape = tuple(data["tpcf_shape"])
-            halotab.gal_type = ColumnTable.from_structured_array(
-                data["gal_type"])
-            halotab.tpcf_args = tuple(data[k][()] for k in data.files
-                                      if k.startswith("tpcf_args."))
-            halotab.tpcf_kwargs = {
-                k.split(".", 1)[1]: data[k][()] for k in data.files
-                if k.startswith("tpcf_kwargs.")}
+        halotab.attrs = json.loads(str(data[prefix + "attrs"]))
+        halotab.tpcf_matrix = data[prefix + "tpcf_matrix"].astype(np.float64)
+        halotab.tpcf_shape = tuple(data[prefix + "tpcf_shape"])
+        halotab.gal_type = ColumnTable.from_structured_array(
+            data[prefix + "gal_type"])
+        halotab.tpcf_args = tuple(data[k][()] for k in names("tpcf_args."))
+        halotab.tpcf_kwargs = {k[len(prefix):].split(".", 1)[1]: data[k][()]
+                               for k in names("tpcf_kwargs.")}
         return halotab
 
-    def write_npz(self, fname):
-        """Write every field :meth:`read` restores to an uncompressed
-        ``.npz``; the matrix is stored in float32, as the HDF5 schema
-        stores it."""
+    def npz_arrays(self, prefix=""):
+        """Every field :meth:`from_npz_arrays` restores, as numpy arrays
+        named ``prefix + field``; the matrix in float32, as the HDF5
+        schema stores it."""
         arrays = {
             "attrs": np.array(json.dumps(
                 {k: _json_value(v) for k, v in self.attrs.items()})),
@@ -101,7 +109,11 @@ class TabCorr:
             arrays[f"tpcf_args.arg_{i}"] = np.asarray(arg)
         for key, value in self.tpcf_kwargs.items():
             arrays[f"tpcf_kwargs.{key}"] = np.asarray(value)
-        np.savez(fname, **arrays)
+        return {prefix + k: v for k, v in arrays.items()}
+
+    def write_npz(self, fname):
+        """Write :meth:`npz_arrays` to an uncompressed ``.npz``."""
+        np.savez(fname, **self.npz_arrays())
 
     # ------------------------------------------------------------------
     # Derived host-side quantities
@@ -223,18 +235,47 @@ class TabCorr:
             raise ValueError("Mismatch in the redshift of the model and "
                              "the TabCorr instance.")
 
-    def predict(self, model, n_gauss_prim=10, check_consistency=True):
-        """(ngal, xi) for a model in float64 (reference: tabcorr.py:580-683)."""
-        mean_occ = self.mean_occupation(model, n_gauss_prim=n_gauss_prim,
-                                        check_consistency=check_consistency)
+    def predict(self, model, separate_gal_type=False, n_gauss_prim=10,
+                check_consistency=True):
+        """(ngal, xi) for a model in float64 (reference: tabcorr.py:580-683).
+
+        ``model`` may also be a raw mean-occupation ``ndarray`` per bin
+        (the Interpolator's route, reference: tabcorr.py:616-621).  With
+        ``separate_gal_type`` both come back as per-galaxy-type dicts.
+        """
+        if isinstance(model, np.ndarray):
+            mean_occ = model
+        else:
+            mean_occ = self.mean_occupation(
+                model, n_gauss_prim=n_gauss_prim,
+                check_consistency=check_consistency)
         ngal = mean_occ * np.asarray(self.gal_type["n_h"], dtype=np.float64)
         total = np.sum(ngal)
         dense = self.dense_matrix()
+        if not separate_gal_type:
+            if self.mode == AUTO:
+                xi = np.einsum("kij,i,j->k", dense, ngal, ngal) / total**2
+            else:
+                xi = dense @ ngal / total
+            return total, xi.reshape(self.tpcf_shape)
+
+        mask_c = np.zeros_like(ngal)
+        mask_c[:self.n_centrals] = 1.0
+        n_c, n_s = ngal * mask_c, ngal * (1.0 - mask_c)
+        ngal_dict = {"centrals": np.sum(n_c), "satellites": np.sum(n_s)}
+        xi_dict = {}
         if self.mode == AUTO:
-            xi = np.einsum("kij,i,j->k", dense, ngal, ngal) / total**2
+            pairs = itertools.combinations_with_replacement(
+                [("centrals", n_c), ("satellites", n_s)], 2)
+            for (name_1, v_1), (name_2, v_2) in pairs:
+                factor = 1.0 if name_1 == name_2 else 2.0
+                xi = factor * np.einsum("kij,i,j->k", dense, v_1, v_2)
+                xi_dict[f"{name_1}-{name_2}"] = (
+                    xi / total**2).reshape(self.tpcf_shape)
         else:
-            xi = dense @ ngal / total
-        return total, xi.reshape(self.tpcf_shape)
+            for name, vec in [("centrals", n_c), ("satellites", n_s)]:
+                xi_dict[name] = (dense @ vec / total).reshape(self.tpcf_shape)
+        return ngal_dict, xi_dict
 
     def __repr__(self):
         return (f"TabCorr(tpcf={self.attrs.get('tpcf')}, mode="

@@ -1,10 +1,11 @@
-"""Build the port's CUDA sources into a shared library at first use.
+"""Build the port's CUDA sources into shared libraries at first use.
 
 The kernels have a plain C interface and are loaded with ``ctypes``;
-nothing includes PyTorch's headers, so a build takes seconds.  The
+nothing includes PyTorch's headers, so a build takes seconds.  Each
 library goes to ``build/kernels/`` at the root of the checkout, named by
 a hash of every file under ``csrc/`` and of the compiler flags, so a
-changed source builds anew and an unchanged one builds once.  Nothing is
+changed source builds anew and an unchanged one builds once; several
+libraries build in parallel (:func:`build_libraries`).  Nothing is
 compiled when a module is imported: :func:`load_library` runs on the
 first launch.
 """
@@ -55,24 +56,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_source_hash()}.so"
 
 
-@functools.cache
-def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
-    """Compile ``csrc/<sources>`` into ``build/kernels/lib<name>-<hash>.so``
-    unless it is already there, and load it.
+def build_libraries(specs) -> None:
+    """Compile every library of ``specs`` (name -> ``csrc/`` sources) that
+    is not built yet: one nvcc per library, all started together.
 
-    The compiler's resource report (registers, shared memory, spills per
-    kernel) is kept beside the library as ``.log``.
+    Each library goes to :func:`library_path`, with the compiler's
+    resource report (registers, shared memory, spills per kernel) beside
+    it as ``.log``.  Raises if any build fails.
     """
-    out = library_path(name)
-    if not out.exists():
+    builds = []
+    for name, sources in specs.items():
+        out = library_path(name)
+        if out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                *(str(CSRC / s) for s in sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        builds.append((out, tmp, cmd, proc))
+    errors = []
+    for out, tmp, cmd, proc in builds:
+        report, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            errors.append(f"nvcc failed with code {proc.returncode}:\n"
+                          f"{' '.join(cmd)}\n{report}")
+            continue
+        out.with_suffix(".log").write_text(report)
         os.replace(tmp, out)
-    return ctypes.CDLL(str(out))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+@functools.cache
+def load_library(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
+    """Build ``csrc/<sources>`` into ``build/kernels/lib<name>-<hash>.so``
+    unless it is already there (:func:`build_libraries`), and load it."""
+    build_libraries({name: sources})
+    return ctypes.CDLL(str(library_path(name)))

@@ -1,4 +1,5 @@
-"""The CUDA bundle kernel against its plain PyTorch version.
+"""The CUDA kernels (bundle, contraction, grid) against their plain
+PyTorch versions.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a GPU machine without JAX it runs on its own:
@@ -6,16 +7,19 @@ imports no JAX, so on a GPU machine without JAX it runs on its own:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel.py
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from tabcorr_tpu_torch import (TabCorr, Zheng07Model, make_multi_predictor,
+from tabcorr_tpu_torch import (Interpolator, TabCorr, Zheng07Model,
+                               make_multi_predictor, make_predictor,
                                occupation_functions, params_batch)
 from tabcorr_tpu_torch.ops import fused
 from tabcorr_tpu_torch.ops.predict import TableData, quadrature_grid
+from tabcorr_tpu_torch.utils.synthetic import synthetic_tabcorr
 
 pytestmark = pytest.mark.gpu
 
@@ -119,3 +123,176 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda):
         fused.bundle_launch(consts, pmat.cpu())
     with pytest.raises(ValueError):
         fused.bundle_launch(consts, pmat[:, :4].contiguous())
+
+
+# ----------------------------------------------------------------------
+# The contraction kernel (B3)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("mode,n_bins,n_centrals,n_xi,batch", [
+    ("auto", 37, 17, 5, 77), ("cross", 45, 20, 3, 13),
+    ("auto", 130, 64, 11, 4096 + 37)])
+def test_contraction_kernel_matches_plain(cuda, mode, n_bins, n_centrals,
+                                          n_xi, batch):
+    table = _synthetic_table(mode, n_bins, n_centrals, n_xi, 6, cuda)
+    rng = np.random.default_rng(7)
+    ngal = torch.tensor(10.0 ** rng.uniform(-6, -2, (batch, n_bins)),
+                        dtype=torch.float32, device=cuda)
+    contract = fused.make_fused_contraction(table)
+    consts = fused.bundle_table_constants(table)
+    before = fused.CONTRACTION_LAUNCHES
+    got = contract(ngal)
+    torch.cuda.synchronize()
+    assert fused.CONTRACTION_LAUNCHES == before + 1
+    _assert_close([got], [fused.contraction_plain(consts, ngal)],
+                  f"contraction {mode} {n_bins}")
+
+
+def test_fused_tabcorr_predictor_runs_the_contraction_kernel(cuda):
+    wp = TabCorr.read(DATA / "bolplanck_wp.npz")
+    model = Zheng07Model(threshold=-18, redshift=wp.attrs["redshift"])
+    predict = make_predictor(wp, model, engine="fused", device=cuda)
+    assert make_predictor(wp, model, device=cuda).__qualname__ == \
+        predict.__qualname__   # 'auto' picks the kernel on CUDA
+    params = _params(model, 1000, 8, cuda)
+    before = fused.CONTRACTION_LAUNCHES
+    got = predict(params)
+    torch.cuda.synchronize()
+    assert fused.CONTRACTION_LAUNCHES == before + 1
+    plain = make_multi_predictor([wp], model, device=cuda, engine="plain")
+    _assert_close([got], plain(params), "fused TabCorr predictor")
+
+
+def test_contraction_wrapper_rejects_bad_inputs(cuda):
+    table = _synthetic_table("auto", 37, 17, 5, 2, cuda)
+    contract = fused.make_fused_contraction(table)
+    consts = fused.bundle_table_constants(table)
+    ngal = torch.ones((8, 37), device=cuda)
+    with pytest.raises(ValueError):
+        contract(ngal.double())
+    with pytest.raises(ValueError):
+        contract(ngal[:, :36].contiguous())
+    with pytest.raises(ValueError):
+        fused.contraction_launch(consts, ngal.cpu())
+
+
+# ----------------------------------------------------------------------
+# The grid kernel (B2)
+# ----------------------------------------------------------------------
+def _grid_table(n_nodes, n_prim, n_sec, n_xi, mode, seed, device):
+    """A stacked grid of n_nodes synthetic tables sharing one binning."""
+    tables = []
+    for j in range(n_nodes):
+        t = synthetic_tabcorr(np.random.default_rng(seed), n_prim, n_sec,
+                              n_xi, mode)
+        t.tpcf_matrix = t.tpcf_matrix * (1.0 + 0.1 * np.random.default_rng(
+            1000 * seed + j).normal(size=t.tpcf_matrix.shape))
+        tables.append(t.table_data(device=device))
+    return dataclasses.replace(
+        tables[0], tpcf_dense=torch.cat([t.tpcf_dense for t in tables]),
+        tpcf_shape=(n_nodes * n_xi,))
+
+
+def _assert_grid_close(got, want, nan_rows=(), scale=None):
+    """NaN exactly in ``nan_rows``; elsewhere ngal 1e-6 relative and xi
+    within 2e-6 of ``scale`` per row (default: the row's largest |xi|).
+    Folded with weights of both signs, the sum can cancel far below its
+    terms, so the fold's scale is sum_node |w| max_k |xi_node|."""
+    (ng, xi), (ng_p, xi_p) = got, want
+    nan = torch.zeros(xi.shape[0], dtype=torch.bool)
+    nan[list(nan_rows)] = True
+    xi = xi.double().cpu().reshape(xi.shape[0], -1)
+    xi_p = xi_p.double().cpu().reshape(xi.shape[0], -1)
+    assert bool(torch.isnan(xi[nan]).all())
+    assert bool(torch.isfinite(xi[~nan]).all())
+    ng, ng_p = ng.double().cpu(), ng_p.double().cpu()
+    assert float(((ng - ng_p).abs() / ng_p.abs()).max()) <= 1e-6
+    if scale is None:
+        scale = xi_p.abs().amax(1)
+    err = (xi - xi_p).abs().amax(1) / scale.double().cpu()
+    assert float(err[~nan].max()) <= 2e-6
+
+
+@pytest.mark.parametrize("mode", ["auto", "cross"])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("batch", [8, 131])
+def test_grid_kernel_matches_plain(cuda, mode, fold, batch):
+    n_nodes = 6
+    table = _grid_table(n_nodes, 12, 2, 7, mode, 13, cuda)
+    model = Zheng07Model(threshold=-20)
+    predict = fused.make_fused_grid_predictor(table, n_nodes, model,
+                                              fold_spline=fold)
+    g = fused.grid_table_constants(table, n_nodes)
+    params = _params(model, batch, 9, cuda)
+    nw = None
+    if fold:
+        rng = np.random.default_rng(3)
+        nw = torch.tensor(rng.normal(size=(batch, n_nodes)),
+                          dtype=torch.float32, device=cuda)
+        nw[3] = torch.nan
+    before = fused.GRID_LAUNCHES
+    got = predict(params, nw) if fold else predict(params)
+    torch.cuda.synchronize()
+    assert fused.GRID_LAUNCHES == before + 1
+    assert got[1].shape == ((batch, 7) if fold else (batch, n_nodes, 7))
+    occ = occupation_functions(model)
+    want = fused.grid_predict_plain(g, params, nw, *occ)
+    scale = None
+    if fold:
+        nodes = fused.grid_predict_plain(g, params, None, *occ)[1]
+        scale = (nw.abs()[:, :, None] * nodes.abs()).sum(1).amax(1)
+    _assert_grid_close(got, want, nan_rows=(3,) if fold else (), scale=scale)
+
+
+def test_grid_kernel_takes_1104_cross_bins(cuda):
+    # The 'efficient' Delta Sigma grid: the densities of 64 rows would not
+    # fit in shared memory, so the kernel takes 32-row blocks.
+    interp = Interpolator.read(DATA / "ds_efficient.npz")
+    assert fused.grid_block_rows(1104, 13) == 32
+    model = Zheng07Model(threshold=-21, redshift=0.5,
+                         prim_haloprop_key="halo_m258m")
+    model.param_dict.update(log_eta=0.0, alpha_s=1.0, alpha_c=0.0)
+    tables = [interp.tabcorr_list[i].table_data(device=cuda)
+              for i in interp.param_dict_table["tabcorr_index"]]
+    table = dataclasses.replace(
+        tables[0], tpcf_dense=torch.cat([t.tpcf_dense for t in tables]),
+        tpcf_shape=(4 * 13,))
+    predict = fused.make_fused_grid_predictor(table, 4, model,
+                                              fold_spline=True)
+    g = fused.grid_table_constants(table, 4)
+    params = _params(model, 301, 10, cuda)
+    nw = torch.tensor(np.random.default_rng(4).dirichlet(np.ones(4), 301),
+                      dtype=torch.float32, device=cuda)
+    got = predict(params, nw)
+    want = fused.grid_predict_plain(g, params, nw,
+                                    *occupation_functions(model))
+    _assert_grid_close(got, want)
+
+
+def test_fused_interpolator_nan_outside_the_grid(cuda):
+    interp = Interpolator.read(DATA / "ds_efficient.npz")
+    model = Zheng07Model(threshold=-21, redshift=0.5,
+                         prim_haloprop_key="halo_m258m")
+    model.param_dict.update(log_eta=0.0, alpha_s=1.0, alpha_c=0.0)
+    predict = make_predictor(interp, model, engine="fused", device=cuda)
+    params = params_batch(model, {"log_eta": np.array(
+        [0.1, 0.9, -0.2, -0.5], np.float32)}, (4,), device=cuda)
+    before = fused.GRID_LAUNCHES
+    ngal, xi = predict(params)
+    assert fused.GRID_LAUNCHES == before + 1
+    ngal, xi = ngal.cpu(), xi.cpu().reshape(4, -1)
+    out = torch.tensor([False, True, False, True])
+    assert bool(torch.isnan(ngal[out]).all() and torch.isnan(xi[out]).all())
+    assert bool(torch.isfinite(ngal[~out]).all() and
+                torch.isfinite(xi[~out]).all())
+
+
+def test_grid_wrapper_rejects_bad_inputs(cuda):
+    table = _grid_table(3, 8, 1, 3, "auto", 1, cuda)
+    g = fused.grid_table_constants(table, 3)
+    pmat = torch.ones((8, 5), device=cuda)
+    with pytest.raises(ValueError):
+        fused.grid_launch(g, pmat.double())
+    with pytest.raises(ValueError):
+        fused.grid_launch(g, pmat.cpu())
+    with pytest.raises(ValueError):
+        fused.grid_launch(g, pmat, torch.ones((8, 2), device=cuda))
