@@ -6,31 +6,43 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
 It builds the hand-written CUDA kernels (tabcorr_tpu_torch/csrc: the
 bundle and contraction kernels in bundle.cu, the grid kernel in grid.cu,
-one nvcc each, in parallel) and drives ``tabcorr_tpu_torch`` through the
-entry points a user calls, at real shapes, 262,144 parameter vectors each:
+the slab kernel in slab.cu, one nvcc each, in parallel) and drives
+``tabcorr_tpu_torch`` through the entry points a user calls, at real
+shapes, 262,144 parameter vectors each unless said otherwise:
 
 1. Bundle: ``make_multi_predictor`` on the bolplanck wp table (60 halo
    bins, 19 rp rows) and the synthetic xi_ell table (120 bins, 3 x 14
    rows), zheng07 at threshold -18; then ``make_gaussian_logpost_batched``
    over it and five ``ensemble_step``s with 262,144 walkers.
-2. Grid: ``make_predictor(interp, engine="fused")`` on the 64-node
+2. Decorated bundle: the same tables with ``AssembiasZheng07Model``
+   (threshold -18, assembly-bias strengths drawn in [-1, 1]); three
+   ensemble steps over its 7 parameters.
+3. Grid: ``make_predictor(interp, engine="fused")`` on the 64-node
    'default'-geometry Interpolator (4 x 4 x 4 nodes over alpha_c, alpha_s,
    log_eta; 60 bins; 42 rows), zheng07 at threshold -20, with a few rows
    pushed outside the grid.
-3. Grid: the same entry point on the 'efficient' Delta Sigma Interpolator
+4. Grid: the same entry point on the 'efficient' Delta Sigma Interpolator
    (cross mode, 1104 bins, 4 log_eta nodes), zheng07 at threshold -21,
-   z = 0.5.
-4. Grid sampler: the Gaussian log posterior over the 64-node grid
+   z = 0.5; then again with the decorated model.
+5. Grid sampler: the Gaussian log posterior over the 64-node grid
    predictor on all 8 parameters, three ensemble steps, 262,144 walkers.
-5. Contraction: ``make_predictor(tab, engine="fused")`` on both bundle
-   tables.
+6. Contraction: ``make_predictor(tab, engine="fused")`` on both bundle
+   tables, and on xi_ell with the decorated model.
+7. Wide grid (slab kernel): ``make_predictor(interp, engine="fused")`` on
+   the 64-node grid of 160 bins (40 mass x 2 secondary-percentile bins x
+   2 galaxy types), too wide for the grid kernel's packed layout; the
+   decorated model at threshold -20, 32,768 rows, a few outside the grid;
+   then two ensemble steps over its 10 parameters.
 
 Every launch counter is set to 0 right before each path and read right
 after it.  Then each kernel's results are held against its plain PyTorch
 version on the same inputs and against the float64 host path at 16
-probes, and both versions are timed with CUDA events.  Any failed check
-raises (non-zero exit).  On success the line before the last lists the
-kernels as JSON, and the last line is one JSON object naming the device.
+probes, and both versions are timed with CUDA events, beside the least
+time the card could take (``bound_ms``) and, where one PyTorch call
+computes the same function, that call's time (``library_ms``).  Any
+failed check raises (non-zero exit).  On success the line before the
+last lists the kernels as JSON, and the last line is one JSON object
+naming the device.
 """
 
 import json
@@ -40,20 +52,30 @@ import time
 from pathlib import Path
 
 BATCH = 262144
+SLAB_BATCH = 32768
 N_PROBE = 16
 N_STEPS = 5
 N_GRID_STEPS = 3
+N_SLAB_STEPS = 2
 SEED = 7
 # Rows pushed outside the grid (none among the probes).
 OUT_ROWS = (17, 4099, BATCH - 1)
+SLAB_OUT_ROWS = (17, 4099, SLAB_BATCH - 1)
+# Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): FP32 on
+# the CUDA cores, and HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+STRENGTHS = ("mean_occupation_centrals_assembias_param1",
+             "mean_occupation_satellites_assembias_param1")
 CSRC = "tabcorr_tpu_torch/csrc/"
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "bundle": (CSRC + "bundle.cu", "tabcorr_tpu/ops/fused.py:600"),
     "grid": (CSRC + "grid.cu", "tabcorr_tpu/ops/fused.py:1485"),
     "contraction": (CSRC + "bundle.cu", "tabcorr_tpu/ops/fused.py:125"),
+    "slab": (CSRC + "slab.cu", "tabcorr_tpu/ops/fused.py:1162"),
 }
 COUNTERS = {"bundle": "BUNDLE_LAUNCHES", "grid": "GRID_LAUNCHES",
-            "contraction": "CONTRACTION_LAUNCHES"}
+            "contraction": "CONTRACTION_LAUNCHES", "slab": "SLAB_LAUNCHES"}
 
 
 def check(ok, message):
@@ -87,9 +109,10 @@ def main():
     print(f"card (name, power limit): {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device 0: {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     fused.load_kernels()
-    print(f"kernel builds (parallel) + load: {time.perf_counter() - t0:.2f} s")
+    print(f"kernel builds (parallel) + load: "
+          f"{time.perf_counter() - t_start:.2f} s")
     for name in fused.KERNEL_SOURCES:
         log = library_path(name).with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else ():
@@ -102,6 +125,14 @@ def main():
 
     def counts():
         return {k: getattr(fused, attr) for k, attr in COUNTERS.items()}
+
+    def expect(what, **launches):
+        """The counts since reset(): ``launches`` and 0 for every other
+        kernel."""
+        got = counts()
+        check(got == {k: launches.get(k, 0) for k in COUNTERS},
+              f"{what}: launches {got}")
+        return got
 
     def window_ms(fn, n_iter):
         start = torch.cuda.Event(enable_timing=True)
@@ -123,15 +154,32 @@ def main():
             p_ms.append(window_ms(plain, n_plain))
         return float(np.median(k_ms)), float(np.median(p_ms)), k_ms, p_ms
 
+    def library_ms(fn, n_iter=2):
+        """ms of one PyTorch call, full float32 (no TF32), contracted left
+        to right (the outer product n n^T first, then one GEMM)."""
+        einsum_opt = torch.backends.opt_einsum.enabled
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.opt_einsum.enabled = False
+        try:
+            fn()
+            return window_ms(fn, n_iter)
+        finally:
+            torch.backends.opt_einsum.enabled = einsum_opt
+
     ctx = dict(torch=torch, np=np, fused=fused, card=card, reset=reset,
-               counts=counts, window_ms=window_ms, alternate=alternate)
+               expect=expect, window_ms=window_ms, alternate=alternate,
+               library_ms=library_ms)
     kernels = {}
     bundle_phase(ctx, kernels)
+    bundle_phase(ctx, kernels, decorated=True)
     grid_phases(ctx, kernels)
     contraction_phase(ctx, kernels)
+    slab_phase(ctx, kernels)
 
-    for name, k in kernels.items():
-        check(k["launches"] > 0, f"{name} never launched on its path")
+    for name in KERNELS:
+        check(kernels[name]["launches"] > 0,
+              f"{name} never launched on its path")
+    print(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], **kernels[name]}
@@ -140,6 +188,14 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def record(kernels, name, launches, **numbers):
+    """Add a path's launches to kernel ``name``; ``numbers`` (its errors
+    and times) come from the path that the kernels line reports."""
+    entry = kernels.setdefault(name, {"launches": 0})
+    entry["launches"] += launches
+    entry.update(numbers)
 
 
 def rel(a, b):
@@ -157,9 +213,41 @@ def max_abs(*pairs):
     return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flop, n_bytes):
+    """The least time the card could take: the larger of the operations
+    over the FP32 peak and the bytes over the HBM rate."""
+    ops_ms = flop / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def contraction_flop(n_bins, n_xi, auto):
+    """FP32 operations of one row's statistics from its densities, at the
+    least: the symmetric form over the n_bins (n_bins + 1) / 2 pairs (one
+    product for each pair's weight, one multiply-add per pair and row of
+    the statistic) in auto mode, the matrix-vector product in cross
+    mode."""
+    if not auto:
+        return 2 * n_xi * n_bins
+    npair = n_bins * (n_bins + 1) // 2
+    return npair + 2 * n_xi * npair
+
+
+def quadrature_flop(n_bins, n_gauss):
+    """One row's quadrature sums (a multiply-add per node); the occupation
+    functions themselves are not counted."""
+    return 2 * n_bins * n_gauss
+
+
 def bench_params(model, rng, batch, device):
     """bench.py's zheng07 parameter distribution around the model's
-    values; row 0 at the values themselves."""
+    values, and assembly-bias strengths uniform in [-1, 1] for the
+    decorated model; row 0 at the model's values."""
     from tabcorr_tpu_torch import params_batch
     p = model.param_dict
     overrides = {
@@ -169,6 +257,9 @@ def bench_params(model, rng, batch, device):
         "logM1": p["logM1"] + 0.1 * rng.normal(size=batch),
         "alpha": p["alpha"] + 0.02 * rng.normal(size=batch),
     }
+    for name in STRENGTHS:
+        if name in p:
+            overrides[name] = rng.uniform(-1.0, 1.0, batch)
     for key in overrides:
         overrides[key][0] = p[key]
     return params_batch(model, overrides, (batch,), device=device)
@@ -176,41 +267,79 @@ def bench_params(model, rng, batch, device):
 
 def host_model(model, params, i):
     """A copy of ``model`` at row ``i`` of the float32 batch."""
-    from tabcorr_tpu_torch import Zheng07Model
-    m = Zheng07Model(threshold=model.threshold, redshift=model.redshift,
-                     prim_haloprop_key=model.prim_haloprop_key)
+    m = type(model)(threshold=model.threshold, redshift=model.redshift,
+                    prim_haloprop_key=model.prim_haloprop_key)
     for k, v in params.items():
         m.param_dict[k] = float(v[i])
     return m
 
 
+def run_sampler(ctx, log_prob, walkers, n_steps, counter, seed):
+    """``n_steps`` ensemble steps from ``walkers``; returns the accept
+    fractions, per-step host-clock seconds and final log-probabilities,
+    after checking that each step launched ``counter`` twice."""
+    torch, fused = ctx["torch"], ctx["fused"]
+    from tabcorr_tpu_torch.mcmc import ensemble_step
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    lp = log_prob(walkers)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lp).all()), "non-finite initial log-prob")
+    accepts, grew, step_s = [], [], []
+    for _ in range(n_steps):
+        before = getattr(fused, counter)
+        t0 = time.perf_counter()
+        walkers, lp, accept = ensemble_step(generator, walkers, lp, log_prob,
+                                            vectorized=True)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        grew.append(getattr(fused, counter) - before)
+        accepts.append(float(accept))
+    check(grew == [2] * n_steps, f"launches per step {grew}")
+    check(bool(torch.isfinite(lp).all()), "non-finite log-prob after steps")
+    check(all(0.0 < a < 1.0 for a in accepts), f"accept fractions {accepts}")
+    return accepts, step_s, lp
+
+
+def walkers_around(ctx, model, names, batch, seed):
+    torch, np = ctx["torch"], ctx["np"]
+    rng = np.random.default_rng(seed)
+    return torch.tensor(
+        np.array([model.param_dict[k] for k in names])[None, :] +
+        0.02 * rng.normal(size=(batch, len(names))),
+        dtype=torch.float32, device="cuda")
+
+
 # ----------------------------------------------------------------------
-def bundle_phase(ctx, kernels):
+def bundle_phase(ctx, kernels, decorated=False):
     torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
-    from tabcorr_tpu_torch import TabCorr, Zheng07Model, make_multi_predictor
-    from tabcorr_tpu_torch.mcmc import (ensemble_step,
-                                        make_gaussian_logpost_batched)
+    from tabcorr_tpu_torch import (AssembiasZheng07Model, TabCorr,
+                                   Zheng07Model, make_multi_predictor)
+    from tabcorr_tpu_torch.mcmc import make_gaussian_logpost_batched
 
     data = Path(__file__).resolve().parent / "tabcorr_tpu_torch" / "data"
     wp_tab = TabCorr.read(data / "bolplanck_wp.npz")
     xi_tab = TabCorr.read(data / "synthetic_xi_ell.npz")
-    model = Zheng07Model(threshold=-18, redshift=wp_tab.attrs["redshift"])
-    names = Zheng07Model.param_names
-    rng = np.random.default_rng(SEED)
+    kind = AssembiasZheng07Model if decorated else Zheng07Model
+    label = "decorated bundle" if decorated else "bundle"
+    model = kind(threshold=-18, redshift=wp_tab.attrs["redshift"])
+    names = kind.kernel_param_names
+    n_steps = N_GRID_STEPS if decorated else N_STEPS
+    rng = np.random.default_rng(SEED + 10 * decorated)
     params = bench_params(model, rng, BATCH, "cuda")
+    accuracy = ("elementwise", "scaled")
     predict = make_multi_predictor([wp_tab, xi_tab], model, device="cuda",
-                                   accuracy=("elementwise", "scaled"))
-    predict_plain = make_multi_predictor(
-        [wp_tab, xi_tab], model, device="cuda", engine="plain",
-        accuracy=("elementwise", "scaled"))
+                                   accuracy=accuracy)
+    predict_plain = make_multi_predictor([wp_tab, xi_tab], model,
+                                         device="cuda", engine="plain",
+                                         accuracy=accuracy)
 
     # ---- path: predict, then the MCMC ensemble ------------------------
     ctx["reset"]()
     (ngal, wp), (ngal_x, xi) = predict(params)
     torch.cuda.synchronize()
-    check(fused.BUNDLE_LAUNCHES == 1, "predict did not launch the kernel")
+    check(fused.BUNDLE_LAUNCHES == 1, f"{label}: predict did not launch")
     for name, out in (("ngal", ngal), ("wp", wp), ("xi", xi)):
-        check(bool(torch.isfinite(out).all()), f"non-finite {name}")
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite {name}")
     shapes = (tuple(wp.shape), tuple(xi.shape))
     check(shapes == ((BATCH, 19), (BATCH, 3, 14)), f"shapes {shapes}")
 
@@ -221,40 +350,20 @@ def bundle_phase(ctx, kernels):
         [np.diag(1.0 / (0.05 * np.abs(data_wp) + 1e-3) ** 2),
          np.diag(1.0 / (0.05 * np.abs(data_xi) + 1e-3) ** 2)],
         device="cuda")
-    walkers = torch.tensor(
-        np.array([model.param_dict[k] for k in names])[None, :] +
-        0.02 * rng.normal(size=(BATCH, len(names))),
-        dtype=torch.float32, device="cuda")
-    generator = torch.Generator(device="cuda").manual_seed(SEED)
-    lp = log_prob(walkers)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(lp).all()), "non-finite initial log-prob")
-    accepts, grew, step_s = [], [], []
-    for _ in range(N_STEPS):
-        before = fused.BUNDLE_LAUNCHES
-        t0 = time.perf_counter()
-        walkers, lp, accept = ensemble_step(generator, walkers, lp, log_prob,
-                                            vectorized=True)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        grew.append(fused.BUNDLE_LAUNCHES - before)
-        accepts.append(accept)
-    launched = ctx["counts"]()
-    accepts = [float(a) for a in accepts]
-    check(grew == [2] * N_STEPS, f"launches per step {grew}")
-    check(launched == {"bundle": 2 + 2 * N_STEPS, "grid": 0,
-                       "contraction": 0}, f"launches {launched}")
-    check(bool(torch.isfinite(lp).all()), "non-finite log-prob after steps")
-    check(all(0.0 < a < 1.0 for a in accepts), f"accept fractions {accepts}")
-    print(f"bundle path: {launched['bundle']} bundle kernel launches (1 "
-          f"predict, 1 initial log-prob, 2 per ensemble step x {N_STEPS})")
-    print(f"mcmc: {N_STEPS} ensemble steps x {BATCH} walkers, accept "
-          f"fractions {accepts}, log-prob range "
+    walkers = walkers_around(ctx, model, names, BATCH, SEED)
+    accepts, step_s, lp = run_sampler(ctx, log_prob, walkers, n_steps,
+                                      "BUNDLE_LAUNCHES", SEED)
+    launched = ctx["expect"](label, bundle=2 + 2 * n_steps)
+    print(f"{label} path: {launched['bundle']} bundle kernel launches (1 "
+          f"predict, 1 initial log-prob, 2 per ensemble step x {n_steps}), "
+          f"{len(names)} sampled parameters")
+    print(f"{label} mcmc: {n_steps} ensemble steps x {BATCH} walkers, "
+          f"accept fractions {accepts}, log-prob range "
           f"[{float(lp.min()):.6g}, {float(lp.max()):.6g}]")
     # Median over the steps: the first one also pays one-time set-up.
-    print(f"mcmc: {BATCH / float(np.median(step_s)):.6g} walker-steps/s "
-          f"(median of per-step host-clock times {step_s} s) on "
-          f"{ctx['card']}")
+    print(f"{label} mcmc: {BATCH / float(np.median(step_s)):.6g} "
+          f"walker-steps/s (median of per-step host-clock times {step_s} s) "
+          f"on {ctx['card']}")
 
     # ---- kernel against its plain version, same inputs ----------------
     (ngal_p, wp_p), (ngal_xp, xi_p) = predict_plain(params)
@@ -263,12 +372,12 @@ def bundle_phase(ctx, kernels):
     wp_err = rel(wp, wp_p)
     xi_err = scaled(xi, xi_p)
     err = max_abs((ngal, ngal_p), (ngal_x, ngal_xp), (wp, wp_p), (xi, xi_p))
-    print(f"bundle kernel vs plain (B={BATCH}): ngal max rel {ngal_err:.3e} "
-          f"(<= 1e-6), wp max rel {wp_err:.3e} (<= 2e-6), xi max scaled "
-          f"{xi_err:.3e} (<= 1e-6), max abs {err:.3e}")
-    check(ngal_err <= 1e-6, f"ngal kernel vs plain {ngal_err}")
-    check(wp_err <= 2e-6, f"wp kernel vs plain {wp_err}")
-    check(xi_err <= 1e-6, f"xi kernel vs plain {xi_err}")
+    print(f"{label} kernel vs plain (B={BATCH}): ngal max rel "
+          f"{ngal_err:.3e} (<= 1e-6), wp max rel {wp_err:.3e} (<= 2e-6), "
+          f"xi max scaled {xi_err:.3e} (<= 1e-6), max abs {err:.3e}")
+    check(ngal_err <= 1e-6, f"{label}: ngal kernel vs plain {ngal_err}")
+    check(wp_err <= 2e-6, f"{label}: wp kernel vs plain {wp_err}")
+    check(xi_err <= 1e-6, f"{label}: xi kernel vs plain {xi_err}")
 
     # ---- against the float64 host path at the float32 parameters -------
     err_wp = err_xi = 0.0
@@ -281,31 +390,58 @@ def bundle_phase(ctx, kernels):
         err_wp = max(err_wp, float(np.max(np.abs(got_wp / want_wp - 1))))
         err_xi = max(err_xi, float(np.max(np.abs(got_xi - want_xi)) /
                                    np.max(np.abs(want_xi))))
-    print(f"bundle kernel vs float64 host at {N_PROBE} probes: wp max rel "
+    print(f"{label} kernel vs float64 host at {N_PROBE} probes: wp max rel "
           f"{err_wp:.3e} (<= 1e-6), xi_ell max scaled {err_xi:.3e} (<= 1e-6)")
-    check(err_wp <= 1e-6, f"wp vs float64 {err_wp}")
-    check(err_xi <= 1e-6, f"xi_ell vs float64 {err_xi}")
+    check(err_wp <= 1e-6, f"{label}: wp vs float64 {err_wp}")
+    check(err_xi <= 1e-6, f"{label}: xi_ell vs float64 {err_xi}")
+
+    if decorated:
+        # ---- the decoration moves xi_ell ------------------------------
+        moved = {}
+        for strength in (0.0, 0.8):
+            p = {k: v[:4096].clone() for k, v in params.items()}
+            for name in STRENGTHS:
+                p[name].fill_(strength)
+            moved[strength] = predict(p)[1][1]
+        shift = scaled(moved[0.8], moved[0.0])
+        least = float(((moved[0.8] - moved[0.0]).double().reshape(4096, -1)
+                       .abs().amax(1) / moved[0.0].double().reshape(
+                           4096, -1).abs().amax(1)).min())
+        print(f"{label}: strength 0.8 against 0 moves xi_ell by {least:.3e} "
+              f"to {shift:.3e} scaled over 4096 rows (> 1e-4)")
+        check(least > 1e-4, f"{label}: the decoration does not move xi_ell")
 
     # ---- timing: plain, kernel, kernel, plain --------------------------
     k_ms, p_ms, k_w, p_w = ctx["alternate"](
         lambda: predict(params), lambda: predict_plain(params), 10, 2)
-    print(f"timing: bundle kernel {k_ms:.4f} ms per {BATCH}-vector batch "
-          f"({BATCH / k_ms * 1e3:.6g} predictions/s; windows {k_w}) on "
+    print(f"timing ({label}): bundle kernel {k_ms:.4f} ms per {BATCH}-vector "
+          f"batch ({BATCH / k_ms * 1e3:.6g} predictions/s; windows {k_w}) on "
           f"{ctx['card']}")
-    print(f"timing: bundle plain PyTorch {p_ms:.4f} ms per {BATCH}-vector "
-          f"batch ({BATCH / p_ms * 1e3:.6g} predictions/s; windows {p_w}) on "
-          f"{ctx['card']}")
-    kernels["bundle"] = {"launches": launched["bundle"], "max_abs_err": err,
-                         "ms": k_ms, "plain_ms": p_ms}
+    print(f"timing ({label}): bundle plain PyTorch {p_ms:.4f} ms per "
+          f"{BATCH}-vector batch ({BATCH / p_ms * 1e3:.6g} predictions/s; "
+          f"windows {p_w}) on {ctx['card']}")
+    if decorated:
+        record(kernels, "bundle", launched["bundle"])
+        return
+    tables = [fused.bundle_table_constants(t.table_data(device="cuda"))
+              for t in (wp_tab, xi_tab)]
+    flop = BATCH * sum(
+        quadrature_flop(c.n_bins, c.n_gauss) +
+        contraction_flop(c.n_bins, c.n_xi, c.auto) for c in tables)
+    n_bytes = BATCH * len(names) * 4 + sum(
+        nbytes(c.logm, c.logm_res, c.sec, c.weight, c.f_t) +
+        BATCH * (1 + c.n_xi) * 4 for c in tables)
+    record(kernels, "bundle", launched["bundle"], max_abs_err=err, ms=k_ms,
+           plain_ms=p_ms, **bound(flop, n_bytes), library_ms=None)
 
 
 # ----------------------------------------------------------------------
 def grid_phases(ctx, kernels):
     torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
-    from tabcorr_tpu_torch import (Interpolator, Zheng07Model,
-                                   make_predictor, occupation_functions)
-    from tabcorr_tpu_torch.mcmc import (ensemble_step,
-                                        make_gaussian_logpost_batched)
+    from tabcorr_tpu_torch import (AssembiasZheng07Model, Interpolator,
+                                   Zheng07Model, make_predictor,
+                                   occupation_functions)
+    from tabcorr_tpu_torch.mcmc import make_gaussian_logpost_batched
     from tabcorr_tpu_torch.predictor import grid_node_weights, stacked_grid
     from tabcorr_tpu_torch.utils.synthetic import grid64_interpolator
 
@@ -324,21 +460,25 @@ def grid_phases(ctx, kernels):
         params[key] = torch.tensor(v, dtype=torch.float32, device="cuda")
     params["alpha_c"][list(OUT_ROWS)] = 0.5
     cases.append(("grid64", interp, model, params))
-    # ds_efficient: the test fixture's model, log_eta inside its grid.
+    # ds_efficient: the test fixture's model, log_eta inside its grid;
+    # then the decorated model (tabcorr_tpu's tests/
+    # test_assembias_predict.py configuration).
     interp_ds = Interpolator.read(data / "ds_efficient.npz")
-    model_ds = Zheng07Model(threshold=-21, redshift=0.5,
-                            prim_haloprop_key="halo_m258m")
-    model_ds.param_dict.update(log_eta=0.0, alpha_s=1.0, alpha_c=0.0)
-    params_ds = bench_params(model_ds, rng, BATCH, "cuda")
-    v = rng.uniform(-0.45, 0.45, BATCH)
-    v[0] = 0.0
-    v[list(OUT_ROWS)] = 0.6
-    params_ds["log_eta"] = torch.tensor(v, dtype=torch.float32,
-                                        device="cuda")
-    cases.append(("ds_efficient", interp_ds, model_ds, params_ds))
+    for kind in (Zheng07Model, AssembiasZheng07Model):
+        model_ds = kind(threshold=-21, redshift=0.5,
+                        prim_haloprop_key="halo_m258m")
+        model_ds.param_dict.update(log_eta=0.0, alpha_s=1.0, alpha_c=0.0)
+        params_ds = bench_params(model_ds, rng, BATCH, "cuda")
+        v = rng.uniform(-0.45, 0.45, BATCH)
+        v[0] = 0.0
+        v[list(OUT_ROWS)] = 0.6
+        params_ds["log_eta"] = torch.tensor(v, dtype=torch.float32,
+                                            device="cuda")
+        name = ("ds_efficient" if kind is Zheng07Model else
+                "ds_efficient decorated")
+        cases.append((name, interp_ds, model_ds, params_ds))
 
     launches = 0
-    measured = {}
     for name, interp, model, params in cases:
         predict = make_predictor(interp, model, engine="fused",
                                  accuracy="scaled", device="cuda")
@@ -348,9 +488,7 @@ def grid_phases(ctx, kernels):
         ngal, xi = predict(params)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launched = ctx["counts"]()
-        check(launched == {"bundle": 0, "grid": 1, "contraction": 0},
-              f"{name}: launches {launched}")
+        launched = ctx["expect"](name, grid=1)
         launches += launched["grid"]
         xi = xi.reshape(BATCH, -1)
         out = torch.zeros(BATCH, dtype=torch.bool, device="cuda")
@@ -399,23 +537,32 @@ def grid_phases(ctx, kernels):
         check(err_ngal <= 1e-6, f"{name}: ngal vs float64 {err_ngal}")
 
         # ---- timing: the kernel's wrapper against its plain version ----
-        pmat = torch.stack([params[k] for k in Zheng07Model.param_names],
-                           dim=1)
+        hod = fused.KernelModel.of(model)
+        pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
         k_ms, p_ms, k_w, p_w = ctx["alternate"](
-            lambda: fused.grid_launch(g, pmat, nw),
+            lambda: fused.grid_launch(g, pmat, nw, hod),
             lambda: fused.grid_predict_plain(g, params, nw, *occ), 3, 2)
         e2e_ms = ctx["window_ms"](lambda: predict(params), 3)
-        measured[name] = (err, k_ms, p_ms)
         print(f"timing ({name}): grid kernel {k_ms:.4f} ms per "
               f"{BATCH}-vector batch (windows {k_w}), plain PyTorch "
               f"{p_ms:.4f} ms (windows {p_w}); whole predictor "
               f"{e2e_ms:.4f} ms ({BATCH / e2e_ms * 1e3:.6g} predictions/s) "
               f"on {ctx['card']}")
         if name == "grid64":
-            flop = 2.0 * g.npair * g.n_nodes * g.n_xi * BATCH
-            print(f"grid64: {flop:.4g} FLOP of packed contraction per batch "
-                  f"(2 x {g.npair} x {g.n_nodes * g.n_xi} per sample): "
-                  f"{flop / k_ms / 1e9:.4g} TFLOP/s in the kernel")
+            dense = 2.0 * g.npair * g.n_nodes * g.n_xi * BATCH
+            print(f"grid64: {dense:.4g} FLOP of packed contraction per "
+                  f"batch (2 x {g.npair} x {g.n_nodes * g.n_xi} per "
+                  f"sample): {dense / k_ms / 1e9:.4g} TFLOP/s in the kernel")
+            flop = BATCH * (quadrature_flop(g.n_bins, g.n_gauss) + g.npair +
+                            2 * g.n_nodes * g.n_xi * (g.npair + 1))
+            n_bytes = (nbytes(pmat, nw, g.logm, g.logm_res, g.sec, g.weight,
+                              g.pair_i, g.pair_j, g.fp) +
+                       BATCH * (1 + g.n_xi) * 4)
+            # The kernels line carries the 64-node grid's numbers (the
+            # Delta Sigma values are ~1e13, so their absolute errors are
+            # not comparable).
+            grid_numbers = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                **bound(flop, n_bytes), library_ms=None)
 
     # ---- path: the ensemble sampler over the 64-node grid -------------
     _, interp, model, params = cases[0]
@@ -427,117 +574,235 @@ def grid_phases(ctx, kernels):
     log_prob = make_gaussian_logpost_batched(
         lambda p: [predict(p)], names, model.param_dict, [data_xi],
         [np.diag(1.0 / (0.05 * np.abs(data_xi) + 1e-3) ** 2)], device="cuda")
-    rng = np.random.default_rng(SEED + 1)
-    walkers = torch.tensor(
-        np.array([model.param_dict[k] for k in names])[None, :] +
-        0.02 * rng.normal(size=(BATCH, len(names))),
-        dtype=torch.float32, device="cuda")
-    generator = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    walkers = walkers_around(ctx, model, names, BATCH, SEED + 1)
     ctx["reset"]()
-    lp = log_prob(walkers)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(lp).all()), "grid: non-finite initial log-prob")
-    accepts, grew, step_s = [], [], []
-    for _ in range(N_GRID_STEPS):
-        before = fused.GRID_LAUNCHES
-        t0 = time.perf_counter()
-        walkers, lp, accept = ensemble_step(generator, walkers, lp, log_prob,
-                                            vectorized=True)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        grew.append(fused.GRID_LAUNCHES - before)
-        accepts.append(float(accept))
-    launched = ctx["counts"]()
-    check(grew == [2] * N_GRID_STEPS, f"grid launches per step {grew}")
-    check(launched == {"bundle": 0, "grid": 1 + 2 * N_GRID_STEPS,
-                       "contraction": 0}, f"grid sampler launches {launched}")
-    check(bool(torch.isfinite(lp).all()), "grid: non-finite log-prob")
-    check(all(0.0 < a < 1.0 for a in accepts),
-          f"grid accept fractions {accepts}")
+    accepts, step_s, _ = run_sampler(ctx, log_prob, walkers, N_GRID_STEPS,
+                                     "GRID_LAUNCHES", SEED + 1)
+    launched = ctx["expect"]("grid sampler", grid=1 + 2 * N_GRID_STEPS)
     launches += launched["grid"]
     print(f"grid sampler: {launched['grid']} grid kernel launches (1 "
           f"initial log-prob, 2 per step x {N_GRID_STEPS}), accept fractions "
           f"{accepts}, {BATCH / float(np.median(step_s)):.6g} walker-steps/s "
           f"(median of per-step host-clock times {step_s} s) on "
           f"{ctx['card']}")
-
-    # The kernels line carries the 64-node grid's numbers (ds_efficient's
-    # are printed above; its Delta Sigma values are ~1e13, so its absolute
-    # errors are not comparable).
-    err, k_ms, p_ms = measured["grid64"]
-    kernels["grid"] = {"launches": launches, "max_abs_err": err,
-                       "ms": k_ms, "plain_ms": p_ms}
+    record(kernels, "grid", launches, **grid_numbers)
 
 
 # ----------------------------------------------------------------------
 def contraction_phase(ctx, kernels):
     torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
-    from tabcorr_tpu_torch import TabCorr, Zheng07Model, make_predictor
+    from tabcorr_tpu_torch import (AssembiasZheng07Model, TabCorr,
+                                   Zheng07Model, make_predictor)
 
     data = Path(__file__).resolve().parent / "tabcorr_tpu_torch" / "data"
-    tabs = [("wp", TabCorr.read(data / "bolplanck_wp.npz")),
-            ("xi_ell", TabCorr.read(data / "synthetic_xi_ell.npz"))]
-    model = Zheng07Model(threshold=-18, redshift=tabs[0][1].attrs["redshift"])
-    params = bench_params(model, np.random.default_rng(SEED + 2), BATCH,
-                          "cuda")
-    predictors = [make_predictor(tab, model, engine="fused", device="cuda")
-                  for _, tab in tabs]
+    wp_tab = TabCorr.read(data / "bolplanck_wp.npz")
+    xi_tab = TabCorr.read(data / "synthetic_xi_ell.npz")
+    redshift = wp_tab.attrs["redshift"]
+    model = Zheng07Model(threshold=-18, redshift=redshift)
+    decorated = AssembiasZheng07Model(threshold=-18, redshift=redshift)
+    rng = np.random.default_rng(SEED + 2)
+    params = bench_params(model, rng, BATCH, "cuda")
+    params_dec = bench_params(decorated, rng, BATCH, "cuda")
+    cases = [("wp", wp_tab, model, params), ("xi_ell", xi_tab, model, params),
+             ("xi_ell decorated", xi_tab, decorated, params_dec)]
+    predictors = [make_predictor(tab, m, engine="fused", device="cuda")
+                  for _, tab, m, _ in cases]
 
     # ---- path -----------------------------------------------------------
     ctx["reset"]()
-    outs = [predict(params) for predict in predictors]
+    outs = [predict(p) for predict, (*_, p) in zip(predictors, cases)]
     torch.cuda.synchronize()
-    launched = ctx["counts"]()
-    check(launched == {"bundle": 0, "grid": 0, "contraction": 2},
-          f"contraction launches {launched}")
+    launched = ctx["expect"]("contraction", contraction=len(cases))
     print(f"contraction path: {launched['contraction']} contraction kernel "
-          "launches (make_predictor(engine='fused') on wp and xi_ell)")
+          "launches (make_predictor(engine='fused') on wp, xi_ell, and "
+          "xi_ell with the decorated model)")
 
-    max_err = 0.0
-    k_total = p_total = 0.0
-    for (name, tab), (ngal, xi) in zip(tabs, outs):
+    max_err = k_total = p_total = lib_total = flop = n_bytes = 0.0
+    for (name, tab, m, p), (ngal, xi) in zip(cases, outs):
         check(bool(torch.isfinite(xi).all()), f"{name}: non-finite xi")
         table = tab.table_data(device="cuda")
         c = fused.bundle_table_constants(table)
-        dens = fused.occupation_density(table, model, params)
+        dens = fused.occupation_density(table, m, p)
         ngal_p, xi_p = fused.contraction_plain(c, dens)
         xi_p = xi_p.reshape(xi.shape)
         ngal_err = rel(ngal, ngal_p)
-        xi_err = rel(xi, xi_p) if name == "wp" else scaled(xi, xi_p)
-        limit = 2e-6 if name == "wp" else 1e-6
+        is_wp = name == "wp"
+        xi_err = rel(xi, xi_p) if is_wp else scaled(xi, xi_p)
+        limit = 2e-6 if is_wp else 1e-6
         err = max_abs((ngal, ngal_p), (xi, xi_p))
-        max_err = max(max_err, err)
         print(f"{name}: contraction kernel vs plain (B={BATCH}): ngal max "
               f"rel {ngal_err:.3e} (<= 1e-6), xi max "
-              f"{'rel' if name == 'wp' else 'scaled'} {xi_err:.3e} "
+              f"{'rel' if is_wp else 'scaled'} {xi_err:.3e} "
               f"(<= {limit:g}), max abs {err:.3e}")
         check(ngal_err <= 1e-6, f"{name}: ngal kernel vs plain {ngal_err}")
         check(xi_err <= limit, f"{name}: xi kernel vs plain {xi_err}")
 
         err_host = 0.0
         for i in range(N_PROBE):
-            want = tab.predict(host_model(model, params, i),
+            want = tab.predict(host_model(m, p, i),
                                check_consistency=False)[1].ravel()
             got = xi[i].double().cpu().numpy().ravel()
             err_host = max(err_host, float(
-                np.max(np.abs(got / want - 1)) if name == "wp" else
+                np.max(np.abs(got / want - 1)) if is_wp else
                 np.max(np.abs(got - want)) / np.max(np.abs(want))))
         print(f"{name}: contraction kernel vs float64 host at {N_PROBE} "
-              f"probes: max {'rel' if name == 'wp' else 'scaled'} "
+              f"probes: max {'rel' if is_wp else 'scaled'} "
               f"{err_host:.3e} (<= 1e-6)")
         check(err_host <= 1e-6, f"{name}: xi vs float64 {err_host}")
 
         k_ms, p_ms, k_w, p_w = ctx["alternate"](
             lambda: fused.contraction_launch(c, dens),
             lambda: fused.contraction_plain(c, dens), 10, 2)
-        k_total += k_ms
-        p_total += p_ms
         print(f"timing ({name}): contraction kernel {k_ms:.4f} ms per "
               f"{BATCH}-vector batch (windows {k_w}), plain PyTorch "
               f"{p_ms:.4f} ms (windows {p_w}) on {ctx['card']}")
-    kernels["contraction"] = {"launches": launched["contraction"],
-                              "max_abs_err": max_err, "ms": k_total,
-                              "plain_ms": p_total}
+        if m is decorated:
+            continue   # the kernels line reports the zheng07 bench tables
+        # One PyTorch call for the same quadratic forms: n n^T, then one
+        # GEMM against the dense matrices.
+        dense = table.tpcf_dense
+        lib_ms = ctx["library_ms"](
+            lambda: torch.einsum("bi,bj,kij->bk", dens, dens, dense))
+        print(f"timing ({name}): one torch.einsum('bi,bj,kij->bk') "
+              f"{lib_ms:.4f} ms on {ctx['card']}")
+        max_err = max(max_err, err)
+        k_total, p_total, lib_total = (k_total + k_ms, p_total + p_ms,
+                                       lib_total + lib_ms)
+        flop += BATCH * contraction_flop(c.n_bins, c.n_xi, c.auto)
+        n_bytes += nbytes(dens, c.f_t) + BATCH * (1 + c.n_xi) * 4
+    record(kernels, "contraction", launched["contraction"],
+           max_abs_err=max_err, ms=k_total, plain_ms=p_total,
+           **bound(flop, n_bytes), library_ms=lib_total)
+
+
+# ----------------------------------------------------------------------
+def slab_phase(ctx, kernels):
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
+    from tabcorr_tpu_torch import (AssembiasZheng07Model, make_predictor,
+                                   occupation_functions)
+    from tabcorr_tpu_torch.mcmc import make_gaussian_logpost_batched
+    from tabcorr_tpu_torch.predictor import stacked_grid
+    from tabcorr_tpu_torch.utils.synthetic import wide_grid_interpolator
+
+    t0 = time.perf_counter()
+    interp = wide_grid_interpolator()
+    model = AssembiasZheng07Model(threshold=-20, redshift=0.0)
+    model.param_dict.update(alpha_c=0.2, alpha_s=1.0, log_eta=0.0)
+    rng = np.random.default_rng(13)
+    params = bench_params(model, rng, SLAB_BATCH, "cuda")
+    for key, lo, hi in (("alpha_c", 0.05, 0.35), ("alpha_s", 0.85, 1.15),
+                        ("log_eta", -0.3, 0.3)):
+        v = rng.uniform(lo, hi, SLAB_BATCH)
+        v[0] = model.param_dict[key]
+        params[key] = torch.tensor(v, dtype=torch.float32, device="cuda")
+    params["alpha_c"][list(SLAB_OUT_ROWS)] = 0.5
+    predict = make_predictor(interp, model, engine="fused",
+                             accuracy="scaled", device="cuda")
+    print(f"wide grid: {interp.tabcorr_list[0].n_bins} bins, "
+          f"{len(interp.tabcorr_list)} nodes, built and on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- path ------------------------------------------------------------
+    ctx["reset"]()
+    t0 = time.perf_counter()
+    ngal, xi = predict(params)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launched = ctx["expect"]("wide grid", slab=1)
+    launches = launched["slab"]
+    xi = xi.reshape(SLAB_BATCH, -1)
+    out = torch.zeros(SLAB_BATCH, dtype=torch.bool, device="cuda")
+    out[list(SLAB_OUT_ROWS)] = True
+    check(bool(torch.isnan(ngal[out]).all() and torch.isnan(xi[out]).all()),
+          "wide grid: out-of-grid rows are not all NaN")
+    check(bool(torch.isfinite(ngal[~out]).all() and
+               torch.isfinite(xi[~out]).all()),
+          "wide grid: NaN or inf in rows inside the grid")
+    print(f"wide grid: {launches} slab kernel launch, xi {tuple(xi.shape)}, "
+          f"rows {SLAB_OUT_ROWS} outside the grid all NaN, the rest finite; "
+          f"first call {first_s:.3f} s")
+
+    # ---- kernel against its plain version, per node, same inputs -------
+    stacked, n_nodes, _ = stacked_grid(interp, device="cuda")
+    s = fused.slab_table_constants(stacked, n_nodes)
+    occ = occupation_functions(model)
+    hod = fused.KernelModel.of(model)
+    pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
+    total_k, nodes_k = fused.slab_launch(s, pmat, hod)
+    total_p, nodes_p = fused.slab_predict_plain(s, params, *occ)
+    torch.cuda.synchronize()
+    ngal_err = rel(total_k, total_p)
+    node_err = scaled(nodes_k.reshape(-1, s.n_xi), nodes_p.reshape(-1, s.n_xi))
+    err = max_abs((total_k, total_p), (nodes_k, nodes_p))
+    print(f"wide grid: slab kernel vs plain (B={SLAB_BATCH}, {n_nodes} "
+          f"nodes): ngal max rel {ngal_err:.3e} (<= 1e-6), per-node xi max "
+          f"scaled {node_err:.3e} (<= 1e-6), max abs {err:.3e}")
+    check(ngal_err <= 1e-6, f"wide grid: ngal kernel vs plain {ngal_err}")
+    check(node_err <= 1e-6, f"wide grid: xi kernel vs plain {node_err}")
+
+    # ---- against the float64 host Interpolator.predict ----------------
+    err_host = err_ngal = 0.0
+    for i in range(N_PROBE):
+        ng64, xi64 = interp.predict(host_model(model, params, i),
+                                    check_consistency=False)
+        got = xi[i].double().cpu().numpy()
+        err_host = max(err_host, float(np.max(np.abs(got - xi64.ravel())) /
+                                       np.max(np.abs(xi64))))
+        err_ngal = max(err_ngal, abs(float(ngal[i]) / ng64 - 1))
+    print(f"wide grid: slab route vs float64 Interpolator.predict at "
+          f"{N_PROBE} probes: xi max scaled {err_host:.3e} (<= 1e-6), ngal "
+          f"max rel {err_ngal:.3e} (<= 1e-6)")
+    check(err_host <= 1e-6, f"wide grid: xi vs float64 {err_host}")
+    check(err_ngal <= 1e-6, f"wide grid: ngal vs float64 {err_ngal}")
+
+    # ---- timing ----------------------------------------------------------
+    k_ms, p_ms, k_w, p_w = ctx["alternate"](
+        lambda: fused.slab_launch(s, pmat, hod),
+        lambda: fused.slab_predict_plain(s, params, *occ), 3, 1)
+    e2e_ms = ctx["window_ms"](lambda: predict(params), 3)
+    dense_flop = 2.0 * n_nodes * s.n_xi * s.n_bins ** 2 * SLAB_BATCH
+    print(f"timing (wide grid): slab kernel {k_ms:.4f} ms per "
+          f"{SLAB_BATCH}-vector batch (windows {k_w}), plain PyTorch "
+          f"{p_ms:.4f} ms (windows {p_w}); whole predictor {e2e_ms:.4f} ms "
+          f"({SLAB_BATCH / e2e_ms * 1e3:.6g} predictions/s) on {ctx['card']}")
+    print(f"wide grid: {dense_flop:.4g} FLOP of dense contraction per batch "
+          f"(2 x {n_nodes} x {s.n_xi} x {s.n_bins}^2 per sample): "
+          f"{dense_flop / k_ms / 1e9:.4g} TFLOP/s in the kernel")
+    dens = fused.occupation_density(stacked, model, params)
+    dense = stacked.tpcf_dense
+    lib_ms = ctx["library_ms"](
+        lambda: torch.einsum("bi,bj,kij->bk", dens, dens, dense))
+    print(f"timing (wide grid): one torch.einsum('bi,bj,kij->bk') over all "
+          f"{n_nodes} nodes {lib_ms:.4f} ms on {ctx['card']}")
+    del dens
+
+    # ---- path: the ensemble sampler over the wide grid ----------------
+    names = hod.param_names + ("alpha_c", "alpha_s", "log_eta")
+    fiducial = {k: v[:1] for k, v in params.items()}
+    data_xi = predict(fiducial)[1][0].double().cpu().numpy().ravel()
+    log_prob = make_gaussian_logpost_batched(
+        lambda p: [predict(p)], names, model.param_dict, [data_xi],
+        [np.diag(1.0 / (0.05 * np.abs(data_xi) + 1e-3) ** 2)], device="cuda")
+    walkers = walkers_around(ctx, model, names, SLAB_BATCH, SEED + 3)
+    ctx["reset"]()
+    accepts, step_s, _ = run_sampler(ctx, log_prob, walkers, N_SLAB_STEPS,
+                                     "SLAB_LAUNCHES", SEED + 3)
+    launched = ctx["expect"]("wide grid sampler", slab=1 + 2 * N_SLAB_STEPS)
+    launches += launched["slab"]
+    print(f"wide grid sampler: {launched['slab']} slab kernel launches (1 "
+          f"initial log-prob, 2 per step x {N_SLAB_STEPS}), {len(names)} "
+          f"sampled parameters, accept fractions {accepts}, "
+          f"{SLAB_BATCH / float(np.median(step_s)):.6g} walker-steps/s "
+          f"(median of per-step host-clock times {step_s} s) on "
+          f"{ctx['card']}")
+
+    flop = SLAB_BATCH * (quadrature_flop(s.n_bins, s.n_gauss) +
+                         n_nodes * contraction_flop(s.n_bins, s.n_xi, s.auto)
+                         - (n_nodes - 1) * s.n_bins * (s.n_bins + 1) // 2)
+    n_bytes = (nbytes(pmat, s.logm, s.logm_res, s.sec, s.weight, s.f_t) +
+               nbytes(total_k, nodes_k))
+    record(kernels, "slab", launches, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+           **bound(flop, n_bytes), library_ms=lib_ms)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@
 // make_fused_grid_predictor).  It computes what that kernel computes, not
 // its block structure:
 //
-//   n[b, i]   zheng07 occupation quadrature (zheng07.cuh), once per row;
+//   n[b, i]   zheng07 occupation quadrature, optionally with the Heaviside
+//             assembly-bias decoration (zheng07.cuh), once per row;
 //   w[b, p]   = n[b, i_p] * n[b, j_p] over the packed pairs i_p <= j_p
 //               (np.triu_indices order; auto mode), or n[b, p] (cross);
 //   t[b, c]   = sum_p w[b, p] * Fp[p, c], with the columns c node-major
@@ -74,7 +75,7 @@ constexpr int kGroups = kCT / kRN;
 constexpr int kRowGroups = kThreads / kGroups;
 
 struct GridArgs {
-  const float* params;   // (B, kParams)
+  const float* params;   // (B, hod.n_params)
   const float* nw;       // (B, n_nodes) node weights; null: no fold
   QuadArgs q;
   const int* pair_i;     // (npair,) auto: the pairs' first bins
@@ -83,7 +84,8 @@ struct GridArgs {
                          // node * nxp + k
   float* out_total;      // (B,)
   float* out_xi;         // (B, n_xi) folded, (B, n_nodes, n_xi) unfolded
-  int batch, modulate, is_auto, npair, k_pad, c_pad, n_nodes, n_xi, nxp;
+  tabcorr::HodArgs hod;
+  int batch, is_auto, npair, k_pad, c_pad, n_nodes, n_xi, nxp;
   int nb_rows;           // bins rounded up to kKT (rows of sN)
 };
 
@@ -93,18 +95,18 @@ struct GridArgs {
 //   sF   [kKT][kCT]     the staged tile of Fp
 //   sP   [TB][kCT]      weighted columns of one tile (fold)
 //   sQ   [TB][nxp]      folded sums per statistic, double
-//   sPar [6][TB]        per-row parameter terms
+//   sPar [kParTerms][TB] per-row parameter terms
 //   sTot [TB]           sum_i n_i per row
 inline size_t smem_floats(int tb, int nb_rows, int nxp) {
   return (size_t)nb_rows * tb + kKT * tb + kKT * kCT + (size_t)tb * kCT +
-         2 * (size_t)tb * nxp + 7 * tb;
+         2 * (size_t)tb * nxp + (tabcorr::kParTerms + 1) * tb;
 }
 
 // Two blocks per SM: the double running sum takes the kernel to 144
 // registers, one 256-thread block per SM, and 137.7 ms at the 64-node
 // grid (262,144 rows); capped at 128 registers (24 bytes of spill at
 // TB = 64) it runs two blocks per SM in 91.6 ms (H100 80GB HBM3, 700 W).
-template <int TB>
+template <int TB, int MODEL>
 __global__ void __launch_bounds__(kThreads, 2)
 grid_kernel(const GridArgs args) {
   constexpr int kRM = TB / kRowGroups;   // rows per thread
@@ -118,7 +120,7 @@ grid_kernel(const GridArgs args) {
   // aligned.
   double* sQ = reinterpret_cast<double*>(sP + TB * kCT);
   float* sPar = reinterpret_cast<float*>(sQ + (size_t)TB * args.nxp);
-  float* sTot = sPar + 6 * TB;
+  float* sTot = sPar + tabcorr::kParTerms * TB;
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * TB;
@@ -126,10 +128,10 @@ grid_kernel(const GridArgs args) {
   const int cg = tid % kGroups;   // column group: columns cg*kRN .. +kRN-1
   const bool fold = args.nw != nullptr;
 
-  tabcorr::param_terms<TB>(args.params, args.batch, row0, sPar);
+  tabcorr::param_terms<TB>(args.params, args.batch, row0, args.hod, sPar);
   __syncthreads();
-  tabcorr::occupation_phase<TB, kThreads>(args.q, args.nb_rows, args.batch,
-                                          row0, args.modulate, sPar, sN);
+  tabcorr::occupation_phase<TB, kThreads, MODEL>(
+      args.q, args.nb_rows, args.batch, row0, args.hod, sPar, sN);
   for (int item = tid; item < TB * args.nxp; item += kThreads)
     sQ[item] = 0.0;
   __syncthreads();
@@ -268,20 +270,20 @@ grid_kernel(const GridArgs args) {
     args.out_total[row0 + tid] = sTot[tid];
 }
 
-template <int TB>
+template <int TB, int MODEL>
 int launch(const GridArgs& args, int device, void* stream) {
   const size_t smem = smem_floats(TB, args.nb_rows, args.nxp) *
                       sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(grid_kernel<TB>,
+  err = cudaFuncSetAttribute(grid_kernel<TB, MODEL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (args.batch == 0) return 0;
   const int grid = (args.batch + TB - 1) / TB;
-  grid_kernel<TB><<<grid, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(args);
+  grid_kernel<TB, MODEL><<<grid, kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(args);
   return (int)cudaGetLastError();
 }
 
@@ -290,12 +292,14 @@ int launch(const GridArgs& args, int device, void* stream) {
 extern "C" {
 
 // Launch the grid kernel on `stream` with TB = `tb` (32 or 64) rows per
-// block.  `nw` null writes the unfolded (B, n_nodes, n_xi) output.
-// Returns the CUDA error code of the launch (0 on success); the kernel
-// runs asynchronously.
-int tabcorr_grid(const float* params, const float* nw, int batch,
-                 int modulate, const float* logm, const float* res,
-                 const float* w, int nb, int nc, int ng, const int* pair_i,
+// block.  `model`, `modulate` and `split` select the occupation
+// (zheng07.cuh).  `nw` null writes the unfolded (B, n_nodes, n_xi)
+// output.  Returns the CUDA error code of the launch (0 on success); the
+// kernel runs asynchronously.
+int tabcorr_grid(const float* params, const float* nw, int batch, int model,
+                 int modulate, double split, const float* logm,
+                 const float* res, const float* sec, const float* w, int nb,
+                 int nc, int ng, const int* pair_i,
                  const int* pair_j, int npair, const float* fp, int k_pad,
                  int c_pad, int n_nodes, int n_xi, int nxp, int is_auto,
                  int tb, float* out_total, float* out_xi, int device,
@@ -305,6 +309,7 @@ int tabcorr_grid(const float* params, const float* nw, int batch,
   args.nw = nw;
   args.q.logm = logm;
   args.q.res = res;
+  args.q.sec = sec;
   args.q.w = w;
   args.q.nb = nb;
   args.q.nc = nc;
@@ -315,7 +320,6 @@ int tabcorr_grid(const float* params, const float* nw, int batch,
   args.out_total = out_total;
   args.out_xi = out_xi;
   args.batch = batch;
-  args.modulate = modulate;
   args.is_auto = is_auto;
   args.npair = npair;
   args.k_pad = k_pad;
@@ -330,9 +334,17 @@ int tabcorr_grid(const float* params, const float* nw, int batch,
       c_pad < n_nodes * nxp || k_pad < npair ||
       (is_auto ? npair != nb * (nb + 1) / 2 : npair != nb) ||
       (!is_auto && k_pad != args.nb_rows);
-  if (bad) return (int)cudaErrorInvalidValue;
-  if (tb == 64) return launch<64>(args, device, stream);
-  if (tb == 32) return launch<32>(args, device, stream);
+  if (bad || !tabcorr::make_hod(model, modulate, split, &args.hod))
+    return (int)cudaErrorInvalidValue;
+  using tabcorr::kAssembiasZheng07;
+  using tabcorr::kZheng07;
+  const bool plain = args.hod.model == kZheng07;
+  if (tb == 64)
+    return plain ? launch<64, kZheng07>(args, device, stream)
+                 : launch<64, kAssembiasZheng07>(args, device, stream);
+  if (tb == 32)
+    return plain ? launch<32, kZheng07>(args, device, stream)
+                 : launch<32, kAssembiasZheng07>(args, device, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -117,7 +117,7 @@ def run_ensemble(generator, log_prob_fn, walkers0, n_steps, a=2.0, thin=1,
 def make_gaussian_logpost_batched(predict_all, param_names, base_params,
                                   data_list, inv_cov_list, bounds=None,
                                   ngal_data=None, ngal_sigma=None, *,
-                                  device):
+                                  device="cuda"):
     """Batched Gaussian log posterior over several statistics at once.
 
     ``predict_all`` maps a dict of (B,) tensors to a list of (ngal (B,),

@@ -9,8 +9,8 @@ space, ``exp(ln10 * alpha * (log10(M - M0) - logM1))`` with
 ``log10(M - M0) = logM + log1p(-10^(logM0 - logM))/ln10``.
 
 Every numerical choice follows ``tabcorr_tpu/models/zheng07.py``, and the
-CUDA bundle kernel (``csrc/bundle.cu``) evaluates the same expressions in
-the same order.
+CUDA kernels (``csrc/zheng07.cuh``) evaluate the same expressions in the
+same order.
 """
 
 from __future__ import annotations
@@ -98,6 +98,9 @@ class Zheng07Model(HodModel):
     """
 
     param_names = ("logMmin", "sigma_logM", "logM0", "logM1", "alpha")
+    # The parameter columns of the CUDA kernels' model (ops.fused.
+    # kernel_model), in the order they read them.
+    kernel_param_names = param_names
 
     def __init__(self, threshold=-20.0, modulate_with_cenocc=False,
                  prim_haloprop_key="halo_mvir",

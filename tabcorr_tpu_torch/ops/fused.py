@@ -1,12 +1,17 @@
 """Fused predictors: the hand-written CUDA kernels and their plain versions.
 
-Ports of the three Pallas kernels of ``tabcorr_tpu/ops/fused.py`` that
-the port's entry points run.  Every kernel has a plain version in float32
-tensor ops beside it; a wrapper runs the plain version for CPU tensors
-and launches the kernel (or raises) for CUDA tensors.  Every output is
-full float32: the TPU build's bf16 pass emulation and its 'scaled' pass
-classes have no counterpart here, so both accuracy contracts
-('elementwise', 'scaled') run at the same precision.
+Ports of the four Pallas kernels of ``tabcorr_tpu/ops/fused.py``.  Every
+kernel has a plain version in tensor ops beside it; a wrapper runs the
+plain version for CPU tensors and launches the kernel (or raises) for
+CUDA tensors.  Every output is full float32: the TPU build's bf16 pass
+emulation and its 'scaled' pass classes have no counterpart here, so both
+accuracy contracts ('elementwise', 'scaled') run at the same precision.
+
+The kernels that evaluate the occupation themselves (B1, B2, B4) take two
+models, chosen by :func:`kernel_model` on the model's exact type: zheng07
+(code 0) and zheng07 with the Heaviside assembly-bias decoration (code 1,
+:class:`~..models.assembias.AssembiasZheng07Model`).  Any other model,
+subclasses included, raises on CUDA; the plain versions take any model.
 
 * **Bundle (B1)**, port of ``make_fused_bundle_predictor``: for a batch of
   parameter vectors and a list of tabulations, the per-bin galaxy density
@@ -19,7 +24,7 @@ classes have no counterpart here, so both accuracy contracts
       auto:  xi[b, k] = n_b^T F_k n_b / (sum_i n_bi)^2
       cross: xi[b, k] = (F n_b)_k / sum_i n_bi
 
-  :func:`bundle_launch` (``csrc/bundle.cu``, zheng07) and
+  :func:`bundle_launch` (``csrc/bundle.cu``) and
   :func:`bundle_predict_plain` (any model).
 * **Contraction (B3)**, port of ``make_fused_contraction`` and
   ``make_fused_predictor``: the same contraction for one table from a
@@ -30,8 +35,12 @@ classes have no counterpart here, so both accuracy contracts
   ``make_fused_grid_predictor``: an Interpolator grid of one halo binning,
   every node's statistics from the packed symmetric matrices, optionally
   reduced in the kernel by the grid spline's per-sample node weights.
-  :func:`grid_launch` (``csrc/grid.cu``, zheng07) and
-  :func:`grid_predict_plain`.  The 'slab' layout (B4) is not ported.
+  :func:`grid_launch` (``csrc/grid.cu``) and :func:`grid_predict_plain`.
+* **Slab (B4)**, port of ``make_fused_grid_predictor(layout='slab')``:
+  the same grid for auto tables too wide for the packed layout (more
+  than 127 bins), every node's statistics from B1's contraction over the
+  node's matrix, without the spline fold.  :func:`slab_launch`
+  (``csrc/slab.cu``) and :func:`slab_predict_plain`.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import functools
 import numpy as np
 import torch
 
+from ..models.assembias import AssembiasZheng07Model
 from ..models.protocol import occupation_functions
 from ..models.zheng07 import Zheng07Model
 from ..utils.build import build_libraries, load_library
@@ -52,21 +62,29 @@ from .predict import AUTO, TableData, mean_occupation, occupation_with_residual
 BUNDLE_LAUNCHES = 0
 CONTRACTION_LAUNCHES = 0
 GRID_LAUNCHES = 0
+SLAB_LAUNCHES = 0
 
 ACCURACY_CONTRACTS = ("elementwise", "scaled")
 
 # The CUDA sources of each library (one nvcc each).
-KERNEL_SOURCES = {"bundle": ("bundle.cu",), "grid": ("grid.cu",)}
+KERNEL_SOURCES = {"bundle": ("bundle.cu",), "grid": ("grid.cu",),
+                  "slab": ("slab.cu",)}
 
-# Tile geometry of csrc/bundle.cu and csrc/grid.cu: the contraction stages
-# its matrix in chunks of _KT rows and _CT columns, and each thread owns 4
-# consecutive columns.
+# The models the kernels evaluate, by model code (csrc/zheng07.cuh).
+KERNEL_MODELS = (Zheng07Model, AssembiasZheng07Model)
+
+# Tile geometry of csrc/contract.cuh and csrc/grid.cu: the contraction
+# stages its matrix in chunks of _KT rows and _CT columns, and each thread
+# owns 4 consecutive columns.
 _TB = 64
 _KT = 32
 _CT = 128
 _MAX_TABLES = 4
 _SMEM_LIMIT = 232448          # bytes a block may use on sm_90
 _PLAIN_CHUNK = 4096
+# Rows of per-row parameter terms in a block's shared memory, plus the
+# row totals (csrc/zheng07.cuh kParTerms + 1).
+_ROW_TERMS = 9
 # Rows per tensor-op occupation pass ahead of the contraction kernel: it
 # bounds the (chunk, n_bins, n_gauss) intermediates.
 _OCC_CHUNK = 32768
@@ -104,12 +122,52 @@ def _check_tensor(a, device, dtype, what):
         raise ValueError(f"{what} must be contiguous {dtype} on {device}.")
 
 
-def _check_params(pmat):
+def kernel_model(model):
+    """The kernels' code for ``model``'s occupation: 0 for zheng07, 1 for
+    zheng07 with the Heaviside assembly-bias decoration, None for any
+    other model.  The test is on the exact type: a subclass may change the
+    occupation, and the kernels would silently ignore the change."""
+    for code, kind in enumerate(KERNEL_MODELS):
+        if type(model) is kind:
+            return code
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelModel:
+    """What a kernel launch needs of the model: its code, zheng07's
+    central modulation and the assembly-bias split (zheng07.cuh)."""
+
+    code: int = 0
+    modulate: bool = False
+    split: float = 0.5
+
+    @classmethod
+    def of(cls, model):
+        code = kernel_model(model)
+        if code is None:
+            raise ValueError(f"the CUDA kernels evaluate "
+                             f"{', '.join(k.__name__ for k in KERNEL_MODELS)}"
+                             f" occupations only, not {type(model).__name__}.")
+        return cls(code=code, modulate=bool(model.modulate_with_cenocc),
+                   split=float(getattr(model, "split", 0.5)))
+
+    @property
+    def param_names(self):
+        """The parameter matrix's columns, in the kernels' order."""
+        return KERNEL_MODELS[self.code].kernel_param_names
+
+    def launch_args(self):
+        return self.code, int(self.modulate), self.split
+
+
+def _check_params(pmat, hod: KernelModel):
     if not pmat.is_cuda:
         raise ValueError("the kernels need CUDA tensors.")
+    n_cols = len(hod.param_names)
     if pmat.dtype != torch.float32 or pmat.dim() != 2 or \
-            pmat.shape[1] != len(Zheng07Model.param_names):
-        raise ValueError(f"params must be (B, 5) float32, got "
+            pmat.shape[1] != n_cols:
+        raise ValueError(f"params must be (B, {n_cols}) float32, got "
                          f"{tuple(pmat.shape)} {pmat.dtype}.")
     if not pmat.is_contiguous():
         raise ValueError("params must be contiguous.")
@@ -148,6 +206,7 @@ def load_kernels():
     build_libraries(KERNEL_SOURCES)
     _bundle_lib()
     _grid_lib()
+    _slab_lib()
 
 
 def check_accuracy(accuracy, n_tables):
@@ -205,27 +264,35 @@ class BundleTable:
         return self.f_t.shape[1]
 
 
-def bundle_table_constants(table: TableData) -> BundleTable:
-    """Per-table constants (port of ``_quad_segment_constants`` and the
-    table part of ``_bundle_table_constants``)."""
-    nb = table.n_bins
-    auto = table.mode == AUTO
-    dense = table.tpcf_dense.cpu().numpy().astype(np.float32)
-    n_xi = dense.shape[0]
+def _contraction_matrices(dense, auto):
+    """The matrices ``dense`` (n, n_xi, nb, nb) (auto) or (n, n_xi, nb)
+    (cross) in the contraction layout of csrc/contract.cuh, float32,
+    zero-padded to (n, k_pad, c_pad): ``f_t[m, j, k * nbp + i] =
+    F_m[k, i, j]`` (auto) or ``f_t[m, j, k] = F_m[k, j]`` (cross).
+    Returns (f_t, nbp)."""
+    n, n_xi, nb = dense.shape[:3]
     nbp = _round_up(nb, 4)
     k_pad = _round_up(nb, _KT)
     if auto:
-        f_t = np.zeros((k_pad, _round_up(n_xi * nbp, _CT)), np.float32)
-        blocks = np.zeros((nb, n_xi, nbp), np.float32)
-        blocks[:, :, :nb] = dense.transpose(2, 0, 1)      # [j, k, i]
-        f_t[:nb, :n_xi * nbp] = blocks.reshape(nb, n_xi * nbp)
+        f_t = np.zeros((n, k_pad, _round_up(n_xi * nbp, _CT)), np.float32)
+        blocks = np.zeros((n, nb, n_xi, nbp), np.float32)
+        blocks[..., :nb] = dense.transpose(0, 3, 1, 2)    # [m, j, k, i]
+        f_t[:, :nb, :n_xi * nbp] = blocks.reshape(n, nb, n_xi * nbp)
     else:
-        f_t = np.zeros((k_pad, _round_up(n_xi, _CT)), np.float32)
-        f_t[:nb, :n_xi] = dense.T
-    return BundleTable(auto=auto, n_bins=nb, n_centrals=table.n_centrals,
-                       n_xi=n_xi, nbp=nbp,
-                       tpcf_shape=tuple(table.tpcf_shape),
-                       f_t=_tensor(f_t, table.n_h.device),
+        f_t = np.zeros((n, k_pad, _round_up(n_xi, _CT)), np.float32)
+        f_t[:, :nb, :n_xi] = dense.transpose(0, 2, 1)
+    return f_t, nbp
+
+
+def bundle_table_constants(table: TableData) -> BundleTable:
+    """Per-table constants (port of ``_quad_segment_constants`` and the
+    table part of ``_bundle_table_constants``)."""
+    dense = table.tpcf_dense.cpu().numpy().astype(np.float32)
+    f_t, nbp = _contraction_matrices(dense[None], table.mode == AUTO)
+    return BundleTable(auto=table.mode == AUTO, n_bins=table.n_bins,
+                       n_centrals=table.n_centrals, n_xi=dense.shape[0],
+                       nbp=nbp, tpcf_shape=tuple(table.tpcf_shape),
+                       f_t=_tensor(f_t[0], table.n_h.device),
                        **_quadrature_arrays(table))
 
 
@@ -271,8 +338,9 @@ def _bundle_lib():
     """Build (first call only) and bind the entry points of bundle.cu."""
     lib = load_library("bundle", KERNEL_SOURCES["bundle"])
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.tabcorr_bundle.argtypes = [vp, i, i, i, ctypes.POINTER(vp),
-                                   ctypes.POINTER(i), i, vp]
+    lib.tabcorr_bundle.argtypes = [vp, i, i, i, ctypes.c_double, i,
+                                   ctypes.POINTER(vp), ctypes.POINTER(i), i,
+                                   vp]
     lib.tabcorr_contraction.argtypes = [vp, i, vp, vp, vp] + [i] * 7 + [vp]
     lib.tabcorr_bundle.restype = lib.tabcorr_contraction.restype = i
     lib.tabcorr_cuda_error_string.argtypes = [i]
@@ -280,13 +348,18 @@ def _bundle_lib():
     return lib
 
 
+def _contract_smem_bytes(k_pad, n_xi) -> int:
+    """Dynamic shared memory of one block of the kernels built on
+    csrc/contract.cuh (the layout ``smem_floats`` carves)."""
+    return 4 * (k_pad * _TB + _KT * _CT + _TB * (_CT // 4) + _TB * n_xi +
+                _ROW_TERMS * _TB)
+
+
 def _smem_bytes(consts) -> int:
     """Dynamic shared memory of one block of csrc/bundle.cu's kernels for
-    these tables (the layout ``smem_floats`` carves)."""
-    k_pad = max(c.k_pad for c in consts)
-    n_xi = max(c.n_xi for c in consts)
-    return 4 * (k_pad * _TB + _KT * _CT + _TB * (_CT // 4) + _TB * n_xi +
-                7 * _TB)
+    these tables."""
+    return _contract_smem_bytes(max(c.k_pad for c in consts),
+                                max(c.n_xi for c in consts))
 
 
 def _check_smem(smem):
@@ -297,20 +370,19 @@ def _check_smem(smem):
 
 def contraction_fits(n_bins, n_xi) -> bool:
     """Whether the contraction kernel takes a table of this shape."""
-    return 4 * (_round_up(n_bins, _KT) * _TB + _KT * _CT + _TB * (_CT // 4) +
-                _TB * n_xi + 7 * _TB) <= _SMEM_LIMIT
+    return _contract_smem_bytes(_round_up(n_bins, _KT), n_xi) <= _SMEM_LIMIT
 
 
-def bundle_launch(consts, pmat, modulate_with_cenocc=False):
+def bundle_launch(consts, pmat, hod=KernelModel()):
     """Launch the CUDA bundle kernel once for every table in ``consts``.
 
-    ``pmat`` is the (B, 5) float32 zheng07 parameter matrix (columns in
-    ``Zheng07Model.param_names`` order) on the tables' CUDA device.
-    Returns ``[(total (B,), xi (B, n_xi)), ...]``.  Raises on any input
-    the kernel does not take and on any launch error.
+    ``pmat`` is the float32 parameter matrix of the model ``hod`` (zheng07
+    by default), one column per name of ``hod.param_names``, on the
+    tables' CUDA device.  Returns ``[(total (B,), xi (B, n_xi)), ...]``.
+    Raises on any input the kernel does not take and on any launch error.
     """
     global BUNDLE_LAUNCHES
-    _check_params(pmat)
+    _check_params(pmat, hod)
     if not 1 <= len(consts) <= _MAX_TABLES:
         raise ValueError(f"the kernel takes 1 to {_MAX_TABLES} tables.")
     _check_smem(_smem_bytes(consts))
@@ -318,7 +390,7 @@ def bundle_launch(consts, pmat, modulate_with_cenocc=False):
     device = pmat.device
     ptrs, dims, outs = [], [], []
     for c in consts:
-        arrays = (c.logm, c.logm_res, c.weight, c.f_t)
+        arrays = (c.logm, c.logm_res, c.sec, c.weight, c.f_t)
         for a in arrays:
             _check_tensor(a, device, torch.float32, "table constants")
         total = torch.empty(batch, device=device, dtype=torch.float32)
@@ -331,7 +403,7 @@ def bundle_launch(consts, pmat, modulate_with_cenocc=False):
     lib = _bundle_lib()
     stream = torch.cuda.current_stream(device).cuda_stream
     code = lib.tabcorr_bundle(
-        pmat.data_ptr(), batch, int(bool(modulate_with_cenocc)), len(consts),
+        pmat.data_ptr(), batch, *hod.launch_args(), len(consts),
         (ctypes.c_void_p * len(ptrs))(*ptrs),
         (ctypes.c_int * len(dims))(*dims), device.index, stream)
     _raise_on_error(code, "bundle", lib.tabcorr_cuda_error_string)
@@ -383,8 +455,9 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
         float32 tabulations (auto or cross mode) on one device, sharing the
         model's parameters (their halo binnings may differ).
     model : HodModel
-        On a CUDA device it must be a :class:`Zheng07Model`, the occupation
-        the kernel evaluates; on the CPU any model runs (plain version).
+        On a CUDA device a model the kernel evaluates (:func:`kernel_model`:
+        zheng07, with or without assembly bias); on the CPU any model runs
+        (plain version).
     accuracy : sequence of str, optional
         One contract per table, 'elementwise' (default) or 'scaled'.  Both
         run at full float32 precision.
@@ -401,7 +474,7 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
     device = consts[0].logm.device
     if any(c.logm.device != device for c in consts):
         raise ValueError("all tables must be on one device.")
-    _check_kernel_model(device, model, "bundle")
+    hod = _kernel_model_on(device, model)
     occ_cen, occ_sat = occupation_functions(model)
 
     def predict_batch(params):
@@ -409,17 +482,16 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
         if device.type == "cpu":
             results = bundle_predict_plain(consts, params, occ_cen, occ_sat)
         else:
-            results = bundle_launch(consts, _param_matrix(params),
-                                    model.modulate_with_cenocc)
+            results = bundle_launch(consts, _param_matrix(params, hod), hod)
         return shaped(consts, results)
 
     return predict_batch
 
 
-def _check_kernel_model(device, model, what):
-    if device.type == "cuda" and not isinstance(model, Zheng07Model):
-        raise ValueError(f"the CUDA {what} kernel evaluates Zheng07Model "
-                         f"occupations only, not {type(model).__name__}.")
+def _kernel_model_on(device, model):
+    """The launch arguments of ``model`` where a kernel will run it (raises
+    for a model the kernels do not evaluate); None on the CPU."""
+    return KernelModel.of(model) if device.type == "cuda" else None
 
 
 def _check_params_device(params, device):
@@ -428,8 +500,8 @@ def _check_params_device(params, device):
         raise ValueError(f"parameters on {p_device}, tables on {device}.")
 
 
-def _param_matrix(params):
-    return torch.stack([params[k] for k in Zheng07Model.param_names], dim=1)
+def _param_matrix(params, hod: KernelModel):
+    return torch.stack([params[k] for k in hod.param_names], dim=1)
 
 
 def make_fused_contraction(table: TableData, accuracy="elementwise"):
@@ -613,8 +685,9 @@ def _grid_lib():
     """Build (first call only) and bind the entry point of grid.cu."""
     lib = load_library("grid", KERNEL_SOURCES["grid"])
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.tabcorr_grid.argtypes = ([vp, vp, i, i, vp, vp, vp, i, i, i, vp, vp,
-                                  i, vp] + [i] * 7 + [vp, vp, i, vp])
+    lib.tabcorr_grid.argtypes = ([vp, vp, i, i, i, ctypes.c_double, vp, vp,
+                                  vp, vp, i, i, i, vp, vp, i, vp] + [i] * 7 +
+                                 [vp, vp, i, vp])
     lib.tabcorr_grid.restype = i
     lib.tabcorr_cuda_error_string.argtypes = [i]
     lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
@@ -625,7 +698,7 @@ def _grid_smem_bytes(tb, n_bins, nxp) -> int:
     """Dynamic shared memory of one block of csrc/grid.cu's kernel with
     ``tb`` rows (the layout ``smem_floats`` carves)."""
     return 4 * (_round_up(n_bins, _KT) * tb + _KT * tb + _KT * _CT +
-                tb * _CT + 2 * tb * nxp + 7 * tb)
+                tb * _CT + 2 * tb * nxp + _ROW_TERMS * tb)
 
 
 def grid_block_rows(n_bins, n_xi):
@@ -639,20 +712,19 @@ def grid_block_rows(n_bins, n_xi):
     return None
 
 
-def grid_launch(g: GridTable, pmat, node_weights=None,
-                modulate_with_cenocc=False):
+def grid_launch(g: GridTable, pmat, node_weights=None, hod=KernelModel()):
     """Launch the CUDA grid kernel once.
 
-    ``pmat`` is the (B, 5) float32 zheng07 parameter matrix on the grid's
-    CUDA device; ``node_weights`` (B, n_nodes) float32 folds the nodes
-    (returns xi (B, n_xi)), None returns the per-node xi (B, n_nodes,
-    n_xi).  Raises on any input the kernel does not take and on any
-    launch error.
+    ``pmat`` is the float32 parameter matrix of the model ``hod`` (zheng07
+    by default; see :func:`bundle_launch`) on the grid's CUDA device;
+    ``node_weights`` (B, n_nodes) float32 folds the nodes (returns xi (B,
+    n_xi)), None returns the per-node xi (B, n_nodes, n_xi).  Raises on
+    any input the kernel does not take and on any launch error.
     """
     global GRID_LAUNCHES
-    _check_params(pmat)
+    _check_params(pmat, hod)
     device = pmat.device
-    for a in (g.logm, g.logm_res, g.weight, g.fp):
+    for a in (g.logm, g.logm_res, g.sec, g.weight, g.fp):
         _check_tensor(a, device, torch.float32, "grid constants")
     for a in (g.pair_i, g.pair_j):
         _check_tensor(a, device, torch.int32, "pair indices")
@@ -674,8 +746,8 @@ def grid_launch(g: GridTable, pmat, node_weights=None,
     code = lib.tabcorr_grid(
         pmat.data_ptr(),
         None if node_weights is None else node_weights.data_ptr(), batch,
-        int(bool(modulate_with_cenocc)), g.logm.data_ptr(),
-        g.logm_res.data_ptr(), g.weight.data_ptr(), g.n_bins, g.n_centrals,
+        *hod.launch_args(), g.logm.data_ptr(), g.logm_res.data_ptr(),
+        g.sec.data_ptr(), g.weight.data_ptr(), g.n_bins, g.n_centrals,
         g.n_gauss, g.pair_i.data_ptr(), g.pair_j.data_ptr(), g.npair,
         g.fp.data_ptr(), g.k_pad, g.c_pad, g.n_nodes, g.n_xi, g.nxp,
         int(g.auto), tb, total.data_ptr(), xi.data_ptr(), device.index,
@@ -685,6 +757,150 @@ def grid_launch(g: GridTable, pmat, node_weights=None,
     return total, xi
 
 
+# ----------------------------------------------------------------------
+# Slab (B4): constants, plain version, kernel
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SlabTable:
+    """Host-built constants of a stacked Interpolator grid (one halo
+    binning) for the slab kernel, as float32 tensors on one device.
+
+    ``logm``, ``logm_res``, ``sec`` and ``weight`` are the quadrature as in
+    :class:`BundleTable`; ``f_t`` (n_nodes, k_pad, c_pad) holds every
+    node's matrix in :class:`BundleTable`'s layout, one node after
+    another.
+    """
+
+    auto: bool
+    n_bins: int
+    n_centrals: int
+    n_nodes: int
+    n_xi: int
+    nbp: int
+    logm: torch.Tensor
+    logm_res: torch.Tensor
+    sec: torch.Tensor
+    weight: torch.Tensor
+    f_t: torch.Tensor
+
+    @property
+    def n_gauss(self):
+        return self.logm.shape[1]
+
+    @property
+    def k_pad(self):
+        return self.f_t.shape[1]
+
+    @property
+    def c_pad(self):
+        return self.f_t.shape[2]
+
+
+def slab_table_constants(table: TableData, n_nodes) -> SlabTable:
+    """Constants of the stacked grid ``table`` (every node's rows stacked
+    on the statistic axis, node-major)."""
+    dense = table.tpcf_dense.cpu().numpy().astype(np.float32)
+    if dense.shape[0] % n_nodes:
+        raise ValueError("Stacked row count must be divisible by n_nodes.")
+    n_xi = dense.shape[0] // n_nodes
+    f_t, nbp = _contraction_matrices(
+        dense.reshape((n_nodes, n_xi) + dense.shape[1:]), table.mode == AUTO)
+    return SlabTable(auto=table.mode == AUTO, n_bins=table.n_bins,
+                     n_centrals=table.n_centrals, n_nodes=n_nodes, n_xi=n_xi,
+                     nbp=nbp, f_t=_tensor(f_t, table.n_h.device),
+                     **_quadrature_arrays(table))
+
+
+def slab_predict_plain(s: SlabTable, params, occupation_cen, occupation_sat):
+    """The slab kernel's plain version: (total (B,), xi (B, n_nodes,
+    n_xi)), ``_PLAIN_CHUNK`` batch rows and one node at a time (one
+    4096-row chunk against all 64 nodes of the wide grid would be a 7 GB
+    intermediate).
+
+    The densities are float32, as in the kernel; each node's contraction
+    runs in float64 and rounds to float32 before the division, so that
+    the plain version is the more accurate side of the comparison.
+    """
+    batch = next(iter(params.values())).shape[0]
+    nb, nbp, n_xi = s.n_bins, s.nbp, s.n_xi
+    totals, xis = [], []
+    for lo in range(0, batch, _PLAIN_CHUNK):
+        p = {k: v[lo:lo + _PLAIN_CHUNK, None, None] for k, v in params.items()}
+        ngal = _plain_ngal(s, p, occupation_cen, occupation_sat)
+        total = _total(ngal)
+        n = torch.nn.functional.pad(ngal, (0, s.k_pad - nb)).double()
+        nodes = []
+        for node in range(s.n_nodes):
+            t = n @ s.f_t[node].double()
+            if s.auto:
+                t = t[:, :n_xi * nbp].reshape(-1, n_xi, nbp)
+                nodes.append(torch.sum(t * n[:, None, :nbp], dim=-1))
+            else:
+                nodes.append(t[:, :n_xi])
+        den = total * total if s.auto else total
+        totals.append(total)
+        xis.append(torch.stack(nodes, dim=1).float() / den[:, None, None])
+    return torch.cat(totals), torch.cat(xis)
+
+
+@functools.cache
+def _slab_lib():
+    """Build (first call only) and bind the entry point of slab.cu."""
+    lib = load_library("slab", KERNEL_SOURCES["slab"])
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.tabcorr_slab.argtypes = ([vp, i, i, i, ctypes.c_double, vp, vp, vp,
+                                  vp, i, i, i, vp] + [i] * 6 +
+                                 [vp, vp, i, vp])
+    lib.tabcorr_slab.restype = i
+    lib.tabcorr_cuda_error_string.argtypes = [i]
+    lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def slab_launch(s: SlabTable, pmat, hod=KernelModel()):
+    """Launch the CUDA slab kernel once.
+
+    ``pmat`` is the float32 parameter matrix of the model ``hod`` (zheng07
+    by default; see :func:`bundle_launch`) on the grid's CUDA device.
+    Returns (total (B,), xi (B, n_nodes, n_xi)).  Raises on any input the
+    kernel does not take and on any launch error.
+    """
+    global SLAB_LAUNCHES
+    _check_params(pmat, hod)
+    device = pmat.device
+    for a in (s.logm, s.logm_res, s.sec, s.weight, s.f_t):
+        _check_tensor(a, device, torch.float32, "slab constants")
+    _check_smem(_contract_smem_bytes(s.k_pad, s.n_xi))
+    batch = pmat.shape[0]
+    total = torch.empty(batch, device=device, dtype=torch.float32)
+    xi = torch.empty((batch, s.n_nodes, s.n_xi), device=device,
+                     dtype=torch.float32)
+    lib = _slab_lib()
+    code = lib.tabcorr_slab(
+        pmat.data_ptr(), batch, *hod.launch_args(), s.logm.data_ptr(),
+        s.logm_res.data_ptr(), s.sec.data_ptr(), s.weight.data_ptr(),
+        s.n_bins, s.n_centrals, s.n_gauss, s.f_t.data_ptr(), s.n_nodes,
+        s.n_xi, s.nbp, s.k_pad, s.c_pad, int(s.auto), total.data_ptr(),
+        xi.data_ptr(), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on_error(code, "slab", lib.tabcorr_cuda_error_string)
+    SLAB_LAUNCHES += 1
+    return total, xi
+
+
+def grid_kernel_takes(n_bins, mode, n_xi) -> bool:
+    """Whether the kernel of the layout 'auto' picks takes a grid of this
+    shape: the grid kernel for 'packed', the slab kernel for 'slab' (it
+    carves the contraction kernel's shared memory, so it takes one node's
+    shape where that kernel does)."""
+    if _grid_layout(n_bins, mode) == "packed":
+        return grid_fits(n_bins, mode, n_xi)
+    return contraction_fits(n_bins, n_xi)
+
+
+# ----------------------------------------------------------------------
+# The grid predictor: B2 (packed) or B4 (slab)
+# ----------------------------------------------------------------------
 def make_fused_grid_predictor(table: TableData, n_nodes, model,
                               accuracy="elementwise", layout="auto",
                               fold_spline=False):
@@ -697,41 +913,51 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
         statistic axis ((n_nodes * n_xi, ...)), sharing one quadrature.
     n_nodes : int
     model : HodModel
-        On a CUDA device a :class:`Zheng07Model`, the occupation the
-        kernel evaluates; on the CPU any model (plain version).
+        On a CUDA device a model the kernels evaluate (:func:`kernel_model`);
+        on the CPU any model (plain versions).
     accuracy : str
         'elementwise' or 'scaled'; both run at full float32 precision.
     layout : str
-        'packed', or 'auto' (tabcorr_tpu's rule, :func:`grid_layout_for`).
-        The 'slab' layout (B4) is not ported and raises
-        NotImplementedError, so does 'auto' where it would pick it.
+        'packed' (the grid kernel, B2), 'slab' (the slab kernel, B4), or
+        'auto': tabcorr_tpu's rule (:func:`grid_layout_for`), the slab
+        for auto tables of more than 127 bins.
     fold_spline : bool
-        True: the callable takes ``(params, node_weights (B, n_nodes))``
-        and returns ``(ngal (B,), xi (B, n_xi))``, the nodes reduced by
-        the weights inside the kernel.  False: ``f(params) -> (ngal,
-        xi (B, n_nodes, n_xi))``.
+        True (packed only): the callable takes ``(params, node_weights (B,
+        n_nodes))`` and returns ``(ngal (B,), xi (B, n_xi))``, the nodes
+        reduced by the weights inside the kernel.  False: ``f(params) ->
+        (ngal, xi (B, n_nodes, n_xi))``.
     """
     check_accuracy([accuracy], 1)
     if layout == "auto":
         layout = grid_layout_for(table)
-    if layout == "slab":
-        raise NotImplementedError(
-            "the 'slab' grid layout (tabcorr_tpu's node-streamed slab "
-            "kernel, B4 in ROADMAP.md) is not ported.")
-    if layout != "packed":
+    if layout not in ("packed", "slab"):
         raise ValueError(f"Unknown layout: {layout!r}")
-    g = grid_table_constants(table, n_nodes)
-    device = g.fp.device
-    _check_kernel_model(device, model, "grid")
+    if layout == "slab" and fold_spline:
+        raise ValueError("fold_spline requires the 'packed' layout "
+                         "(check grid_layout_for(table) first).")
+    device = table.n_h.device
+    hod = _kernel_model_on(device, model)
     occ_cen, occ_sat = occupation_functions(model)
+
+    if layout == "slab":
+        s = slab_table_constants(table, n_nodes)
+
+        def run_slab(params):
+            _check_params_device(params, device)
+            if device.type == "cpu":
+                return slab_predict_plain(s, params, occ_cen, occ_sat)
+            return slab_launch(s, _param_matrix(params, hod), hod)
+
+        return run_slab
+
+    g = grid_table_constants(table, n_nodes)
 
     def run(params, node_weights):
         _check_params_device(params, device)
         if device.type == "cpu":
             return grid_predict_plain(g, params, node_weights, occ_cen,
                                       occ_sat)
-        return grid_launch(g, _param_matrix(params), node_weights,
-                           model.modulate_with_cenocc)
+        return grid_launch(g, _param_matrix(params, hod), node_weights, hod)
 
     if fold_spline:
         return run

@@ -9,13 +9,18 @@ that evaluates a whole parameter batch.  Its engines:
 
 * 'fused' -- on a CUDA device a hand-written kernel per call (``ops.fused``):
   for a TabCorr the occupation in tensor ops, then the contraction kernel;
-  for an Interpolator the grid kernel with the grid spline folded in.  On
-  the CPU the same call runs the kernels' plain versions.
+  for an Interpolator the grid kernel with the grid spline folded in, or,
+  for auto tables too wide for its packed layout (more than 127 bins), the
+  slab kernel and then the grid spline in tensor ops.  On the CPU the same
+  call runs the kernels' plain versions.
 * 'plain' -- tensor ops only: per node mean occupation and contraction,
   then the grid splines (the reference pipeline, heterogeneous node
   binnings included; reference: tabcorr/interpolator.py:124-216).
 * 'auto' (default) -- 'fused' on CUDA where the object, model and dtype
   allow it, 'plain' otherwise.
+
+Every entry point runs on the CUDA device unless ``device="cpu"`` is
+passed; without a card it raises (``utils.device.resolve_device``).
 
 :func:`make_multi_predictor` evaluates several tabulations at once through
 one launch of the bundle kernel.
@@ -30,7 +35,6 @@ import torch
 
 from .interpolator import Interpolator, spline_eval
 from .models.protocol import occupation_functions
-from .models.zheng07 import Zheng07Model
 from .ops import fused
 from .ops.predict import (TableData, mean_occupation, predict_from_occupation,
                           predict_from_occupation_separate)
@@ -194,7 +198,7 @@ def _interpolator_predict_fn(interp, model, n_gauss, dtype,
     return predict
 
 
-def stacked_grid(interp, n_gauss=10, *, device):
+def stacked_grid(interp, n_gauss=10, *, device="cuda"):
     """An Interpolator whose nodes share one halo binning as one float32
     TableData: every node's statistic rows stacked in grid order on the
     statistic axis.  Returns (stacked table, n_nodes, one node's
@@ -224,15 +228,35 @@ def grid_node_weights(interp, params, extrapolate=False):
 def _interpolator_fused_predict_fn(interp, model, n_gauss, extrapolate,
                                    accuracy, device):
     """The fused engine for an Interpolator whose nodes share one halo
-    binning: one grid kernel per call evaluates the occupation, every
-    node's contraction and the grid spline (folded in as per-sample node
-    weights).  Samples outside the grid (NaN weights) get NaN ngal and
-    xi, as the plain engine's splined ngal does."""
+    binning.  Packed layout (:func:`~.ops.fused.grid_layout_for`): one
+    grid kernel per call evaluates the occupation, every node's
+    contraction and the grid spline (folded in as per-sample node
+    weights).  Slab layout: one slab kernel per call gives every node's
+    statistics, then the grid spline runs in tensor ops (reference route:
+    tabcorr_tpu/predictor.py:322-346).  Samples outside the grid get NaN
+    ngal and xi, as the plain engine's splined ngal does."""
     stacked, n_nodes, tpcf_shape = stacked_grid(interp, n_gauss,
                                                 device=device)
+    keys, xp_dev, a_dev = _spline_constants(interp, torch.float32, device)
+    if fused.grid_layout_for(stacked) == "slab":
+        node_fn = fused.make_fused_grid_predictor(
+            stacked, n_nodes, model, accuracy=accuracy, layout="slab")
+        grid_shape = tuple(len(xp) for xp in interp.xp)
+
+        def predict_slab(params):
+            batch = next(iter(params.values())).shape[0]
+            total, xi_nodes = node_fn(params)
+            xi = _spline_over_grid(params, keys, xp_dev, a_dev, grid_shape,
+                                   xi_nodes, extrapolate)
+            # NaN spline weights (outside the grid) show as NaN rows of xi;
+            # they poison ngal too, as in the packed route.
+            total = torch.where(torch.isnan(xi.sum(dim=-1)), torch.nan, total)
+            return total, xi.reshape((batch,) + tuple(tpcf_shape))
+
+        return predict_slab
+
     node_fn = fused.make_fused_grid_predictor(
         stacked, n_nodes, model, accuracy=accuracy, fold_spline=True)
-    keys, xp_dev, a_dev = _spline_constants(interp, torch.float32, device)
 
     def predict_batch(params):
         batch = next(iter(params.values())).shape[0]
@@ -248,19 +272,19 @@ def _interpolator_fused_predict_fn(interp, model, n_gauss, extrapolate,
 
 
 def _fused_kernel_takes(obj, model):
-    """Whether a CUDA kernel takes ``obj``'s shapes (and, for the grid
-    kernel, which evaluates zheng07, the model)."""
+    """Whether a CUDA kernel takes ``obj``'s shapes (and, for the grid and
+    slab kernels, which evaluate the occupation themselves, the model)."""
     tab = obj if isinstance(obj, TabCorr) else obj.tabcorr_list[0]
     n_xi = int(np.prod(tab.tpcf_shape))
     if isinstance(obj, TabCorr):
         return fused.contraction_fits(tab.n_bins, n_xi)
-    return (isinstance(model, Zheng07Model) and
-            fused.grid_fits(tab.n_bins, tab.mode, n_xi))
+    return (fused.kernel_model(model) is not None and
+            fused.grid_kernel_takes(tab.n_bins, tab.mode, n_xi))
 
 
 def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
                    separate_gal_type=False, engine="auto", extrapolate=False,
-                   accuracy="elementwise", *, device):
+                   accuracy="elementwise", *, device="cuda"):
     """Batched predictor for a tabulation or an interpolator.
 
     Parameters
@@ -287,8 +311,9 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
     accuracy : str, optional
         Fused-engine contract, 'elementwise' or 'scaled'; both run at
         full float32 precision.
-    device : str or torch.device
-        Where the tables live and the batch runs ('cpu' or 'cuda').
+    device : str or torch.device, optional
+        Where the tables live and the batch runs: 'cuda' (default) or
+        'cpu'.
 
     Returns
     -------
@@ -330,7 +355,7 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
                                device)
 
 
-def make_multi_predictor(objs, model, n_gauss=10, *, device,
+def make_multi_predictor(objs, model, n_gauss=10, *, device="cuda",
                          engine="bundle", accuracy=None):
     """Joint predictor over several tabulations (e.g. wp + xi_0/2/4 + ds).
 
@@ -338,11 +363,13 @@ def make_multi_predictor(objs, model, n_gauss=10, *, device,
     ----------
     objs : sequence of TabCorr
     model : HodModel
-        A :class:`~.models.zheng07.Zheng07Model` for the CUDA kernel.
+        A model the CUDA kernel evaluates (``ops.fused.kernel_model``:
+        zheng07, with or without assembly bias); any model on the CPU.
     n_gauss : int, optional
         Gauss-Legendre nodes per halo bin. Default 10.
-    device : str or torch.device
-        Where the tables live and the batch runs ('cpu' or 'cuda').
+    device : str or torch.device, optional
+        Where the tables live and the batch runs: 'cuda' (default) or
+        'cpu'.
     engine : str, optional
         'bundle' (default): on a CUDA device one launch of the bundle
         kernel per call, on the CPU its plain version.  'plain': the plain
@@ -380,7 +407,7 @@ def make_multi_predictor(objs, model, n_gauss=10, *, device,
 
 
 def make_occupation_predictor(obj, dtype=torch.float32,
-                              separate_gal_type=False, *, device):
+                              separate_gal_type=False, *, device="cuda"):
     """Batched predictor over raw per-bin mean-occupation vectors.
 
     The statistic is a quadratic (auto) or linear (cross) form in the
@@ -408,7 +435,7 @@ def make_occupation_predictor(obj, dtype=torch.float32,
 
 
 def params_batch(model, overrides=None, batch_shape=(), dtype=torch.float32,
-                 *, device):
+                 *, device="cuda"):
     """A batched parameter dict from a model's ``param_dict``.
 
     ``overrides`` maps names to arrays of ``batch_shape``; every other

@@ -168,7 +168,7 @@ class TabCorr:
         return self._dense_cache
 
     def table_data(self, n_gauss=10, dtype=torch.float32, *,
-                   device) -> TableData:
+                   device="cuda") -> TableData:
         """The tabulation as tensors on ``device`` (cached per arguments).
 
         In float32 the float64 node residual ``log_prim_quad_lo`` is kept,

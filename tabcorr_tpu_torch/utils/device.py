@@ -1,9 +1,9 @@
 """Device resolution.
 
-Every function that builds tables or predictors takes an explicit
-``device=``; nothing defaults silently to whatever accelerator happens to
-be present, and asking for CUDA where torch finds none raises instead of
-running on the CPU.
+Every entry point that builds tables or predictors takes ``device=``,
+``"cuda"`` by default: the port runs on the card unless the caller asks
+for the CPU.  Asking for CUDA where torch finds none raises instead of
+running on the CPU, and ``device=None`` raises too.
 """
 
 from __future__ import annotations

@@ -1,13 +1,20 @@
-"""Synthetic tabulations and the 64-node Interpolator grid, numpy only.
+"""Synthetic tabulations and the 64-node Interpolator grids, numpy only.
 
-:func:`grid64_interpolator` builds the grid of the published 'default'
-database geometry (reference: tabcorr/database.py:56-59): 4 x 4 x 4 = 64
-nodes over (alpha_c, alpha_s, log_eta), 30 primary-property bins x 2
-galaxy types = 60 halo bins, xi_0/2/4 x 14 separation bins = 42 rows per
-node.  It draws the same random numbers in the same order as the JAX
-package's benchmark builder (``scripts/bench_grid.py:build_interpolator``
-with ``tests/test_bundle_shapes.py:synthetic_tabcorr``), so both
-packages hold the same tables array for array.
+Both grids have the published 'default' database geometry (reference:
+tabcorr/database.py:56-59): 4 x 4 x 4 = 64 nodes over (alpha_c, alpha_s,
+log_eta) and xi_0/2/4 x 14 separation bins = 42 rows per node.
+
+* :func:`grid64_interpolator`: 30 primary-property bins x 2 galaxy types
+  = 60 halo bins.  It draws the same random numbers in the same order as
+  the JAX package's benchmark builder
+  (``scripts/bench_grid.py:build_interpolator`` with
+  ``tests/test_bundle_shapes.py:synthetic_tabcorr``), so both packages
+  hold the same tables array for array.
+* :func:`wide_grid_interpolator`: the published assembly-bias split (2
+  secondary-percentile bins) with a finer mass binning, 40 primary bins x
+  2 x 2 = 160 halo bins: too wide for the packed grid layout (more than
+  127 bins), so the fused engine runs the slab kernel.  Same draws, in
+  the same order, with ``n_sec=2``.
 """
 
 from __future__ import annotations
@@ -68,13 +75,25 @@ def synthetic_tabcorr(rng, n_prim, n_sec, n_xi, mode):
 
 
 def grid64_interpolator(n_nodes=64, n_prim=30, n_xi=42, seed=42):
-    """The 64-node 'default'-geometry grid: every node's table is the same
-    draw (seed ``seed``) times node-dependent noise (seed 1000 + node);
-    statistics shaped (3, n_xi // 3)."""
+    """The 64-node 'default'-geometry grid of 60 halo bins."""
+    return _default_grid(n_nodes, n_prim, 1, n_xi, seed)
+
+
+def wide_grid_interpolator(n_nodes=64, n_prim=40, n_sec=2, n_xi=42,
+                           seed=42):
+    """The 64-node 'default'-geometry grid of 160 halo bins (assembly-bias
+    secondary-percentile midpoints 0.25 and 0.75)."""
+    return _default_grid(n_nodes, n_prim, n_sec, n_xi, seed)
+
+
+def _default_grid(n_nodes, n_prim, n_sec, n_xi, seed):
+    """Every node's table is the same draw (seed ``seed``) times
+    node-dependent noise (seed 1000 + node); statistics shaped (3,
+    n_xi // 3); nodes on the 'default' geometry's cube."""
     tabs = []
     for j in range(n_nodes):
-        t = synthetic_tabcorr(np.random.default_rng(seed), n_prim, 1, n_xi,
-                              "auto")
+        t = synthetic_tabcorr(np.random.default_rng(seed), n_prim, n_sec,
+                              n_xi, "auto")
         r2 = np.random.default_rng(1000 + j)
         t.tpcf_matrix = t.tpcf_matrix * (
             1.0 + 0.1 * r2.normal(size=t.tpcf_matrix.shape))

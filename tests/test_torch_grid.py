@@ -5,7 +5,8 @@ Small synthetic grids (5-6 nodes sharing one binning of 10-12 primary x
 1-2 secondary bins per galaxy type, 5-7 statistic rows) go through the
 port's plain version of the grid kernel and through tabcorr_tpu's packed
 grid kernel in Pallas interpret mode, at B = 8 and a ragged B = 5, auto
-and cross mode, with and without the spline fold.  Tolerances: ngal 1e-6
+and cross mode, with and without the spline fold (the slab layout's
+kernel, B4, is in test_torch_slab.py).  Tolerances: ngal 1e-6
 relative; per-node xi 2e-6 of each row's largest element; folded xi
 ``atol = 2e-6 max|xi|, rtol = 2e-5`` (as tests/test_grid_stream.py holds
 the JAX kernels).  The Interpolator predictors are checked against
@@ -146,12 +147,22 @@ def test_grid_wrapper_never_falls_back_to_the_cpu():
         fused.grid_launch(g, torch.ones((4, 5)))
 
 
-def test_slab_layout_is_not_ported():
+def test_slab_layout_is_not_ported(monkeypatch):
+    """Layout routing: 'slab' runs the slab kernel's route (B4), 'auto'
+    picks it where the packed pair row is too wide, and the grid kernel
+    (B2) does not take such a grid."""
     tabs = _grid_tabs(2, 8, 1, 3, "auto", seed=1)
     model = ttt.Zheng07Model(threshold=-20)
-    with pytest.raises(NotImplementedError, match="B4"):
-        fused.make_fused_grid_predictor(_port_stack(tabs), 2, model,
-                                        layout="slab")
+    routes = []
+    monkeypatch.setattr(fused, "slab_predict_plain",
+                        lambda *a: routes.append("slab"))
+    monkeypatch.setattr(fused, "grid_predict_plain",
+                        lambda *a: routes.append("packed"))
+    p = _both(_params(3, 1))[1]
+    fused.make_fused_grid_predictor(_port_stack(tabs), 2, model,
+                                    layout="slab")(p)
+    fused.make_fused_grid_predictor(_port_stack(tabs), 2, model)(p)
+    assert routes == ["slab", "packed"]
     with pytest.raises(ValueError, match="layout"):
         fused.make_fused_grid_predictor(_port_stack(tabs), 2, model,
                                         layout="rows")
@@ -162,9 +173,10 @@ def test_slab_layout_is_not_ported():
     assert jax_fused.grid_layout_for(_stack(wide)) == "slab"
     stacked = _port_stack(wide)
     assert fused.grid_layout_for(stacked) == "slab"
-    with pytest.raises(NotImplementedError, match="B4"):
-        fused.make_fused_grid_predictor(stacked, 2, model)
+    fused.make_fused_grid_predictor(stacked, 2, model)(p)
+    assert routes == ["slab", "packed", "slab"]
     assert not fused.grid_fits(128, "auto", 2)
+    assert fused.grid_kernel_takes(128, "auto", 2)
     assert fused.grid_fits(1104, "cross", 13)
     assert not fused.grid_fits(2000, "cross", 13)
 

@@ -42,7 +42,7 @@ def test_scan_sees_the_whole_package():
     names = {p.name for p in PORT_FILES}
     assert {"fused.py", "predict.py", "table.py", "mcmc.py", "zheng07.py",
             "interpolator.py", "predictor.py", "synthetic.py",
-            "chip_smoke.py"} <= names
+            "assembias.py", "chip_smoke.py"} <= names
 
 
 def test_port_imports_with_jax_blocked():
@@ -53,6 +53,7 @@ def test_port_imports_with_jax_blocked():
             "import tabcorr_tpu_torch, tabcorr_tpu_torch.ops.fused\n"
             "import tabcorr_tpu_torch.interpolator\n"
             "import tabcorr_tpu_torch.utils.synthetic\n"
+            "import tabcorr_tpu_torch.models.assembias\n"
             "from tabcorr_tpu_torch.utils.build import load_library\n"
             "assert load_library.cache_info().currsize == 0\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

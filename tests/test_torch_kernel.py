@@ -1,5 +1,5 @@
-"""The CUDA kernels (bundle, contraction, grid) against their plain
-PyTorch versions.
+"""The CUDA kernels (bundle, contraction, grid, slab) against their plain
+PyTorch versions, for zheng07 and the assembly-bias decorated model.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a GPU machine without JAX it runs on its own:
@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from tabcorr_tpu_torch import (Interpolator, TabCorr, Zheng07Model,
-                               make_multi_predictor, make_predictor,
-                               occupation_functions, params_batch)
+from tabcorr_tpu_torch import (AssembiasZheng07Model, Interpolator, TabCorr,
+                               Zheng07Model, make_multi_predictor,
+                               make_predictor, occupation_functions,
+                               params_batch)
+from tabcorr_tpu_torch.io import ColumnTable
 from tabcorr_tpu_torch.ops import fused
 from tabcorr_tpu_torch.ops.predict import TableData, quadrature_grid
 from tabcorr_tpu_torch.utils.synthetic import synthetic_tabcorr
@@ -33,15 +35,32 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _params(model, batch, seed, device):
+STRENGTHS = ("mean_occupation_centrals_assembias_param1",
+             "mean_occupation_satellites_assembias_param1")
+
+
+def _params(model, batch, seed, device, strength=None):
+    """zheng07 parameters around threshold -18; for the decorated model
+    strengths uniform in [-1, 1], or all equal to ``strength``."""
     rng = np.random.default_rng(seed)
-    return params_batch(model, {
+    overrides = {
         "logMmin": 11.35 + 0.3 * rng.normal(size=batch),
         "sigma_logM": 0.25 + 0.05 * rng.uniform(size=batch),
         "logM0": 11.2 + 0.3 * rng.normal(size=batch),
         "logM1": 12.4 + 0.3 * rng.normal(size=batch),
-        "alpha": 0.83 + 0.1 * rng.normal(size=batch)}, (batch,),
-        device=device)
+        "alpha": 0.83 + 0.1 * rng.normal(size=batch)}
+    if isinstance(model, AssembiasZheng07Model):
+        for name in STRENGTHS:
+            overrides[name] = (rng.uniform(-1.0, 1.0, batch)
+                               if strength is None else
+                               np.full(batch, strength))
+    return params_batch(model, overrides, (batch,), device=device)
+
+
+def _model(kind, **kw):
+    if kind == "zheng07":
+        return Zheng07Model(threshold=-20, **kw)
+    return AssembiasZheng07Model(threshold=-20, **kw)
 
 
 def _assert_close(got, want, what):
@@ -74,6 +93,7 @@ def test_kernel_matches_plain_on_bench_tables(cuda, batch):
 
 
 def _synthetic_table(mode, n_bins, n_centrals, n_xi, seed, device):
+    """Odd shapes; secondary percentiles alternate 0.25 / 0.75."""
     rng = np.random.default_rng(seed)
     log_min = np.linspace(10.8, 14.6, n_bins) + 0.01 * rng.normal(size=n_bins)
     log_quad, weight = quadrature_grid(log_min, log_min + 0.2,
@@ -87,20 +107,21 @@ def _synthetic_table(mode, n_bins, n_centrals, n_xi, seed, device):
     return TableData.from_numpy(
         dict(tpcf_dense=dense, n_h=10.0 ** rng.uniform(-6, -2, n_bins),
              log_prim_quad=log_quad, quad_weight=weight,
-             sec_perc=np.full(n_bins, 0.5),
+             sec_perc=np.where(np.arange(n_bins) % 2, 0.25, 0.75),
              log_prim_quad_lo=log_quad - hi64),
         mode=mode, tpcf_shape=(n_xi,), n_centrals=n_centrals,
         device=device, dtype=torch.float32)
 
 
+@pytest.mark.parametrize("kind", ["zheng07", "assembias"])
 @pytest.mark.parametrize("modulate", [False, True])
-def test_kernel_matches_plain_on_odd_shapes(cuda, modulate):
+def test_kernel_matches_plain_on_odd_shapes(cuda, modulate, kind):
     # Odd bin counts (padding of every tile dimension), both modes in one
     # launch, a ragged batch, and zheng07's central modulation.
     tables = [_synthetic_table("auto", 37, 17, 5, 2, cuda),
               _synthetic_table("cross", 45, 20, 3, 3, cuda),
               _synthetic_table("auto", 130, 64, 11, 4, cuda)]
-    model = Zheng07Model(threshold=-20, modulate_with_cenocc=modulate)
+    model = _model(kind, modulate_with_cenocc=modulate)
     consts = [fused.bundle_table_constants(t) for t in tables]
     occ = occupation_functions(model)
     predict = fused.make_fused_bundle_predictor(tables, model)
@@ -108,7 +129,7 @@ def test_kernel_matches_plain_on_odd_shapes(cuda, modulate):
     got = predict(params)
     want = fused.shaped(consts, fused.bundle_predict_plain(consts, params,
                                                            *occ))
-    _assert_close(got, want, f"synthetic, modulate={modulate}")
+    _assert_close(got, want, f"synthetic, {kind}, modulate={modulate}")
 
 
 def test_kernel_wrapper_rejects_bad_inputs(cuda):
@@ -123,6 +144,9 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda):
         fused.bundle_launch(consts, pmat.cpu())
     with pytest.raises(ValueError):
         fused.bundle_launch(consts, pmat[:, :4].contiguous())
+    # The decorated model reads 7 columns.
+    with pytest.raises(ValueError):
+        fused.bundle_launch(consts, pmat, fused.KernelModel(code=1))
 
 
 # ----------------------------------------------------------------------
@@ -212,13 +236,14 @@ def _assert_grid_close(got, want, nan_rows=(), scale=None):
     assert float(err[~nan].max()) <= 2e-6
 
 
+@pytest.mark.parametrize("kind", ["zheng07", "assembias"])
 @pytest.mark.parametrize("mode", ["auto", "cross"])
 @pytest.mark.parametrize("fold", [False, True])
 @pytest.mark.parametrize("batch", [8, 131])
-def test_grid_kernel_matches_plain(cuda, mode, fold, batch):
+def test_grid_kernel_matches_plain(cuda, mode, fold, batch, kind):
     n_nodes = 6
     table = _grid_table(n_nodes, 12, 2, 7, mode, 13, cuda)
-    model = Zheng07Model(threshold=-20)
+    model = _model(kind)
     predict = fused.make_fused_grid_predictor(table, n_nodes, model,
                                               fold_spline=fold)
     g = fused.grid_table_constants(table, n_nodes)
@@ -296,3 +321,118 @@ def test_grid_wrapper_rejects_bad_inputs(cuda):
         fused.grid_launch(g, pmat.cpu())
     with pytest.raises(ValueError):
         fused.grid_launch(g, pmat, torch.ones((8, 2), device=cuda))
+
+
+# ----------------------------------------------------------------------
+# The slab kernel (B4), and the decoration in every kernel
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["zheng07", "assembias"])
+@pytest.mark.parametrize("mode,n_prim,n_xi,batch", [
+    ("auto", 12, 7, 131), ("cross", 11, 5, 8), ("auto", 40, 6, 4096 + 37)])
+def test_slab_kernel_matches_plain(cuda, mode, n_prim, n_xi, batch, kind):
+    n_nodes = 5
+    table = _grid_table(n_nodes, n_prim, 2, n_xi, mode, 13, cuda)
+    model = _model(kind)
+    predict = fused.make_fused_grid_predictor(table, n_nodes, model,
+                                              layout="slab")
+    s = fused.slab_table_constants(table, n_nodes)
+    params = _params(model, batch, 9, cuda)
+    before = fused.SLAB_LAUNCHES
+    got = predict(params)
+    torch.cuda.synchronize()
+    assert fused.SLAB_LAUNCHES == before + 1
+    assert got[1].shape == (batch, n_nodes, n_xi)
+    want = fused.slab_predict_plain(s, params, *occupation_functions(model))
+    _assert_grid_close(got, want)
+
+
+def test_auto_layout_runs_the_slab_kernel_on_160_bins(cuda):
+    table = _grid_table(3, 40, 2, 6, "auto", 5, cuda)
+    assert table.n_bins == 160 and fused.grid_layout_for(table) == "slab"
+    model = _model("assembias")
+    before = (fused.GRID_LAUNCHES, fused.SLAB_LAUNCHES)
+    got = fused.make_fused_grid_predictor(table, 3, model)(
+        _params(model, 77, 4, cuda))
+    torch.cuda.synchronize()
+    assert (fused.GRID_LAUNCHES, fused.SLAB_LAUNCHES) == (before[0],
+                                                          before[1] + 1)
+    assert got[1].shape == (77, 3, 6)
+
+
+@pytest.mark.parametrize("kernel", ["bundle", "grid", "slab"])
+def test_assembias_strength_moves_the_kernel_output(cuda, kernel):
+    model = _model("assembias")
+    if kernel == "bundle":
+        xi = TabCorr.read(DATA / "synthetic_xi_ell.npz")
+        predict = make_multi_predictor([xi], model, device=cuda)
+
+        def run(params):
+            return predict(params)[0][1]
+    else:
+        table = _grid_table(4, 12, 2, 7, "auto", 13, cuda)
+        predict = fused.make_fused_grid_predictor(table, 4, model,
+                                                  layout=kernel.replace(
+                                                      "grid", "packed"))
+
+        def run(params):
+            return predict(params)[1]
+    xi_0 = run(_params(model, 64, 2, cuda, strength=0.0)).double()
+    xi_8 = run(_params(model, 64, 2, cuda, strength=0.8)).double()
+    xi_0, xi_8 = xi_0.reshape(64, -1), xi_8.reshape(64, -1)
+    scaled = (xi_8 - xi_0).abs().amax(1) / xi_0.abs().amax(1)
+    assert float(scaled.min()) > 1e-4
+
+
+def test_wide_interpolator_runs_the_slab_kernel(cuda):
+    # 128 bins: too many for the packed layout; 'auto' on CUDA picks the
+    # fused engine, which runs the slab kernel and the spline.
+    tabs = []
+    for j in range(4):
+        t = synthetic_tabcorr(np.random.default_rng(5), 32, 2, 3, "auto")
+        t.tpcf_matrix = t.tpcf_matrix * (1.0 + 0.1 * np.random.default_rng(
+            50 + j).normal(size=t.tpcf_matrix.shape))
+        tabs.append(t)
+    interp = Interpolator(tabs, ColumnTable(
+        {"log_eta": [-0.4, -0.1, 0.2, 0.4]}))
+    model = _model("assembias", redshift=0.0)
+    model.param_dict["log_eta"] = 0.0
+    predict = make_predictor(interp, model, device=cuda)
+    plain = make_predictor(interp, model, engine="plain", device=cuda)
+    params = _params(model, 300, 6, cuda)
+    eta = np.random.default_rng(7).uniform(-0.35, 0.35, 300)
+    eta[[3, 200]] = [0.5, -0.6]
+    params["log_eta"] = torch.tensor(eta, dtype=torch.float32, device=cuda)
+    before = fused.SLAB_LAUNCHES
+    got = predict(params)
+    torch.cuda.synchronize()
+    assert fused.SLAB_LAUNCHES == before + 1
+    want = plain(params)
+    out = torch.zeros(300, dtype=torch.bool)
+    out[[3, 200]] = True
+    for ngal, xi in (got, want):
+        ngal, xi = ngal.cpu(), xi.cpu().reshape(300, -1)
+        assert bool(torch.isnan(ngal[out]).all() and
+                    torch.isnan(xi[out]).all())
+        assert bool(torch.isfinite(ngal[~out]).all() and
+                    torch.isfinite(xi[~out]).all())
+    inside = torch.nonzero(~out).flatten().to(cuda)
+    _assert_grid_close([a[inside] for a in got], [a[inside] for a in want])
+
+
+def test_slab_wrapper_rejects_bad_inputs(cuda):
+    table = _grid_table(3, 8, 1, 3, "auto", 1, cuda)
+    s = fused.slab_table_constants(table, 3)
+    pmat = torch.ones((8, 5), device=cuda)
+    with pytest.raises(ValueError):
+        fused.slab_launch(s, pmat.double())
+    with pytest.raises(ValueError):
+        fused.slab_launch(s, pmat.cpu())
+    with pytest.raises(ValueError):
+        fused.slab_launch(s, pmat, fused.KernelModel(code=1))
+    with pytest.raises(ValueError, match="occupations only"):
+        fused.make_fused_grid_predictor(table, 3, HodModelStandIn(),
+                                        layout="slab")
+
+
+class HodModelStandIn(Zheng07Model):
+    """A zheng07 subclass: the kernels do not evaluate it."""
