@@ -5,8 +5,8 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels (tabcorr_tpu_torch/csrc: the
-bundle and contraction kernels in bundle.cu, the grid kernel in grid.cu,
-the slab kernel in slab.cu, one nvcc each, in parallel) and drives
+bundle and contraction kernels in bundle.cu, the grid kernels in grid.cu,
+the slab kernels in slab.cu, one nvcc each, in parallel) and drives
 ``tabcorr_tpu_torch`` through the entry points a user calls, at real
 shapes, 262,144 parameter vectors each unless said otherwise:
 
@@ -17,10 +17,12 @@ shapes, 262,144 parameter vectors each unless said otherwise:
 2. Decorated bundle: the same tables with ``AssembiasZheng07Model``
    (threshold -18, assembly-bias strengths drawn in [-1, 1]); three
    ensemble steps over its 7 parameters.
-3. Grid: ``make_predictor(interp, engine="fused")`` on the 64-node
+3. Grid: ``make_predictor(interp, engine="fused", accuracy="scaled")``
+   (the grid_tc kernel, 3xTF32 on the tensor cores) on the 64-node
    'default'-geometry Interpolator (4 x 4 x 4 nodes over alpha_c, alpha_s,
    log_eta; 60 bins; 42 rows), zheng07 at threshold -20, with a few rows
-   pushed outside the grid.
+   pushed outside the grid; then the same with ``accuracy="elementwise"``
+   (the FP32 grid kernel).
 4. Grid: the same entry point on the 'efficient' Delta Sigma Interpolator
    (cross mode, 1104 bins, 4 log_eta nodes), zheng07 at threshold -21,
    z = 0.5; then again with the decorated model.
@@ -28,11 +30,16 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    predictor on all 8 parameters, three ensemble steps, 262,144 walkers.
 6. Contraction: ``make_predictor(tab, engine="fused")`` on both bundle
    tables, and on xi_ell with the decorated model.
-7. Wide grid (slab kernel): ``make_predictor(interp, engine="fused")`` on
-   the 64-node grid of 160 bins (40 mass x 2 secondary-percentile bins x
-   2 galaxy types), too wide for the grid kernel's packed layout; the
-   decorated model at threshold -20, 32,768 rows, a few outside the grid;
-   then two ensemble steps over its 10 parameters.
+7. Wide grid (slab_tc kernel): ``make_predictor(interp, engine="fused",
+   accuracy="scaled")`` on the 64-node grid of 160 bins (40 mass x 2
+   secondary-percentile bins x 2 galaxy types), too wide for the grid
+   kernels' packed layout; the decorated model at threshold -20, 32,768
+   rows, a few outside the grid; then two ensemble steps over its 10
+   parameters; then the 'elementwise' route (the FP32 slab kernel).
+
+Paths 3-5 and 7 run the 'scaled' contract, so the grid_tc and slab_tc
+kernels; the 'elementwise' passes keep the FP32 grid and slab kernels on a
+path and held against the same plain versions.
 
 Every launch counter is set to 0 right before each path and read right
 after it.  Then each kernel's results are held against its plain PyTorch
@@ -62,20 +69,24 @@ SEED = 7
 OUT_ROWS = (17, 4099, BATCH - 1)
 SLAB_OUT_ROWS = (17, 4099, SLAB_BATCH - 1)
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): FP32 on
-# the CUDA cores, and HBM3.
+# the CUDA cores, dense TF32 on the tensor cores, and HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 STRENGTHS = ("mean_occupation_centrals_assembias_param1",
              "mean_occupation_satellites_assembias_param1")
 CSRC = "tabcorr_tpu_torch/csrc/"
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "bundle": (CSRC + "bundle.cu", "tabcorr_tpu/ops/fused.py:600"),
-    "grid": (CSRC + "grid.cu", "tabcorr_tpu/ops/fused.py:1485"),
     "contraction": (CSRC + "bundle.cu", "tabcorr_tpu/ops/fused.py:125"),
+    "grid": (CSRC + "grid.cu", "tabcorr_tpu/ops/fused.py:1485"),
+    "grid_tc": (CSRC + "grid.cu", "tabcorr_tpu/ops/fused.py:1485"),
     "slab": (CSRC + "slab.cu", "tabcorr_tpu/ops/fused.py:1162"),
+    "slab_tc": (CSRC + "slab.cu", "tabcorr_tpu/ops/fused.py:1162"),
 }
-COUNTERS = {"bundle": "BUNDLE_LAUNCHES", "grid": "GRID_LAUNCHES",
-            "contraction": "CONTRACTION_LAUNCHES", "slab": "SLAB_LAUNCHES"}
+COUNTERS = {"bundle": "BUNDLE_LAUNCHES", "contraction": "CONTRACTION_LAUNCHES",
+            "grid": "GRID_LAUNCHES", "grid_tc": "GRID_TC_LAUNCHES",
+            "slab": "SLAB_LAUNCHES", "slab_tc": "SLAB_TC_LAUNCHES"}
 
 
 def check(ok, message):
@@ -217,13 +228,21 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flop, n_bytes):
+def bound(flop, n_bytes, tensor_flop=None):
     """The least time the card could take: the larger of the operations
-    over the FP32 peak and the bytes over the HBM rate."""
-    ops_ms = flop / PEAK_FP32_FLOPS * 1e3
+    over their peak and the bytes over the HBM rate.  FP32 kernels: all
+    ``flop`` at the FP32 CUDA-core peak.  3xTF32 kernels (``tensor_flop``,
+    the contraction's FLOP): three TF32 products each at the dense TF32
+    peak, and ``bound_fp32_ms`` keeps the FP32 CUDA-core figure."""
     bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    fp32_ms = flop / PEAK_FP32_FLOPS * 1e3
+    ops_ms = (fp32_ms if tensor_flop is None else
+              3 * tensor_flop / PEAK_TF32_FLOPS * 1e3)
+    out = {"bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    if tensor_flop is not None:
+        out["bound_fp32_ms"] = max(fp32_ms, bytes_ms)
+    return out
 
 
 def contraction_flop(n_bins, n_xi, auto):
@@ -423,8 +442,19 @@ def bundle_phase(ctx, kernels, decorated=False):
     if decorated:
         record(kernels, "bundle", launched["bundle"])
         return
-    tables = [fused.bundle_table_constants(t.table_data(device="cuda"))
-              for t in (wp_tab, xi_tab)]
+    datas = [t.table_data(device="cuda") for t in (wp_tab, xi_tab)]
+    tables = [fused.bundle_table_constants(d) for d in datas]
+    # One PyTorch call per table for the contraction alone (no library
+    # call evaluates the occupation quadrature): n n^T, then one GEMM
+    # against the dense matrices, over this batch's densities.
+    lib_ms = 0.0
+    for d in datas:
+        dens = fused.occupation_density(d, model, params)
+        lib_ms += ctx["library_ms"](
+            lambda: torch.einsum("bi,bj,kij->bk", dens, dens, d.tpcf_dense))
+        del dens
+    print(f"timing ({label}): one torch.einsum('bi,bj,kij->bk') per table "
+          f"(contraction only), wp + xi_ell {lib_ms:.4f} ms on {ctx['card']}")
     flop = BATCH * sum(
         quadrature_flop(c.n_bins, c.n_gauss) +
         contraction_flop(c.n_bins, c.n_xi, c.auto) for c in tables)
@@ -432,7 +462,7 @@ def bundle_phase(ctx, kernels, decorated=False):
         nbytes(c.logm, c.logm_res, c.sec, c.weight, c.f_t) +
         BATCH * (1 + c.n_xi) * 4 for c in tables)
     record(kernels, "bundle", launched["bundle"], max_abs_err=err, ms=k_ms,
-           plain_ms=p_ms, **bound(flop, n_bytes), library_ms=None)
+           plain_ms=p_ms, **bound(flop, n_bytes), library_ms=lib_ms)
 
 
 # ----------------------------------------------------------------------
@@ -488,8 +518,8 @@ def grid_phases(ctx, kernels):
         ngal, xi = predict(params)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launched = ctx["expect"](name, grid=1)
-        launches += launched["grid"]
+        launched = ctx["expect"](name, grid_tc=1)
+        launches += launched["grid_tc"]
         xi = xi.reshape(BATCH, -1)
         out = torch.zeros(BATCH, dtype=torch.bool, device="cuda")
         out[list(OUT_ROWS)] = True
@@ -499,7 +529,7 @@ def grid_phases(ctx, kernels):
         check(bool(torch.isfinite(ngal[~out]).all() and
                    torch.isfinite(xi[~out]).all()),
               f"{name}: NaN or inf in rows inside the grid")
-        print(f"{name}: {launched['grid']} grid kernel launch, xi "
+        print(f"{name}: {launched['grid_tc']} grid_tc kernel launch, xi "
               f"{tuple(xi.shape)}, rows {OUT_ROWS} outside the grid all "
               f"NaN, the rest finite; first call {first_s:.3f} s")
 
@@ -515,7 +545,7 @@ def grid_phases(ctx, kernels):
         ngal_err = rel(ngal[~out], ngal_p[~out])
         xi_err = scaled(xi[~out], xi_p[~out])
         err = max_abs((ngal[~out], ngal_p[~out]), (xi[~out], xi_p[~out]))
-        print(f"{name}: grid kernel vs plain (B={BATCH}): ngal max rel "
+        print(f"{name}: grid_tc kernel vs plain (B={BATCH}): ngal max rel "
               f"{ngal_err:.3e} (<= 1e-6), xi max scaled {xi_err:.3e} "
               f"(<= 1e-6), max abs {err:.3e}")
         check(ngal_err <= 1e-6, f"{name}: ngal kernel vs plain {ngal_err}")
@@ -530,7 +560,7 @@ def grid_phases(ctx, kernels):
             err_host = max(err_host, float(np.max(np.abs(got - xi64.ravel()))
                                            / np.max(np.abs(xi64))))
             err_ngal = max(err_ngal, abs(float(ngal[i]) / ng64 - 1))
-        print(f"{name}: grid kernel vs float64 Interpolator.predict at "
+        print(f"{name}: grid_tc kernel vs float64 Interpolator.predict at "
               f"{N_PROBE} probes: xi max scaled {err_host:.3e} (<= 1e-6), "
               f"ngal max rel {err_ngal:.3e} (<= 1e-6)")
         check(err_host <= 1e-6, f"{name}: xi vs float64 {err_host}")
@@ -540,10 +570,10 @@ def grid_phases(ctx, kernels):
         hod = fused.KernelModel.of(model)
         pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
         k_ms, p_ms, k_w, p_w = ctx["alternate"](
-            lambda: fused.grid_launch(g, pmat, nw, hod),
+            lambda: fused.grid_tc_launch(g, pmat, nw, hod),
             lambda: fused.grid_predict_plain(g, params, nw, *occ), 3, 2)
         e2e_ms = ctx["window_ms"](lambda: predict(params), 3)
-        print(f"timing ({name}): grid kernel {k_ms:.4f} ms per "
+        print(f"timing ({name}): grid_tc kernel {k_ms:.4f} ms per "
               f"{BATCH}-vector batch (windows {k_w}), plain PyTorch "
               f"{p_ms:.4f} ms (windows {p_w}); whole predictor "
               f"{e2e_ms:.4f} ms ({BATCH / e2e_ms * 1e3:.6g} predictions/s) "
@@ -552,17 +582,33 @@ def grid_phases(ctx, kernels):
             dense = 2.0 * g.npair * g.n_nodes * g.n_xi * BATCH
             print(f"grid64: {dense:.4g} FLOP of packed contraction per "
                   f"batch (2 x {g.npair} x {g.n_nodes * g.n_xi} per "
-                  f"sample): {dense / k_ms / 1e9:.4g} TFLOP/s in the kernel")
+                  f"sample): {dense / k_ms / 1e9:.4g} TFLOP/s in grid_tc "
+                  f"(3xTF32: {3 * dense / k_ms / 1e9:.4g} TFLOP/s of TF32)")
             flop = BATCH * (quadrature_flop(g.n_bins, g.n_gauss) + g.npair +
                             2 * g.n_nodes * g.n_xi * (g.npair + 1))
             n_bytes = (nbytes(pmat, nw, g.logm, g.logm_res, g.sec, g.weight,
                               g.pair_i, g.pair_j, g.fp) +
                        BATCH * (1 + g.n_xi) * 4)
+            # One PyTorch call for the contraction alone (no library call
+            # evaluates the occupation or folds the spline): n n^T, then
+            # one GEMM against every node's dense matrices.
+            dens = fused.occupation_density(stacked, model, params)
+            lib_ms = ctx["library_ms"](lambda: torch.einsum(
+                "bi,bj,kij->bk", dens, dens, stacked.tpcf_dense))
+            del dens
+            print(f"timing (grid64): one torch.einsum('bi,bj,kij->bk') over "
+                  f"all {g.n_nodes} nodes (contraction only) {lib_ms:.4f} ms "
+                  f"on {ctx['card']}")
             # The kernels line carries the 64-node grid's numbers (the
             # Delta Sigma values are ~1e13, so their absolute errors are
             # not comparable).
             grid_numbers = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                **bound(flop, n_bytes), library_ms=None)
+                                **bound(flop, n_bytes, tensor_flop=dense),
+                                library_ms=lib_ms)
+            grid64 = (interp, model, params, g, nw, occ, hod, pmat, out,
+                      flop, n_bytes, lib_ms)
+
+    grid_elementwise_pass(ctx, kernels, *grid64)
 
     # ---- path: the ensemble sampler over the 64-node grid -------------
     _, interp, model, params = cases[0]
@@ -577,15 +623,49 @@ def grid_phases(ctx, kernels):
     walkers = walkers_around(ctx, model, names, BATCH, SEED + 1)
     ctx["reset"]()
     accepts, step_s, _ = run_sampler(ctx, log_prob, walkers, N_GRID_STEPS,
-                                     "GRID_LAUNCHES", SEED + 1)
-    launched = ctx["expect"]("grid sampler", grid=1 + 2 * N_GRID_STEPS)
-    launches += launched["grid"]
-    print(f"grid sampler: {launched['grid']} grid kernel launches (1 "
+                                     "GRID_TC_LAUNCHES", SEED + 1)
+    launched = ctx["expect"]("grid sampler", grid_tc=1 + 2 * N_GRID_STEPS)
+    launches += launched["grid_tc"]
+    print(f"grid sampler: {launched['grid_tc']} grid_tc kernel launches (1 "
           f"initial log-prob, 2 per step x {N_GRID_STEPS}), accept fractions "
           f"{accepts}, {BATCH / float(np.median(step_s)):.6g} walker-steps/s "
           f"(median of per-step host-clock times {step_s} s) on "
           f"{ctx['card']}")
-    record(kernels, "grid", launches, **grid_numbers)
+    record(kernels, "grid_tc", launches, **grid_numbers)
+
+
+def grid_elementwise_pass(ctx, kernels, interp, model, params, g, nw, occ,
+                          hod, pmat, out, flop, n_bytes, lib_ms):
+    """The 64-node grid under the 'elementwise' contract: the FP32 grid
+    kernel on a path, held against the plain version, timed."""
+    torch, fused = ctx["torch"], ctx["fused"]
+    from tabcorr_tpu_torch import make_predictor
+    predict = make_predictor(interp, model, engine="fused",
+                             accuracy="elementwise", device="cuda")
+    ctx["reset"]()
+    ngal, xi = predict(params)
+    torch.cuda.synchronize()
+    launched = ctx["expect"]("grid64 elementwise", grid=1)
+    xi = xi.reshape(BATCH, -1)
+    check(bool(torch.isnan(xi[out]).all() and torch.isfinite(xi[~out]).all()),
+          "grid64 elementwise: NaN rows")
+    ngal_p, xi_p = fused.grid_predict_plain(g, params, nw, *occ)
+    ngal_err = rel(ngal[~out], ngal_p[~out])
+    xi_err = scaled(xi[~out], xi_p[~out])
+    err = max_abs((ngal[~out], ngal_p[~out]), (xi[~out], xi_p[~out]))
+    print(f"grid64 elementwise: {launched['grid']} grid kernel launch; grid "
+          f"kernel vs plain (B={BATCH}): ngal max rel {ngal_err:.3e} (<= "
+          f"1e-6), xi max scaled {xi_err:.3e} (<= 1e-6), max abs {err:.3e}")
+    check(ngal_err <= 1e-6, f"grid64 elementwise: ngal vs plain {ngal_err}")
+    check(xi_err <= 1e-6, f"grid64 elementwise: xi vs plain {xi_err}")
+    k_ms, p_ms, k_w, p_w = ctx["alternate"](
+        lambda: fused.grid_launch(g, pmat, nw, hod),
+        lambda: fused.grid_predict_plain(g, params, nw, *occ), 3, 2)
+    print(f"timing (grid64 elementwise): grid kernel {k_ms:.4f} ms per "
+          f"{BATCH}-vector batch (windows {k_w}), plain PyTorch {p_ms:.4f} "
+          f"ms (windows {p_w}) on {ctx['card']}")
+    record(kernels, "grid", launched["grid"], max_abs_err=err, ms=k_ms,
+           plain_ms=p_ms, **bound(flop, n_bytes), library_ms=lib_ms)
 
 
 # ----------------------------------------------------------------------
@@ -708,8 +788,8 @@ def slab_phase(ctx, kernels):
     ngal, xi = predict(params)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launched = ctx["expect"]("wide grid", slab=1)
-    launches = launched["slab"]
+    launched = ctx["expect"]("wide grid", slab_tc=1)
+    launches = launched["slab_tc"]
     xi = xi.reshape(SLAB_BATCH, -1)
     out = torch.zeros(SLAB_BATCH, dtype=torch.bool, device="cuda")
     out[list(SLAB_OUT_ROWS)] = True
@@ -718,23 +798,24 @@ def slab_phase(ctx, kernels):
     check(bool(torch.isfinite(ngal[~out]).all() and
                torch.isfinite(xi[~out]).all()),
           "wide grid: NaN or inf in rows inside the grid")
-    print(f"wide grid: {launches} slab kernel launch, xi {tuple(xi.shape)}, "
+    print(f"wide grid: {launches} slab_tc kernel launch, xi {tuple(xi.shape)}, "
           f"rows {SLAB_OUT_ROWS} outside the grid all NaN, the rest finite; "
           f"first call {first_s:.3f} s")
 
     # ---- kernel against its plain version, per node, same inputs -------
     stacked, n_nodes, _ = stacked_grid(interp, device="cuda")
     s = fused.slab_table_constants(stacked, n_nodes)
+    s_tc = fused.slab_tc_table_constants(stacked, n_nodes)
     occ = occupation_functions(model)
     hod = fused.KernelModel.of(model)
     pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
-    total_k, nodes_k = fused.slab_launch(s, pmat, hod)
+    total_k, nodes_k = fused.slab_tc_launch(s_tc, pmat, hod)
     total_p, nodes_p = fused.slab_predict_plain(s, params, *occ)
     torch.cuda.synchronize()
     ngal_err = rel(total_k, total_p)
     node_err = scaled(nodes_k.reshape(-1, s.n_xi), nodes_p.reshape(-1, s.n_xi))
     err = max_abs((total_k, total_p), (nodes_k, nodes_p))
-    print(f"wide grid: slab kernel vs plain (B={SLAB_BATCH}, {n_nodes} "
+    print(f"wide grid: slab_tc kernel vs plain (B={SLAB_BATCH}, {n_nodes} "
           f"nodes): ngal max rel {ngal_err:.3e} (<= 1e-6), per-node xi max "
           f"scaled {node_err:.3e} (<= 1e-6), max abs {err:.3e}")
     check(ngal_err <= 1e-6, f"wide grid: ngal kernel vs plain {ngal_err}")
@@ -757,17 +838,19 @@ def slab_phase(ctx, kernels):
 
     # ---- timing ----------------------------------------------------------
     k_ms, p_ms, k_w, p_w = ctx["alternate"](
-        lambda: fused.slab_launch(s, pmat, hod),
+        lambda: fused.slab_tc_launch(s_tc, pmat, hod),
         lambda: fused.slab_predict_plain(s, params, *occ), 3, 1)
     e2e_ms = ctx["window_ms"](lambda: predict(params), 3)
     dense_flop = 2.0 * n_nodes * s.n_xi * s.n_bins ** 2 * SLAB_BATCH
-    print(f"timing (wide grid): slab kernel {k_ms:.4f} ms per "
+    print(f"timing (wide grid): slab_tc kernel {k_ms:.4f} ms per "
           f"{SLAB_BATCH}-vector batch (windows {k_w}), plain PyTorch "
           f"{p_ms:.4f} ms (windows {p_w}); whole predictor {e2e_ms:.4f} ms "
           f"({SLAB_BATCH / e2e_ms * 1e3:.6g} predictions/s) on {ctx['card']}")
     print(f"wide grid: {dense_flop:.4g} FLOP of dense contraction per batch "
           f"(2 x {n_nodes} x {s.n_xi} x {s.n_bins}^2 per sample): "
-          f"{dense_flop / k_ms / 1e9:.4g} TFLOP/s in the kernel")
+          f"{dense_flop / k_ms / 1e9:.4g} TFLOP/s-equivalent in slab_tc "
+          f"({s_tc.n_ct} column tiles, {nbytes(s_tc.b) / 1e6:.1f} MB of "
+          f"node matrices)")
     dens = fused.occupation_density(stacked, model, params)
     dense = stacked.tpcf_dense
     lib_ms = ctx["library_ms"](
@@ -786,10 +869,11 @@ def slab_phase(ctx, kernels):
     walkers = walkers_around(ctx, model, names, SLAB_BATCH, SEED + 3)
     ctx["reset"]()
     accepts, step_s, _ = run_sampler(ctx, log_prob, walkers, N_SLAB_STEPS,
-                                     "SLAB_LAUNCHES", SEED + 3)
-    launched = ctx["expect"]("wide grid sampler", slab=1 + 2 * N_SLAB_STEPS)
-    launches += launched["slab"]
-    print(f"wide grid sampler: {launched['slab']} slab kernel launches (1 "
+                                     "SLAB_TC_LAUNCHES", SEED + 3)
+    launched = ctx["expect"]("wide grid sampler",
+                             slab_tc=1 + 2 * N_SLAB_STEPS)
+    launches += launched["slab_tc"]
+    print(f"wide grid sampler: {launched['slab_tc']} slab_tc kernel launches (1 "
           f"initial log-prob, 2 per step x {N_SLAB_STEPS}), {len(names)} "
           f"sampled parameters, accept fractions {accepts}, "
           f"{SLAB_BATCH / float(np.median(step_s)):.6g} walker-steps/s "
@@ -799,10 +883,45 @@ def slab_phase(ctx, kernels):
     flop = SLAB_BATCH * (quadrature_flop(s.n_bins, s.n_gauss) +
                          n_nodes * contraction_flop(s.n_bins, s.n_xi, s.auto)
                          - (n_nodes - 1) * s.n_bins * (s.n_bins + 1) // 2)
-    n_bytes = (nbytes(pmat, s.logm, s.logm_res, s.sec, s.weight, s.f_t) +
-               nbytes(total_k, nodes_k))
-    record(kernels, "slab", launches, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-           **bound(flop, n_bytes), library_ms=lib_ms)
+    npair = s.n_bins * (s.n_bins + 1) // 2
+    tensor_flop = 2.0 * n_nodes * s.n_xi * npair * SLAB_BATCH
+    quad = nbytes(pmat, s.logm, s.logm_res, s.sec, s.weight)
+    out_bytes = nbytes(total_k, nodes_k)
+    record(kernels, "slab_tc", launches, max_abs_err=err, ms=k_ms,
+           plain_ms=p_ms, **bound(flop, quad + nbytes(s_tc.b) + out_bytes,
+                                  tensor_flop=tensor_flop),
+           library_ms=lib_ms)
+    del s_tc, total_k, nodes_k
+
+    # ---- the 'elementwise' route: the FP32 slab kernel -----------------
+    predict = make_predictor(interp, model, engine="fused",
+                             accuracy="elementwise", device="cuda")
+    ctx["reset"]()
+    ngal_e, xi_e = predict(params)
+    torch.cuda.synchronize()
+    launched = ctx["expect"]("wide grid elementwise", slab=1)
+    xi_e = xi_e.reshape(SLAB_BATCH, -1)
+    check(bool(torch.isnan(xi_e[out]).all() and
+               torch.isfinite(xi_e[~out]).all()),
+          "wide grid elementwise: NaN rows")
+    total_k, nodes_k = fused.slab_launch(s, pmat, hod)
+    ngal_err = rel(total_k, total_p)
+    node_err = scaled(nodes_k.reshape(-1, s.n_xi), nodes_p.reshape(-1, s.n_xi))
+    err = max_abs((total_k, total_p), (nodes_k, nodes_p))
+    print(f"wide grid elementwise: {launched['slab']} slab kernel launch; "
+          f"slab kernel vs plain (B={SLAB_BATCH}): ngal max rel "
+          f"{ngal_err:.3e} (<= 1e-6), per-node xi max scaled {node_err:.3e} "
+          f"(<= 1e-6), max abs {err:.3e}")
+    check(ngal_err <= 1e-6, f"wide grid elementwise: ngal {ngal_err}")
+    check(node_err <= 1e-6, f"wide grid elementwise: xi {node_err}")
+    k_w = [ctx["window_ms"](lambda: fused.slab_launch(s, pmat, hod), 2)
+           for _ in range(3)]
+    k_ms = float(np.median(k_w))
+    print(f"timing (wide grid elementwise): slab kernel {k_ms:.4f} ms per "
+          f"{SLAB_BATCH}-vector batch (windows {k_w}) on {ctx['card']}")
+    record(kernels, "slab", launched["slab"], max_abs_err=err, ms=k_ms,
+           plain_ms=p_ms, **bound(flop, quad + nbytes(s.f_t) + out_bytes),
+           library_ms=lib_ms)
 
 
 if __name__ == "__main__":

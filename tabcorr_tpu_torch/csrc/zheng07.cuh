@@ -125,9 +125,9 @@ __device__ __forceinline__ float decorate(float base, float strength,
                : base - __fmul_rn(delta, h.frac_above) / h.split;
 }
 
-// sN[i * TB + b] = n[b, i] for i < n_rows (bins past q.nb and rows past
+// sN[i * STRIDE + b] = n[b, i] for i < n_rows (bins past q.nb and rows past
 // the batch end get 0), for the model code MODEL (== h.model).
-template <int TB, int NT, int MODEL>
+template <int TB, int NT, int MODEL, int STRIDE = TB>
 __device__ void occupation_phase(const QuadArgs& q, int n_rows, int batch,
                                  int row0, const HodArgs& h,
                                  const float* sPar, float* sN) {
@@ -175,7 +175,10 @@ __device__ void occupation_phase(const QuadArgs& q, int n_rows, int batch,
         }
       }
     }
-    sN[item] = acc;   // item == i * TB + b
+    if constexpr (STRIDE == TB)
+      sN[item] = acc;   // item == i * TB + b
+    else
+      sN[i * STRIDE + b] = acc;
   }
 }
 

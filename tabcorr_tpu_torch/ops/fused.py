@@ -3,9 +3,9 @@
 Ports of the four Pallas kernels of ``tabcorr_tpu/ops/fused.py``.  Every
 kernel has a plain version in tensor ops beside it; a wrapper runs the
 plain version for CPU tensors and launches the kernel (or raises) for
-CUDA tensors.  Every output is full float32: the TPU build's bf16 pass
-emulation and its 'scaled' pass classes have no counterpart here, so both
-accuracy contracts ('elementwise', 'scaled') run at the same precision.
+CUDA tensors.  B1 and B3 compute in full float32 under both accuracy
+contracts ('elementwise', 'scaled'); B2 and B4 take the tensor cores
+under 'scaled' (below).
 
 The kernels that evaluate the occupation themselves (B1, B2, B4) take two
 models, chosen by :func:`kernel_model` on the model's exact type: zheng07
@@ -41,6 +41,14 @@ subclasses included, raises on CUDA; the plain versions take any model.
   than 127 bins), every node's statistics from B1's contraction over the
   node's matrix, without the spline fold.  :func:`slab_launch`
   (``csrc/slab.cu``) and :func:`slab_predict_plain`.
+
+B2 and B4 have a second kernel each for the 'scaled' contract, the
+counterpart of tabcorr_tpu's MXU pass classes: :func:`grid_tc_launch` and
+:func:`slab_tc_launch` run the same functions in 3xTF32 on the tensor
+cores (``csrc/tf32x3.cuh``; slab_tc over the block-triangular half of
+each node matrix, :func:`slab_tc_table_constants`).
+:func:`make_fused_grid_predictor` picks the kernel by the contract
+(:func:`grid_kernel_for`); the plain versions serve both tiers.
 """
 
 from __future__ import annotations
@@ -63,10 +71,13 @@ BUNDLE_LAUNCHES = 0
 CONTRACTION_LAUNCHES = 0
 GRID_LAUNCHES = 0
 SLAB_LAUNCHES = 0
+GRID_TC_LAUNCHES = 0
+SLAB_TC_LAUNCHES = 0
 
 ACCURACY_CONTRACTS = ("elementwise", "scaled")
 
-# The CUDA sources of each library (one nvcc each).
+# The CUDA sources of each library (one nvcc each); grid.cu and slab.cu
+# hold the _tc kernels too.
 KERNEL_SOURCES = {"bundle": ("bundle.cu",), "grid": ("grid.cu",),
                   "slab": ("slab.cu",)}
 
@@ -90,6 +101,20 @@ _ROW_TERMS = 9
 _OCC_CHUNK = 32768
 # Batch rows per block the grid kernel may take, largest first.
 _GRID_BLOCK_ROWS = (64, 32)
+# Tile geometry of csrc/tf32x3.cuh: a staged B tile is _KT (grid_tc) or
+# 64 (slab_tc) rows of _CT columns at a row stride of _TC_BS floats; the
+# cp.async ring stages of grid_tc (by block rows) and slab_tc.
+_TC_BS = _CT + 8
+_GRID_TC_STAGES = {64: 3, 32: 2, 16: 2}
+_SLAB_TC_STAGES = 2
+_SLAB_TC_STAGE_ROWS = 64
+# slab_tc's blocks, first choice first: (rows, densities split once per
+# block); the fallback splits each fragment as it is loaded.
+_SLAB_TC_CONFIGS = ((64, True), (32, False))
+# Bin-tile width of slab_tc's block-triangular layout, and the n8 column
+# tiles of one warp in its column tiles (csrc/slab.cu: 16 warps, 2 x 8).
+SLAB_TC_WIDTH = 8
+_SLAB_TC_WARP_SLOTS = 2
 
 
 def _round_up(n, m):
@@ -688,7 +713,9 @@ def _grid_lib():
     lib.tabcorr_grid.argtypes = ([vp, vp, i, i, i, ctypes.c_double, vp, vp,
                                   vp, vp, i, i, i, vp, vp, i, vp] + [i] * 7 +
                                  [vp, vp, i, vp])
-    lib.tabcorr_grid.restype = i
+    lib.tabcorr_grid_tc.argtypes = (lib.tabcorr_grid.argtypes[:-4] + [i] +
+                                    lib.tabcorr_grid.argtypes[-4:])
+    lib.tabcorr_grid.restype = lib.tabcorr_grid_tc.restype = i
     lib.tabcorr_cuda_error_string.argtypes = [i]
     lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -722,6 +749,45 @@ def grid_launch(g: GridTable, pmat, node_weights=None, hod=KernelModel()):
     any input the kernel does not take and on any launch error.
     """
     global GRID_LAUNCHES
+    total, xi = _check_grid_launch(g, pmat, node_weights, hod)
+    tb = grid_block_rows(g.n_bins, g.n_xi)
+    if tb is None:
+        raise ValueError(f"{g.n_bins} bins are too many for the grid "
+                         "kernel's shared memory.")
+    lib = _grid_lib()
+    code = lib.tabcorr_grid(*_grid_entry_args(g, pmat, node_weights, hod,
+                                              (tb,), total, xi))
+    _raise_on_error(code, "grid", lib.tabcorr_cuda_error_string)
+    GRID_LAUNCHES += 1
+    return total, xi
+
+
+def _grid_tc_smem_bytes(tb, n_bins, nxp, pair_rows) -> int:
+    """Dynamic shared memory of one block of csrc/grid.cu's grid_tc kernel
+    with ``tb`` rows and ``pair_rows`` pair offsets in shared memory (the
+    layout ``tc_smem_floats`` carves)."""
+    return 4 * (_round_up(n_bins, _KT) * tb + 4 * _KT * tb +
+                _GRID_TC_STAGES[tb] * _KT * _TC_BS + tb * _CT +
+                2 * tb * nxp + _ROW_TERMS * tb + 2 * pair_rows)
+
+
+def grid_tc_config(n_bins, n_xi, auto=True):
+    """(rows per block, pair offsets in shared memory) of the grid_tc
+    kernel: the most rows (64, 32 or 16) whose block fits in shared memory,
+    with the auto pairs' offsets there too where they fit; None where no
+    block fits, which is never where the grid kernel's does."""
+    nxp = _round_up(n_xi, 4)
+    pair_rows = _round_up(n_bins * (n_bins + 1) // 2, _KT) if auto else 0
+    for tb in _GRID_TC_STAGES:
+        for rows in dict.fromkeys((pair_rows, 0)):
+            if _grid_tc_smem_bytes(tb, n_bins, nxp, rows) <= _SMEM_LIMIT:
+                return tb, rows > 0
+    return None
+
+
+def _check_grid_launch(g: GridTable, pmat, node_weights, hod):
+    """Raise on inputs the grid kernels do not take; else the launch's
+    outputs (total (B,), xi), allocated."""
     _check_params(pmat, hod)
     device = pmat.device
     for a in (g.logm, g.logm_res, g.sec, g.weight, g.fp):
@@ -734,26 +800,46 @@ def grid_launch(g: GridTable, pmat, node_weights=None, hod=KernelModel()):
         if tuple(node_weights.shape) != (batch, g.n_nodes):
             raise ValueError(f"node weights must be ({batch}, {g.n_nodes}), "
                              f"got {tuple(node_weights.shape)}.")
-    tb = grid_block_rows(g.n_bins, g.n_xi)
-    if tb is None:
-        raise ValueError(f"{g.n_bins} bins are too many for the grid "
-                         "kernel's shared memory.")
     total = torch.empty(batch, device=device, dtype=torch.float32)
     shape = ((batch, g.n_xi) if node_weights is not None else
              (batch, g.n_nodes, g.n_xi))
-    xi = torch.empty(shape, device=device, dtype=torch.float32)
+    return total, torch.empty(shape, device=device, dtype=torch.float32)
+
+
+def _grid_entry_args(g: GridTable, pmat, node_weights, hod, block, total,
+                     xi):
+    """The C entry points' arguments; ``block`` is ``(tb,)`` (grid) or
+    ``(tb, pairs_in_smem)`` (grid_tc)."""
+    device = pmat.device
+    return (pmat.data_ptr(),
+            None if node_weights is None else node_weights.data_ptr(),
+            pmat.shape[0], *hod.launch_args(), g.logm.data_ptr(),
+            g.logm_res.data_ptr(), g.sec.data_ptr(), g.weight.data_ptr(),
+            g.n_bins, g.n_centrals, g.n_gauss, g.pair_i.data_ptr(),
+            g.pair_j.data_ptr(), g.npair, g.fp.data_ptr(), g.k_pad, g.c_pad,
+            g.n_nodes, g.n_xi, g.nxp, int(g.auto), *map(int, block),
+            total.data_ptr(), xi.data_ptr(), device.index,
+            torch.cuda.current_stream(device).cuda_stream)
+
+
+def grid_tc_launch(g: GridTable, pmat, node_weights=None,
+                   hod=KernelModel()):
+    """Launch the grid_tc kernel once: :func:`grid_launch`'s function, in
+    3xTF32 on the tensor cores (the 'scaled' tier), from the same
+    constants.  Raises on any input the kernel does not take and on any
+    launch error."""
+    global GRID_TC_LAUNCHES
+    total, xi = _check_grid_launch(g, pmat, node_weights, hod)
+    block = grid_tc_config(g.n_bins, g.n_xi, g.auto)
+    if block is None:
+        raise ValueError(f"{g.n_bins} bins are too many for the grid_tc "
+                         "kernel's shared memory (the densities, the "
+                         "split pair weights and the cp.async ring).")
     lib = _grid_lib()
-    code = lib.tabcorr_grid(
-        pmat.data_ptr(),
-        None if node_weights is None else node_weights.data_ptr(), batch,
-        *hod.launch_args(), g.logm.data_ptr(), g.logm_res.data_ptr(),
-        g.sec.data_ptr(), g.weight.data_ptr(), g.n_bins, g.n_centrals,
-        g.n_gauss, g.pair_i.data_ptr(), g.pair_j.data_ptr(), g.npair,
-        g.fp.data_ptr(), g.k_pad, g.c_pad, g.n_nodes, g.n_xi, g.nxp,
-        int(g.auto), tb, total.data_ptr(), xi.data_ptr(), device.index,
-        torch.cuda.current_stream(device).cuda_stream)
-    _raise_on_error(code, "grid", lib.tabcorr_cuda_error_string)
-    GRID_LAUNCHES += 1
+    code = lib.tabcorr_grid_tc(*_grid_entry_args(g, pmat, node_weights, hod,
+                                                 block, total, xi))
+    _raise_on_error(code, "grid_tc", lib.tabcorr_cuda_error_string)
+    GRID_TC_LAUNCHES += 1
     return total, xi
 
 
@@ -851,7 +937,10 @@ def _slab_lib():
     lib.tabcorr_slab.argtypes = ([vp, i, i, i, ctypes.c_double, vp, vp, vp,
                                   vp, i, i, i, vp] + [i] * 6 +
                                  [vp, vp, i, vp])
-    lib.tabcorr_slab.restype = i
+    lib.tabcorr_slab_tc.argtypes = ([vp, i, i, i, ctypes.c_double, vp, vp,
+                                     vp, vp, i, i, i, vp, ctypes.c_longlong]
+                                    + [vp] * 5 + [i] * 6 + [vp, vp, i, vp])
+    lib.tabcorr_slab.restype = lib.tabcorr_slab_tc.restype = i
     lib.tabcorr_cuda_error_string.argtypes = [i]
     lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -888,19 +977,255 @@ def slab_launch(s: SlabTable, pmat, hod=KernelModel()):
     return total, xi
 
 
+# ----------------------------------------------------------------------
+# slab_tc: B4 on the tensor cores ('scaled' tier), symmetric half
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SlabTcTable:
+    """Host-built constants of a stacked Interpolator grid for the slab_tc
+    kernel (csrc/slab.cu), as tensors on one device.
+
+    ``logm``, ``logm_res``, ``sec`` and ``weight`` are the quadrature as in
+    :class:`BundleTable`.  ``b`` (n_nodes, node_stride) float32 holds each
+    node's GEMM operand as column tiles of 128 columns, tile ``ct`` a
+    row-major (8 * ct_steps[ct], 128) block at ``ct_off[ct]`` covering the
+    rows j from ``8 * ct_step0[ct]`` (see :func:`slab_tc_table_constants`
+    for the columns).  ``col_k`` and ``col_i0`` (auto) give each n8 column
+    tile's statistic (-1: padding) and first bin.
+    """
+
+    auto: bool
+    n_bins: int
+    n_centrals: int
+    n_nodes: int
+    n_xi: int
+    width: int
+    logm: torch.Tensor
+    logm_res: torch.Tensor
+    sec: torch.Tensor
+    weight: torch.Tensor
+    b: torch.Tensor
+    ct_step0: torch.Tensor
+    ct_steps: torch.Tensor
+    ct_off: torch.Tensor
+    col_k: torch.Tensor
+    col_i0: torch.Tensor
+
+    @property
+    def n_gauss(self):
+        return self.logm.shape[1]
+
+    @property
+    def n_ct(self):
+        return self.ct_step0.shape[0]
+
+    @property
+    def node_stride(self):
+        return self.b.shape[1]
+
+
+def _slab_tc_columns(nb, n_xi, auto, width):
+    """Per column (padded to 128 per tile): statistic k (-1: padding), bin
+    i and the first row j of its bin tile (auto); per tile its first K
+    step."""
+    nb8 = _round_up(nb, 8)
+    slots = _CT // 8
+    if auto:
+        # n8 tiles in column order; a column tile is closed early where a
+        # statistic would appear in it twice outside one warp's slot pair
+        # (csrc/slab.cu's epilogue adds each tile's sums without a barrier).
+        k, i0, start = [], [], []
+        for tile0 in range(0, nb, width):
+            for kk in range(n_xi):
+                for h in range(tile0, min(tile0 + width, nb), 8):
+                    pos = len(k) % slots
+                    ct_k = k[len(k) - pos:]
+                    if any(c == kk and j // _SLAB_TC_WARP_SLOTS !=
+                           pos // _SLAB_TC_WARP_SLOTS
+                           for j, c in enumerate(ct_k)):
+                        pad_n = slots - pos
+                        k += [-1] * pad_n
+                        i0 += [0] * pad_n
+                        start += [nb8] * pad_n
+                    k.append(kk)
+                    i0.append(h)
+                    start.append(tile0)
+        n_ct = _round_up(len(k), slots) // slots
+        pad = n_ct * slots - len(k)
+        k8 = np.array(k + [-1] * pad, np.int32)
+        i08 = np.array(i0 + [0] * pad, np.int32)
+        start8 = np.array(start + [nb8] * pad, np.int64)
+        step0 = start8.reshape(n_ct, -1).min(axis=1) // 8
+        cols_k = np.repeat(k8, 8)
+        cols_i = np.repeat(i08, 8) + np.tile(np.arange(8), len(k8))
+        cols_start = np.repeat(start8, 8)
+        return (cols_k, cols_i, cols_start, step0.astype(np.int32), k8, i08)
+    n_ct = _round_up(n_xi, _CT) // _CT
+    cols_k = np.arange(n_ct * _CT)
+    cols_k = np.where(cols_k < n_xi, cols_k, -1).astype(np.int32)
+    zeros = np.zeros(n_ct * _CT, np.int64)
+    n8 = n_ct * (_CT // 8)
+    return (cols_k, zeros, zeros, np.zeros(n_ct, np.int32),
+            np.full(n8, -1, np.int32), np.zeros(n8, np.int32))
+
+
+def slab_tc_table_constants(table: TableData, n_nodes,
+                            width=SLAB_TC_WIDTH) -> SlabTcTable:
+    """Constants of the stacked grid ``table`` for the slab_tc kernel.
+
+    Auto mode, the block-triangular half: the bins are cut into tiles of
+    ``width`` (a multiple of 8); the columns are grouped by bin tile I as
+    (I, k, i in I), and column (k, i) holds, at row j, F[k, i, j] for j in
+    i's own tile, 2 F[k, i, j] for j in a later tile and 0 for an earlier
+    one (F symmetric, as every auto table's dense matrix is), so that
+    sum_i n_i (n B)[(k, i)] = n^T F_k n.  Cross mode: column k holds F[k,
+    j].  Only the rows from each column tile's first nonzero row are
+    stored; bins and rows past the table are zero.
+    """
+    if width % 8 or width < 8:
+        raise ValueError("the bin-tile width must be a positive multiple "
+                         "of 8.")
+    nb = table.n_bins
+    nb8 = _round_up(nb, 8)
+    auto = table.mode == AUTO
+    dense = table.tpcf_dense.cpu().numpy().astype(np.float32)
+    if dense.shape[0] % n_nodes:
+        raise ValueError("Stacked row count must be divisible by n_nodes.")
+    n_xi = dense.shape[0] // n_nodes
+    dense = dense.reshape((n_nodes, n_xi) + dense.shape[1:])
+    cols_k, cols_i, cols_start, step0, col_k, col_i0 = _slab_tc_columns(
+        nb, n_xi, auto, width)
+    n_ct = step0.shape[0]
+    steps = nb8 // 8 - step0
+    off = np.concatenate([[0], np.cumsum(8 * steps * _CT)[:-1]])
+    node_stride = int(np.sum(8 * steps * _CT))
+    j = np.arange(nb8)
+    valid = (cols_k >= 0) & (cols_i < nb)
+    if auto:
+        start = cols_start[:, None]
+        mult = np.where(j < start, 0.0, np.where(j < start + width, 1.0,
+                                                 2.0)).astype(np.float32)
+    else:
+        mult = np.ones((cols_k.shape[0], nb8), np.float32)
+    mult *= (valid[:, None] & (j < nb)[None, :])
+    kc = np.maximum(cols_k, 0)
+    ic = np.minimum(cols_i, nb - 1)
+    b = np.zeros((n_nodes, node_stride), np.float32)
+    for m in range(n_nodes):
+        fpad = np.zeros(dense.shape[1:-1] + (nb8,), np.float32)
+        fpad[..., :nb] = dense[m]                 # [k, (i,) j]
+        cols = (fpad[kc, ic] if auto else fpad[kc]) * mult   # [col, j]
+        for ct in range(n_ct):
+            blk = cols[ct * _CT:(ct + 1) * _CT, 8 * step0[ct]:].T
+            b[m, off[ct]:off[ct] + blk.size] = blk.ravel()
+    device = table.n_h.device
+    return SlabTcTable(
+        auto=auto, n_bins=nb, n_centrals=table.n_centrals, n_nodes=n_nodes,
+        n_xi=n_xi, width=width,
+        b=_tensor(b, device), ct_step0=_tensor(step0, device, np.int32),
+        ct_steps=_tensor(steps, device, np.int32),
+        ct_off=_tensor(off, device, np.int32),
+        col_k=_tensor(col_k, device, np.int32),
+        col_i0=_tensor(col_i0, device, np.int32),
+        **_quadrature_arrays(table))
+
+
+def _slab_tc_smem_bytes(tb, presplit, n_bins, n_xi) -> int:
+    """Dynamic shared memory of one block of csrc/slab.cu's slab_tc kernel
+    with ``tb`` rows (the layout ``SlabTc::smem_floats`` carves)."""
+    nb8 = _round_up(n_bins, 8)
+    return 4 * (nb8 * (tb + 4) + (2 * nb8 * tb if presplit else 0) +
+                _SLAB_TC_STAGES * _SLAB_TC_STAGE_ROWS * _TC_BS + tb * n_xi +
+                _ROW_TERMS * tb)
+
+
+def slab_tc_config(n_bins, n_xi):
+    """(rows per block, densities split once per block) of the slab_tc
+    kernel: the first of ``_SLAB_TC_CONFIGS`` whose block fits in shared
+    memory; None where none fits, which is never where the slab kernel's
+    does."""
+    for tb, presplit in _SLAB_TC_CONFIGS:
+        if _slab_tc_smem_bytes(tb, presplit, n_bins, n_xi) <= _SMEM_LIMIT:
+            return tb, presplit
+    return None
+
+
+def slab_tc_launch(s: SlabTcTable, pmat, hod=KernelModel()):
+    """Launch the slab_tc kernel once: :func:`slab_launch`'s function, in
+    3xTF32 on the tensor cores (the 'scaled' tier), over the
+    block-triangular half of each node matrix.  Returns (total (B,), xi
+    (B, n_nodes, n_xi)).  Raises on any input the kernel does not take and
+    on any launch error."""
+    global SLAB_TC_LAUNCHES
+    _check_params(pmat, hod)
+    device = pmat.device
+    for a in (s.logm, s.logm_res, s.sec, s.weight, s.b):
+        _check_tensor(a, device, torch.float32, "slab_tc constants")
+    for a in (s.ct_step0, s.ct_steps, s.ct_off, s.col_k, s.col_i0):
+        _check_tensor(a, device, torch.int32, "slab_tc column tables")
+    block = slab_tc_config(s.n_bins, s.n_xi)
+    if block is None:
+        raise ValueError(f"{s.n_bins} bins are too many for the slab_tc "
+                         "kernel's shared memory (the densities and the "
+                         "cp.async ring).")
+    batch = pmat.shape[0]
+    total = torch.empty(batch, device=device, dtype=torch.float32)
+    xi = torch.empty((batch, s.n_nodes, s.n_xi), device=device,
+                     dtype=torch.float32)
+    lib = _slab_lib()
+    code = lib.tabcorr_slab_tc(
+        pmat.data_ptr(), batch, *hod.launch_args(), s.logm.data_ptr(),
+        s.logm_res.data_ptr(), s.sec.data_ptr(), s.weight.data_ptr(),
+        s.n_bins, s.n_centrals, s.n_gauss, s.b.data_ptr(), s.node_stride,
+        s.ct_step0.data_ptr(), s.ct_steps.data_ptr(), s.ct_off.data_ptr(),
+        s.col_k.data_ptr(), s.col_i0.data_ptr(), s.n_ct,
+        s.n_nodes, s.n_xi, int(s.auto), *map(int, block), total.data_ptr(),
+        xi.data_ptr(), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on_error(code, "slab_tc", lib.tabcorr_cuda_error_string)
+    SLAB_TC_LAUNCHES += 1
+    return total, xi
+
+
 def grid_kernel_takes(n_bins, mode, n_xi) -> bool:
     """Whether the kernel of the layout 'auto' picks takes a grid of this
     shape: the grid kernel for 'packed', the slab kernel for 'slab' (it
     carves the contraction kernel's shared memory, so it takes one node's
-    shape where that kernel does)."""
+    shape where that kernel does).  The 'scaled' tier's grid_tc and
+    slab_tc take every shape their FP32 twins take (grid_tc_config,
+    slab_tc_config), so the answer holds for both tiers."""
     if _grid_layout(n_bins, mode) == "packed":
         return grid_fits(n_bins, mode, n_xi)
     return contraction_fits(n_bins, n_xi)
 
 
 # ----------------------------------------------------------------------
-# The grid predictor: B2 (packed) or B4 (slab)
+# The grid predictor: B2 (packed) or B4 (slab), by tier
 # ----------------------------------------------------------------------
+def grid_kernel_for(layout, accuracy):
+    """The kernel :func:`make_fused_grid_predictor` launches on CUDA: the
+    'scaled' tier runs the 3xTF32 tensor-core kernels (grid_tc, slab_tc),
+    the 'elementwise' tier the FP32 kernels (grid, slab) -- the
+    counterpart of tabcorr_tpu's MXU pass classes, where the contract
+    picks the precision."""
+    base = "grid" if layout == "packed" else "slab"
+    return base + "_tc" if accuracy == "scaled" else base
+
+
+def grid_constants(table: TableData, n_nodes, layout, accuracy,
+                   device_type):
+    """The constants :func:`make_fused_grid_predictor` builds: for the
+    packed layout the :class:`GridTable` (every route); for the slab
+    layout the :class:`SlabTcTable` where slab_tc runs (CUDA, 'scaled'),
+    else the dense :class:`SlabTable` (the slab kernel and the plain
+    version), never both."""
+    if layout == "packed":
+        return grid_table_constants(table, n_nodes)
+    if device_type == "cuda" and accuracy == "scaled":
+        return slab_tc_table_constants(table, n_nodes)
+    return slab_table_constants(table, n_nodes)
+
+
 def make_fused_grid_predictor(table: TableData, n_nodes, model,
                               accuracy="elementwise", layout="auto",
                               fold_spline=False):
@@ -916,9 +1241,12 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
         On a CUDA device a model the kernels evaluate (:func:`kernel_model`);
         on the CPU any model (plain versions).
     accuracy : str
-        'elementwise' or 'scaled'; both run at full float32 precision.
+        'elementwise' (the FP32 kernels) or 'scaled' (the 3xTF32
+        tensor-core kernels, within 1e-6 of each row's largest statistic);
+        see :func:`grid_kernel_for`.  On the CPU both run the plain
+        versions.
     layout : str
-        'packed' (the grid kernel, B2), 'slab' (the slab kernel, B4), or
+        'packed' (the grid kernels, B2), 'slab' (the slab kernels, B4), or
         'auto': tabcorr_tpu's rule (:func:`grid_layout_for`), the slab
         for auto tables of more than 127 bins.
     fold_spline : bool
@@ -938,26 +1266,26 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
     device = table.n_h.device
     hod = _kernel_model_on(device, model)
     occ_cen, occ_sat = occupation_functions(model)
+    consts = grid_constants(table, n_nodes, layout, accuracy, device.type)
+    launch = {"grid": grid_launch, "grid_tc": grid_tc_launch,
+              "slab": slab_launch, "slab_tc": slab_tc_launch}[
+                  grid_kernel_for(layout, accuracy)]
 
     if layout == "slab":
-        s = slab_table_constants(table, n_nodes)
-
         def run_slab(params):
             _check_params_device(params, device)
             if device.type == "cpu":
-                return slab_predict_plain(s, params, occ_cen, occ_sat)
-            return slab_launch(s, _param_matrix(params, hod), hod)
+                return slab_predict_plain(consts, params, occ_cen, occ_sat)
+            return launch(consts, _param_matrix(params, hod), hod)
 
         return run_slab
-
-    g = grid_table_constants(table, n_nodes)
 
     def run(params, node_weights):
         _check_params_device(params, device)
         if device.type == "cpu":
-            return grid_predict_plain(g, params, node_weights, occ_cen,
+            return grid_predict_plain(consts, params, node_weights, occ_cen,
                                       occ_sat)
-        return grid_launch(g, _param_matrix(params, hod), node_weights, hod)
+        return launch(consts, _param_matrix(params, hod), node_weights, hod)
 
     if fold_spline:
         return run

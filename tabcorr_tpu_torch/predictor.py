@@ -309,7 +309,9 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
         outside the grid -- pair it with a log posterior that maps
         non-finite predictions to -inf; True clamps to the edge splines.
     accuracy : str, optional
-        Fused-engine contract, 'elementwise' or 'scaled'; both run at
+        Fused-engine contract, 'elementwise' or 'scaled'.  An
+        Interpolator's 'scaled' route runs the 3xTF32 tensor-core grid
+        kernels (``ops.fused.grid_kernel_for``); everything else runs at
         full float32 precision.
     device : str or torch.device, optional
         Where the tables live and the batch runs: 'cuda' (default) or

@@ -436,3 +436,268 @@ def test_slab_wrapper_rejects_bad_inputs(cuda):
 
 class HodModelStandIn(Zheng07Model):
     """A zheng07 subclass: the kernels do not evaluate it."""
+
+
+# ----------------------------------------------------------------------
+# The 'scaled' tier: grid_tc and slab_tc (3xTF32 on the tensor cores)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["zheng07", "assembias"])
+@pytest.mark.parametrize("mode", ["auto", "cross"])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("batch", [8, 131])
+def test_grid_tc_kernel_matches_plain(cuda, mode, fold, batch, kind):
+    n_nodes = 6
+    table = _grid_table(n_nodes, 12, 2, 7, mode, 13, cuda)
+    model = _model(kind)
+    predict = fused.make_fused_grid_predictor(table, n_nodes, model,
+                                              accuracy="scaled",
+                                              fold_spline=fold)
+    g = fused.grid_table_constants(table, n_nodes)
+    params = _params(model, batch, 9, cuda)
+    nw = None
+    if fold:
+        rng = np.random.default_rng(3)
+        nw = torch.tensor(rng.normal(size=(batch, n_nodes)),
+                          dtype=torch.float32, device=cuda)
+        nw[3] = torch.nan
+    before = (fused.GRID_LAUNCHES, fused.GRID_TC_LAUNCHES)
+    got = predict(params, nw) if fold else predict(params)
+    torch.cuda.synchronize()
+    assert (fused.GRID_LAUNCHES, fused.GRID_TC_LAUNCHES) == (before[0],
+                                                             before[1] + 1)
+    assert got[1].shape == ((batch, 7) if fold else (batch, n_nodes, 7))
+    occ = occupation_functions(model)
+    want = fused.grid_predict_plain(g, params, nw, *occ)
+    scale = None
+    if fold:
+        nodes = fused.grid_predict_plain(g, params, None, *occ)[1]
+        scale = (nw.abs()[:, :, None] * nodes.abs()).sum(1).amax(1)
+    _assert_grid_close(got, want, nan_rows=(3,) if fold else (), scale=scale)
+
+
+def test_grid_tc_kernel_takes_1104_cross_bins(cuda):
+    interp = Interpolator.read(DATA / "ds_efficient.npz")
+    assert fused.grid_tc_config(1104, 13, auto=False) == (32, False)
+    model = AssembiasZheng07Model(threshold=-21, redshift=0.5,
+                                  prim_haloprop_key="halo_m258m")
+    model.param_dict.update(log_eta=0.0, alpha_s=1.0, alpha_c=0.0)
+    tables = [interp.tabcorr_list[i].table_data(device=cuda)
+              for i in interp.param_dict_table["tabcorr_index"]]
+    table = dataclasses.replace(
+        tables[0], tpcf_dense=torch.cat([t.tpcf_dense for t in tables]),
+        tpcf_shape=(4 * 13,))
+    predict = fused.make_fused_grid_predictor(table, 4, model,
+                                              accuracy="scaled",
+                                              fold_spline=True)
+    g = fused.grid_table_constants(table, 4)
+    params = _params(model, 301, 10, cuda)
+    nw = torch.tensor(np.random.default_rng(4).dirichlet(np.ones(4), 301),
+                      dtype=torch.float32, device=cuda)
+    before = fused.GRID_TC_LAUNCHES
+    got = predict(params, nw)
+    torch.cuda.synchronize()
+    assert fused.GRID_TC_LAUNCHES == before + 1
+    want = fused.grid_predict_plain(g, params, nw,
+                                    *occupation_functions(model))
+    _assert_grid_close(got, want)
+
+
+@pytest.mark.parametrize("kind", ["zheng07", "assembias"])
+@pytest.mark.parametrize("mode,n_prim,n_xi,batch", [
+    ("auto", 12, 7, 131), ("cross", 11, 5, 8), ("auto", 40, 6, 4096 + 37)])
+def test_slab_tc_kernel_matches_plain(cuda, mode, n_prim, n_xi, batch, kind):
+    n_nodes = 5
+    table = _grid_table(n_nodes, n_prim, 2, n_xi, mode, 13, cuda)
+    model = _model(kind)
+    predict = fused.make_fused_grid_predictor(table, n_nodes, model,
+                                              accuracy="scaled",
+                                              layout="slab")
+    s = fused.slab_table_constants(table, n_nodes)
+    params = _params(model, batch, 9, cuda)
+    before = (fused.SLAB_LAUNCHES, fused.SLAB_TC_LAUNCHES)
+    got = predict(params)
+    torch.cuda.synchronize()
+    assert (fused.SLAB_LAUNCHES, fused.SLAB_TC_LAUNCHES) == (before[0],
+                                                             before[1] + 1)
+    assert got[1].shape == (batch, n_nodes, n_xi)
+    want = fused.slab_predict_plain(s, params, *occupation_functions(model))
+    _assert_grid_close(got, want)
+
+
+@pytest.mark.parametrize("shape", ["cross 1400 bins", "packed auto 160 bins"])
+def test_grid_tc_takes_the_grid_kernels_large_shapes(cuda, shape):
+    """grid_tc where its 64-row block with the pair offsets in shared
+    memory does not fit, as far as the grid kernel goes: 16-row blocks at
+    a 1400-bin cross grid; the offsets read from device memory at a
+    160-bin auto grid in the packed layout."""
+    cross = shape.startswith("cross")
+    n_nodes = 3
+    table = _grid_table(n_nodes, 350 if cross else 40, 2, 5 if cross else 7,
+                        "cross" if cross else "auto", 17, cuda)
+    assert fused.grid_block_rows(table.n_bins, table.tpcf_shape[0] // 3)
+    assert fused.grid_tc_config(table.n_bins, table.tpcf_shape[0] // 3,
+                                auto=not cross) == ((16, False) if cross
+                                                    else (64, False))
+    model = _model("assembias")
+    predict = fused.make_fused_grid_predictor(table, n_nodes, model,
+                                              accuracy="scaled",
+                                              layout="packed",
+                                              fold_spline=True)
+    g = fused.grid_table_constants(table, n_nodes)
+    params = _params(model, 131, 9, cuda)
+    nw = torch.tensor(np.random.default_rng(4).dirichlet(np.ones(n_nodes),
+                                                         131),
+                      dtype=torch.float32, device=cuda)
+    before = fused.GRID_TC_LAUNCHES
+    got = predict(params, nw)
+    torch.cuda.synchronize()
+    assert fused.GRID_TC_LAUNCHES == before + 1
+    _assert_grid_close(got, fused.grid_predict_plain(
+        g, params, nw, *occupation_functions(model)))
+
+
+@pytest.mark.parametrize("mode,n_prim,n_xi,width,block", [
+    ("auto", 55, 6, 8, (32, False)), ("cross", 55, 5, 8, (32, False)),
+    ("auto", 12, 7, 16, (64, True)), ("auto", 55, 6, 16, (32, False))])
+def test_slab_tc_blocks_and_widths(cuda, mode, n_prim, n_xi, width, block):
+    """slab_tc's 32-row blocks, which split each fragment as it is loaded
+    (220 bins: the split copies of 64 rows do not fit), and the
+    block-triangular layout at 16-bin tiles."""
+    n_nodes = 3
+    table = _grid_table(n_nodes, n_prim, 2, n_xi, mode, 13, cuda)
+    assert fused.slab_tc_config(table.n_bins, n_xi) == block
+    model = _model("assembias")
+    hod = fused.KernelModel.of(model)
+    s = fused.slab_tc_table_constants(table, n_nodes, width=width)
+    params = _params(model, 131, 9, cuda)
+    before = fused.SLAB_TC_LAUNCHES
+    got = fused.slab_tc_launch(s, fused._param_matrix(params, hod), hod)
+    torch.cuda.synchronize()
+    assert fused.SLAB_TC_LAUNCHES == before + 1
+    want = fused.slab_predict_plain(fused.slab_table_constants(
+        table, n_nodes), params, *occupation_functions(model))
+    _assert_grid_close(got, want)
+
+
+def test_tc_wrappers_reject_bad_inputs_and_raise_on_launch_errors(cuda):
+    table = _grid_table(3, 8, 1, 3, "auto", 1, cuda)
+    g = fused.grid_table_constants(table, 3)
+    s = fused.slab_tc_table_constants(table, 3)
+    pmat = torch.ones((8, 5), device=cuda)
+    for launch, consts in ((fused.grid_tc_launch, g),
+                           (fused.slab_tc_launch, s)):
+        with pytest.raises(ValueError):
+            launch(consts, pmat.double())
+        with pytest.raises(ValueError):
+            launch(consts, pmat.cpu())
+        with pytest.raises(ValueError):
+            launch(consts, pmat, hod=fused.KernelModel(code=1))
+    with pytest.raises(ValueError):
+        fused.grid_tc_launch(g, pmat, torch.ones((8, 2), device=cuda))
+    # Shapes the C entry points refuse come back as a launch error.
+    before = (fused.GRID_TC_LAUNCHES, fused.SLAB_TC_LAUNCHES)
+    with pytest.raises(RuntimeError, match="grid_tc kernel launch failed"):
+        fused.grid_tc_launch(dataclasses.replace(g, npair=g.npair + 1), pmat)
+    with pytest.raises(RuntimeError, match="slab_tc kernel launch failed"):
+        fused.slab_tc_launch(dataclasses.replace(s, n_nodes=0), pmat)
+    assert (fused.GRID_TC_LAUNCHES, fused.SLAB_TC_LAUNCHES) == before
+
+
+def _cancelling_table(mode, n_bins, n_xi, seed, device):
+    """One node whose statistic k has entries uniform in [-1, 1] plus a
+    mean running from 0.02 to 2 over k: elements from heavy cancellation
+    to none.  Returns the table and its float64 matrices."""
+    t = _synthetic_table(mode, n_bins, n_bins // 2, n_xi, seed, device)
+    rng = np.random.default_rng(seed + 100)
+    mean = np.linspace(0.02, 2.0, n_xi)
+    if mode == "auto":
+        a = rng.uniform(-1, 1, (n_xi, n_bins, n_bins))
+        dense = 0.5 * (a + np.swapaxes(a, 1, 2)) + mean[:, None, None]
+    else:
+        dense = rng.uniform(-1, 1, (n_xi, n_bins)) + mean[:, None]
+    return dataclasses.replace(t, tpcf_dense=torch.tensor(
+        dense, dtype=torch.float32, device=device)), dense
+
+
+@pytest.mark.parametrize("mode,layout", [("cross", "packed"),
+                                         ("auto", "packed"),
+                                         ("auto", "slab")])
+def test_both_tiers_per_element_error_by_cancellation(cuda, mode, layout):
+    """Per-element relative error of the FP32 kernel ('elementwise') and
+    the 3xTF32 kernel ('scaled') against the plain version, by each
+    element's cancellation kappa = sum |terms| / |sum| (float64, from the
+    plain densities).  Both tiers meet 1e-6 per element wherever kappa <
+    5; both pass it by about the same margin, so no reading yet shows an
+    'elementwise' table that needs the FP32 kernels.  Run with -s for the
+    table of maxima."""
+    batch = 4096
+    table, dense = _cancelling_table(mode, 60, 40, 7, cuda)
+    model = _model("zheng07")
+    params = _params(model, batch, 11, cuda)
+    occ = occupation_functions(model)
+    plain = (fused.slab_table_constants(table, 1) if layout == "slab"
+             else fused.grid_table_constants(table, 1))
+    n = fused._plain_ngal(plain, {k: v[:, None, None]
+                                  for k, v in params.items()},
+                          *occ).double().cpu().numpy()
+    if mode == "auto":
+        total = np.einsum("bi,kij,bj->bk", n, dense, n)
+        terms = np.einsum("bi,kij,bj->bk", n, np.abs(dense), n)
+    else:
+        total, terms = n @ dense.T, n @ np.abs(dense).T
+    kappa = terms / np.abs(total)
+    want = (fused.slab_predict_plain(plain, params, *occ) if layout == "slab"
+            else fused.grid_predict_plain(plain, params, None, *occ))[1]
+    want = want.double().cpu().numpy().reshape(batch, -1)
+    edges = (1, 2, 5, 10, 30)
+    maxima = {}
+    for accuracy in ("elementwise", "scaled"):
+        predict = fused.make_fused_grid_predictor(table, 1, model,
+                                                  accuracy=accuracy,
+                                                  layout=layout)
+        got = predict(params)[1].double().cpu().numpy().reshape(batch, -1)
+        rel = np.abs(got - want) / np.abs(want)
+        bins = [(kappa >= lo) & (kappa < hi)
+                for lo, hi in zip(edges[:-1], edges[1:])]
+        maxima[accuracy] = [float(rel[b].max()) if b.any() else np.nan
+                            for b in bins]
+    print(f"\n{mode} {layout}, max per-element relative error for kappa in "
+          f"{list(zip(edges[:-1], edges[1:]))}: " +
+          "; ".join(f"{a} {', '.join(f'{e:.3e}' for e in m)}"
+                    for a, m in maxima.items()))
+    for accuracy, m in maxima.items():
+        assert max(m[:2]) <= 1e-6, (accuracy, m)
+
+
+@pytest.mark.parametrize("accuracy", ["scaled", "elementwise"])
+@pytest.mark.parametrize("wide", [False, True])
+def test_fused_interpolator_launches_the_tiers_kernels(cuda, accuracy,
+                                                       wide):
+    """make_predictor(engine='fused') on an Interpolator: 'scaled' runs
+    only the _tc kernel of its layout, 'elementwise' only the FP32 one."""
+    tabs = []
+    for j in range(4):
+        t = synthetic_tabcorr(np.random.default_rng(5), 32 if wide else 10,
+                              2 if wide else 1, 3, "auto")
+        t.tpcf_matrix = t.tpcf_matrix * (1.0 + 0.1 * np.random.default_rng(
+            50 + j).normal(size=t.tpcf_matrix.shape))
+        tabs.append(t)
+    interp = Interpolator(tabs, ColumnTable(
+        {"log_eta": [-0.4, -0.1, 0.2, 0.4]}))
+    model = _model("assembias", redshift=0.0)
+    model.param_dict["log_eta"] = 0.0
+    predict = make_predictor(interp, model, engine="fused",
+                             accuracy=accuracy, device=cuda)
+    plain = make_predictor(interp, model, engine="plain", device=cuda)
+    params = _params(model, 200, 6, cuda)
+    params["log_eta"] = torch.tensor(
+        np.random.default_rng(7).uniform(-0.35, 0.35, 200),
+        dtype=torch.float32, device=cuda)
+    names = ("SLAB_LAUNCHES", "SLAB_TC_LAUNCHES") if wide else (
+        "GRID_LAUNCHES", "GRID_TC_LAUNCHES")
+    before = [getattr(fused, n) for n in names]
+    got = predict(params)
+    torch.cuda.synchronize()
+    grew = [getattr(fused, n) - b for n, b in zip(names, before)]
+    assert grew == ([0, 1] if accuracy == "scaled" else [1, 0])
+    _assert_grid_close(got, plain(params))
