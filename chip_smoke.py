@@ -12,8 +12,10 @@ shapes, 262,144 parameter vectors each unless said otherwise:
 
 1. Bundle: ``make_multi_predictor`` on the bolplanck wp table (60 halo
    bins, 19 rp rows) and the synthetic xi_ell table (120 bins, 3 x 14
-   rows), zheng07 at threshold -18; then ``make_gaussian_logpost_batched``
-   over it and five ``ensemble_step``s with 262,144 walkers.
+   rows) under ``accuracy=("elementwise", "scaled")`` (the bundle kernel,
+   FP32 under both contracts), zheng07 at threshold -18; then
+   ``make_gaussian_logpost_batched`` over it and five ``ensemble_step``s
+   with 262,144 walkers.
 2. Decorated bundle: the same tables with ``AssembiasZheng07Model``
    (threshold -18, assembly-bias strengths drawn in [-1, 1]); three
    ensemble steps over its 7 parameters.
@@ -35,7 +37,8 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    secondary-percentile bins x 2 galaxy types), too wide for the grid
    kernels' packed layout; the decorated model at threshold -20, 32,768
    rows, a few outside the grid; then two ensemble steps over its 10
-   parameters; then the 'elementwise' route (the FP32 slab kernel).
+   parameters; then the 'elementwise' route (the FP32 slab kernel, from
+   the same constants).
 
 Paths 3-5 and 7 run the 'scaled' contract, so the grid_tc and slab_tc
 kernels; the 'elementwise' passes keep the FP32 grid and slab kernels on a
@@ -46,12 +49,14 @@ after it.  Then each kernel's results are held against its plain PyTorch
 version on the same inputs and against the float64 host path at 16
 probes, and both versions are timed with CUDA events, beside the least
 time the card could take (``bound_ms``) and, where one PyTorch call
-computes the same function, that call's time (``library_ms``).  Any
-failed check raises (non-zero exit).  On success the line before the
+computes the same function, that call's time (``library_ms``); the bundle
+kernel is also timed on each table alone and on both tables cut to one
+statistic (the occupation's share).  Any failed check raises (non-zero exit).  On success the line before the
 last lists the kernels as JSON, and the last line is one JSON object
 naming the device.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -84,7 +89,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "slab": (CSRC + "slab.cu", "tabcorr_tpu/ops/fused.py:1162"),
     "slab_tc": (CSRC + "slab.cu", "tabcorr_tpu/ops/fused.py:1162"),
 }
-COUNTERS = {"bundle": "BUNDLE_LAUNCHES", "contraction": "CONTRACTION_LAUNCHES",
+COUNTERS = {"bundle": "BUNDLE_LAUNCHES",
+            "contraction": "CONTRACTION_LAUNCHES",
             "grid": "GRID_LAUNCHES", "grid_tc": "GRID_TC_LAUNCHES",
             "slab": "SLAB_LAUNCHES", "slab_tc": "SLAB_TC_LAUNCHES"}
 
@@ -354,11 +360,10 @@ def bundle_phase(ctx, kernels, decorated=False):
 
     # ---- path: predict, then the MCMC ensemble ------------------------
     ctx["reset"]()
-    (ngal, wp), (ngal_x, xi) = predict(params)
+    outs = predict(params)
     torch.cuda.synchronize()
     check(fused.BUNDLE_LAUNCHES == 1, f"{label}: predict did not launch")
-    for name, out in (("ngal", ngal), ("wp", wp), ("xi", xi)):
-        check(bool(torch.isfinite(out).all()), f"{label}: non-finite {name}")
+    (ngal, wp), (_, xi) = outs
     shapes = (tuple(wp.shape), tuple(xi.shape))
     check(shapes == ((BATCH, 19), (BATCH, 3, 14)), f"shapes {shapes}")
 
@@ -372,10 +377,10 @@ def bundle_phase(ctx, kernels, decorated=False):
     walkers = walkers_around(ctx, model, names, BATCH, SEED)
     accepts, step_s, lp = run_sampler(ctx, log_prob, walkers, n_steps,
                                       "BUNDLE_LAUNCHES", SEED)
-    launched = ctx["expect"](label, bundle=2 + 2 * n_steps)
-    print(f"{label} path: {launched['bundle']} bundle kernel launches (1 "
-          f"predict, 1 initial log-prob, 2 per ensemble step x {n_steps}), "
-          f"{len(names)} sampled parameters")
+    launched = ctx["expect"](label, bundle=2 + 2 * n_steps)["bundle"]
+    print(f"{label} path: {launched} bundle kernel launches "
+          f"(1 predict, 1 initial log-prob, 2 per ensemble step x "
+          f"{n_steps}), {len(names)} sampled parameters")
     print(f"{label} mcmc: {n_steps} ensemble steps x {BATCH} walkers, "
           f"accept fractions {accepts}, log-prob range "
           f"[{float(lp.min()):.6g}, {float(lp.max()):.6g}]")
@@ -384,21 +389,24 @@ def bundle_phase(ctx, kernels, decorated=False):
           f"walker-steps/s (median of per-step host-clock times {step_s} s) "
           f"on {ctx['card']}")
 
-    # ---- kernel against its plain version, same inputs ----------------
-    (ngal_p, wp_p), (ngal_xp, xi_p) = predict_plain(params)
+    # ---- the kernel against the plain version (same inputs) and the ----
+    # ---- float64 host path at the float32 parameters --------------------
+    plain = predict_plain(params)
     torch.cuda.synchronize()
-    ngal_err = max(rel(ngal, ngal_p), rel(ngal_x, ngal_xp))
-    wp_err = rel(wp, wp_p)
-    xi_err = scaled(xi, xi_p)
-    err = max_abs((ngal, ngal_p), (ngal_x, ngal_xp), (wp, wp_p), (xi, xi_p))
+    for name, out in (("ngal", ngal), ("wp", wp), ("xi", xi)):
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite {name}")
+    pairs = [(outs[0][0], plain[0][0]), (outs[1][0], plain[1][0]),
+             (wp, plain[0][1]), (xi, plain[1][1])]
+    ngal_err = max(rel(*pairs[0]), rel(*pairs[1]))
+    wp_err = rel(*pairs[2])
+    xi_err = scaled(*pairs[3])
+    err = max_abs(*pairs)
     print(f"{label} kernel vs plain (B={BATCH}): ngal max rel "
           f"{ngal_err:.3e} (<= 1e-6), wp max rel {wp_err:.3e} (<= 2e-6), "
           f"xi max scaled {xi_err:.3e} (<= 1e-6), max abs {err:.3e}")
     check(ngal_err <= 1e-6, f"{label}: ngal kernel vs plain {ngal_err}")
     check(wp_err <= 2e-6, f"{label}: wp kernel vs plain {wp_err}")
     check(xi_err <= 1e-6, f"{label}: xi kernel vs plain {xi_err}")
-
-    # ---- against the float64 host path at the float32 parameters -------
     err_wp = err_xi = 0.0
     for i in range(N_PROBE):
         m = host_model(model, params, i)
@@ -433,17 +441,17 @@ def bundle_phase(ctx, kernels, decorated=False):
     # ---- timing: plain, kernel, kernel, plain --------------------------
     k_ms, p_ms, k_w, p_w = ctx["alternate"](
         lambda: predict(params), lambda: predict_plain(params), 10, 2)
-    print(f"timing ({label}): bundle kernel {k_ms:.4f} ms per {BATCH}-vector "
-          f"batch ({BATCH / k_ms * 1e3:.6g} predictions/s; windows {k_w}) on "
-          f"{ctx['card']}")
+    print(f"timing ({label}): bundle kernel {k_ms:.4f} ms per "
+          f"{BATCH}-vector batch ({BATCH / k_ms * 1e3:.6g} predictions/s; "
+          f"windows {k_w}) on {ctx['card']}")
     print(f"timing ({label}): bundle plain PyTorch {p_ms:.4f} ms per "
           f"{BATCH}-vector batch ({BATCH / p_ms * 1e3:.6g} predictions/s; "
           f"windows {p_w}) on {ctx['card']}")
     if decorated:
-        record(kernels, "bundle", launched["bundle"])
+        record(kernels, "bundle", launched)
         return
     datas = [t.table_data(device="cuda") for t in (wp_tab, xi_tab)]
-    tables = [fused.bundle_table_constants(d) for d in datas]
+    tables = [fused.slab_tc_table_constants(d, 1) for d in datas]
     # One PyTorch call per table for the contraction alone (no library
     # call evaluates the occupation quadrature): n n^T, then one GEMM
     # against the dense matrices, over this batch's densities.
@@ -455,13 +463,26 @@ def bundle_phase(ctx, kernels, decorated=False):
         del dens
     print(f"timing ({label}): one torch.einsum('bi,bj,kij->bk') per table "
           f"(contraction only), wp + xi_ell {lib_ms:.4f} ms on {ctx['card']}")
-    flop = BATCH * sum(
-        quadrature_flop(c.n_bins, c.n_gauss) +
-        contraction_flop(c.n_bins, c.n_xi, c.auto) for c in tables)
+    # Where a launch's time goes: each table alone, and both cut to one
+    # statistic (the occupation quadrature and little else).
+    hod = fused.KernelModel.of(model)
+    pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
+    cut = [fused.slab_tc_table_constants(dataclasses.replace(
+        d, tpcf_dense=d.tpcf_dense[:1], tpcf_shape=(1,)), 1) for d in datas]
+    for what, consts in (("wp alone", tables[:1]),
+                         ("xi_ell alone", tables[1:]),
+                         ("both tables cut to one statistic", cut)):
+        part_ms = ctx["window_ms"](
+            lambda: fused.bundle_launch(consts, pmat, hod), 10)
+        print(f"phases ({label}): {what}: bundle {part_ms:.4f} ms on "
+              f"{ctx['card']}")
+    flop = BATCH * sum(quadrature_flop(c.n_bins, c.n_gauss) +
+                       contraction_flop(c.n_bins, c.n_xi, c.auto)
+                       for c in tables)
     n_bytes = BATCH * len(names) * 4 + sum(
-        nbytes(c.logm, c.logm_res, c.sec, c.weight, c.f_t) +
+        nbytes(c.logm, c.logm_res, c.sec, c.weight, c.b) +
         BATCH * (1 + c.n_xi) * 4 for c in tables)
-    record(kernels, "bundle", launched["bundle"], max_abs_err=err, ms=k_ms,
+    record(kernels, "bundle", launched, max_abs_err=err, ms=k_ms,
            plain_ms=p_ms, **bound(flop, n_bytes), library_ms=lib_ms)
 
 
@@ -701,9 +722,10 @@ def contraction_phase(ctx, kernels):
     for (name, tab, m, p), (ngal, xi) in zip(cases, outs):
         check(bool(torch.isfinite(xi).all()), f"{name}: non-finite xi")
         table = tab.table_data(device="cuda")
-        c = fused.bundle_table_constants(table)
+        c = fused.slab_tc_table_constants(table, 1)
+        c_plain = fused.bundle_table_constants(table)
         dens = fused.occupation_density(table, m, p)
-        ngal_p, xi_p = fused.contraction_plain(c, dens)
+        ngal_p, xi_p = fused.contraction_plain(c_plain, dens)
         xi_p = xi_p.reshape(xi.shape)
         ngal_err = rel(ngal, ngal_p)
         is_wp = name == "wp"
@@ -732,7 +754,7 @@ def contraction_phase(ctx, kernels):
 
         k_ms, p_ms, k_w, p_w = ctx["alternate"](
             lambda: fused.contraction_launch(c, dens),
-            lambda: fused.contraction_plain(c, dens), 10, 2)
+            lambda: fused.contraction_plain(c_plain, dens), 10, 2)
         print(f"timing ({name}): contraction kernel {k_ms:.4f} ms per "
               f"{BATCH}-vector batch (windows {k_w}), plain PyTorch "
               f"{p_ms:.4f} ms (windows {p_w}) on {ctx['card']}")
@@ -749,7 +771,7 @@ def contraction_phase(ctx, kernels):
         k_total, p_total, lib_total = (k_total + k_ms, p_total + p_ms,
                                        lib_total + lib_ms)
         flop += BATCH * contraction_flop(c.n_bins, c.n_xi, c.auto)
-        n_bytes += nbytes(dens, c.f_t) + BATCH * (1 + c.n_xi) * 4
+        n_bytes += nbytes(dens, c.b) + BATCH * (1 + c.n_xi) * 4
     record(kernels, "contraction", launched["contraction"],
            max_abs_err=max_err, ms=k_total, plain_ms=p_total,
            **bound(flop, n_bytes), library_ms=lib_total)
@@ -891,7 +913,7 @@ def slab_phase(ctx, kernels):
            plain_ms=p_ms, **bound(flop, quad + nbytes(s_tc.b) + out_bytes,
                                   tensor_flop=tensor_flop),
            library_ms=lib_ms)
-    del s_tc, total_k, nodes_k
+    del total_k, nodes_k
 
     # ---- the 'elementwise' route: the FP32 slab kernel -----------------
     predict = make_predictor(interp, model, engine="fused",
@@ -904,7 +926,7 @@ def slab_phase(ctx, kernels):
     check(bool(torch.isnan(xi_e[out]).all() and
                torch.isfinite(xi_e[~out]).all()),
           "wide grid elementwise: NaN rows")
-    total_k, nodes_k = fused.slab_launch(s, pmat, hod)
+    total_k, nodes_k = fused.slab_launch(s_tc, pmat, hod)
     ngal_err = rel(total_k, total_p)
     node_err = scaled(nodes_k.reshape(-1, s.n_xi), nodes_p.reshape(-1, s.n_xi))
     err = max_abs((total_k, total_p), (nodes_k, nodes_p))
@@ -914,13 +936,13 @@ def slab_phase(ctx, kernels):
           f"(<= 1e-6), max abs {err:.3e}")
     check(ngal_err <= 1e-6, f"wide grid elementwise: ngal {ngal_err}")
     check(node_err <= 1e-6, f"wide grid elementwise: xi {node_err}")
-    k_w = [ctx["window_ms"](lambda: fused.slab_launch(s, pmat, hod), 2)
+    k_w = [ctx["window_ms"](lambda: fused.slab_launch(s_tc, pmat, hod), 2)
            for _ in range(3)]
     k_ms = float(np.median(k_w))
     print(f"timing (wide grid elementwise): slab kernel {k_ms:.4f} ms per "
           f"{SLAB_BATCH}-vector batch (windows {k_w}) on {ctx['card']}")
     record(kernels, "slab", launched["slab"], max_abs_err=err, ms=k_ms,
-           plain_ms=p_ms, **bound(flop, quad + nbytes(s.f_t) + out_bytes),
+           plain_ms=p_ms, **bound(flop, quad + nbytes(s_tc.b) + out_bytes),
            library_ms=lib_ms)
 
 

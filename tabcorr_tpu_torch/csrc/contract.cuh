@@ -1,213 +1,558 @@
-// The per-table contraction shared by the bundle and contraction kernels
-// (bundle.cu) and the slab kernel (slab.cu):
+// The contraction shared by the bundle and contraction kernels (bundle.cu)
+// and the slab kernels (slab.cu):
 //
-//     auto:  xi[b, k] = n_b^T F_k n_b / (sum_i n_bi)^2
-//     cross: xi[b, k] = (F n_b)_k / sum_i n_bi
+//     auto:  xi[b, node, k] = n_b^T F_node,k n_b / (sum_i n_bi)^2
+//     cross: xi[b, node, k] = (F_node n_b)_k / sum_i n_bi
 //
-// for the kTB batch rows of one block, from their densities n[b, i] in
-// shared memory.
+// for the TB batch rows of one block, from their densities n[b, i] in
+// shared memory, for every node of one table (a bundle table is one node),
+// in two tiers: contract_fp32() on the CUDA cores (the 'elementwise'
+// contract) and contract_tc() in 3xTF32 on the tensor cores (the 'scaled'
+// contract; tf32x3.cuh).  Both read one layout of the constants.
 //
-// * t[b, (k, i)] = sum_j n[b, j] F[k, i, j] is a register-tiled FP32 GEMM:
-//   F is staged through shared memory in kKT x kCT tiles, each thread
-//   accumulates an 8 x 4 tile (8 rows x 4 consecutive columns) with fmaf,
-//   so every staged F element is reused by 64 rows and every n value by
-//   128 columns.
-// * The quadratic form's epilogue multiplies each thread's columns by
-//   n[b, i] and reduces them per statistic k through shared memory in a
-//   fixed order (deterministic), then divides by (sum_i n_i)^2 (auto) or
-//   sum_i n_i (cross); that sum is accumulated in double.  Rows past the
-//   batch end are masked, not padded.
+// The layout (ops/fused.py:slab_tc_table_constants).  Auto mode, the
+// block-triangular half: the bins are cut into tiles of width w; the
+// columns of the GEMM are grouped by bin tile I as (I, k, i in I), in n8
+// column tiles of 8 bins of one statistic k (col_k, col_i0).  Column
+// (k, i) takes F[k, i, j] for the rows j of i's own tile, 2 F[k, i, j]
+// (exact in float32) for the rows of later tiles and 0 for earlier ones,
+// so that
+//     t[b, (k, i)] = sum_j n[b, j] B[j, (k, i)],
+//     xi[b, k] = sum_i n[b, i] t[b, (k, i)] / (sum_i n[b, i])^2
+// is n^T F n over the symmetric half: 52.5% of the dense multiply-adds at
+// 160 bins with w = 8.  A 128-column tile starts its K loop at the first
+// row of its earliest bin tile (ct_step0, in steps of 8 rows), and only
+// rows [8 ct_step0, nb8) of it are stored, row-major (ct_off); every sum
+// still runs over at most nb terms.  Cross mode keeps the matrix-vector
+// layout: column k takes F[k, j], xi = t / sum_i n_i.
+//
+// Both tiers stream the column tiles through a 2-stage cp.async ring, one
+// block barrier per stage, as one sequence over (node, column tile, stage),
+// so the ring runs on across tile and node boundaries.  Both reduce
+// n_i t[b, (k, i)] over each n8 tile's 8 bins in registers and add it to
+// the node's statistics in shared memory once per column tile: the 3xTF32
+// tier from a running sum of its chunks of 32 K rows, the FP32 tier from a
+// sum it carries in 8 registers and feeds after every ring stage, so that
+// no fmaf chain runs over more than the stage's 32 K rows either
+// (tests/test_torch_contract_half.py emulates this order and one chain over
+// all of a column's rows, which lands farther from the float64 contraction
+// of xi_ell).  The layout puts a statistic at most
+// once in a column tile, or twice in one aligned pair of n8 tiles (handled
+// by one lane, or by two neighbouring lanes that combine their sums with a
+// shuffle), and the ring's barrier separates the column tiles: no two
+// threads add to one statistic between two barriers, so the sums are
+// deterministic without the shared-memory round trip and the barrier per
+// column tile that an ordered cross-warp reduction needs.  sum_i n_i is
+// accumulated in double.  Rows past the batch end are masked, not padded.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+#include "tf32x3.cuh"
 #include "zheng07.cuh"
 
 namespace tabcorr {
 
-constexpr int kTB = 64;          // batch rows per block
-constexpr int kThreads = 256;    // 8 row groups x 32 column groups
-constexpr int kKT = 32;          // rows (j) of F per staged tile
-constexpr int kCT = 128;         // columns of F per staged tile
-constexpr int kRM = 8;           // rows per thread
-constexpr int kRN = 4;           // columns per thread
-constexpr int kGroups = kCT / kRN;
-// Minimum resident blocks per SM in the kernels' __launch_bounds__.  Without
-// a minimum, ptxas aimed at 64 registers and spilled or not depending on
-// small edits elsewhere (the slab kernel 190 -> 220 ms, the contraction
-// kernel 14.2 -> 15.2 ms on xi_ell; H100 80GB HBM3, 700 W).  With one it
-// takes 79-83 registers, no spill, at every edit tried.  Three 64-row
-// blocks is what the bench tables' shared memory allows (~70 KB each);
-// the wide slab grid's 160 bins allow two.
+constexpr int kCT = 128;          // columns per column tile
+constexpr int kSlots = kCT / 8;   // n8 column tiles per column tile
+constexpr int kStages = 2;        // ring stages of both tiers
+// contract_fp32: a thread owns 8 rows x the 8 columns of one n8 tile; a
+// block of TB rows has TB / 8 row groups x 16 column groups = 2 TB threads.
+constexpr int kRM = 8;
+// Its ring stage in K steps of 8 rows: 4 (32 K rows), or 2 where that ring
+// does not fit in shared memory beside the densities.
+constexpr int kFpStageSteps = 4;
+constexpr int kFpStageStepsSmall = 2;
+inline bool fp32_stage_ok(int stage_steps) {
+  return stage_steps == kFpStageSteps || stage_steps == kFpStageStepsSmall;
+}
+// Minimum resident blocks per SM in the FP32 kernels' __launch_bounds__.
+// Without a minimum, ptxas aims at a register count of its own and spills
+// or not depending on small edits elsewhere.  Three 64-row blocks is what
+// the bench tables' shared memory allows (~75 KB each); the wide slab
+// grid's 160 bins allow two.
 constexpr int kMinBlocks = 3;
 constexpr int kMinBlocksSlab = 2;
 
-static_assert(kThreads == (kTB / kRM) * kGroups, "thread layout");
-
-struct TableArgs {
-  QuadArgs q;           // occupation quadrature (not read by the contraction)
-  const float* ft;      // (k_pad, c_pad): ft[j, k*nbp + i] = F[k, i, j]
-                        // (auto) or ft[j, k] = F[k, j] (cross)
-  float* out_total;     // (B,), or null: not stored
-  float* out_xi;        // row b's statistics at out_xi + b * out_stride
-  int nb, n_xi, nbp, k_pad, c_pad, is_auto;
-  int out_stride;
+// The constants of one table in the layout above.
+struct HalfTable {
+  const float* b;        // node m's column tiles at b + m * node_stride
+  const int* ct_step0;   // (n_ct,) first K step (8 rows) of column tile ct
+  const int* ct_steps;   // (n_ct,) its K steps
+  const int* ct_off;     // (n_ct,) float offset of its (steps * 8, 128)
+                         // row-major block within a node
+  const int* col_k;      // (n_ct * 16,) auto: statistic of each n8 column
+                         // tile, -1 for padding
+  const int* col_i0;     // (n_ct * 16,) auto: its first bin
+  size_t node_stride;
+  int n_nodes, n_xi, n_ct, is_auto;
+  int nb;                // bins
+  int nb8;               // bins rounded up to 8: rows of sN
 };
 
-// Shared-memory layout (floats), per block:
-//   sN   [k_pad_max][kTB]     per-bin densities, bin-major
-//   sF   [kKT][kCT]           staged tile of ft
-//   sP   [kTB][kGroups]       per-thread-column-group partial sums
-//   sQ   [kTB][nxi_max]       quadratic forms / matvecs per statistic
-//   sPar [kParTerms][kTB]     per-row parameter terms (occupation kernels)
-//   sTot [kTB]                sum_i n_i per row
-inline size_t smem_floats(int k_pad_max, int nxi_max) {
-  return (size_t)k_pad_max * kTB + kKT * kCT + kTB * kGroups +
-         (size_t)kTB * nxi_max + (kParTerms + 1) * kTB;
-}
-
-struct Smem {
-  float* sN;
-  float* sF;
-  float* sP;
-  float* sQ;
-  float* sPar;
-  float* sTot;
+// Where a table's results go: row b's sum_i n_i at total[b] (null: not
+// stored), node m's statistic k at xi[b * stride + m * n_xi + k].
+struct TableOut {
+  float* total;
+  float* xi;
+  size_t stride;
 };
 
-__device__ inline Smem carve(float* base, int k_pad_max, int nxi_max) {
-  Smem s;
-  s.sN = base;
-  s.sF = s.sN + (size_t)k_pad_max * kTB;
-  s.sP = s.sF + kKT * kCT;
-  s.sQ = s.sP + kTB * kGroups;
-  s.sPar = s.sQ + (size_t)kTB * nxi_max;
-  s.sTot = s.sPar + kParTerms * kTB;
-  return s;
+inline bool check_half_table(const HalfTable& h, const QuadArgs* q) {
+  if (h.nb < 1 || h.n_nodes < 1 || h.n_xi < 1 || h.n_ct < 1) return false;
+  return q == nullptr ||
+         (q->nb == h.nb && q->nc >= 0 && q->nc <= h.nb && q->ng >= 1);
 }
 
-inline bool check_table(const TableArgs& t) {
-  return !(t.nbp % kRN || t.k_pad % kKT || t.c_pad % kCT ||
-           t.k_pad < t.nbp || t.nbp < t.nb || t.n_xi < 1 || t.nb < 1 ||
-           t.out_stride < t.n_xi);
-}
-
-// xi and sum_i n_i of one table for the block's rows.  On entry s.sN holds
-// n[b, i] bin-major (0 for padded bins and masked rows) and a
-// __syncthreads() has passed since it was written; on exit the outputs are
-// stored and the block is synchronised, so sN may be overwritten.
-__device__ inline void contract_table(const TableArgs& t, int batch,
-                                      int row0, const Smem& s) {
-  const int tid = threadIdx.x;
-  const int rg = tid / kGroups;   // row group: rows rg*kRM .. +kRM-1
-  const int cg = tid % kGroups;   // column group: columns cg*kRN .. +kRN-1
-  float* sN = s.sN;
-  float* sF = s.sF;
-  float* sP = s.sP;
-  float* sQ = s.sQ;
-
-  for (int item = tid; item < kTB * t.n_xi; item += kThreads) sQ[item] = 0.f;
-  if (tid < kTB) {
-    // sum_i n_i in double: a float32 running sum over ~100 bins would
-    // carry ~5e-7 relative error into xi's 1/(sum n)^2.
-    double sum = 0.0;
-    for (int i = 0; i < t.nb; ++i) sum += sN[i * kTB + tid];
-    s.sTot[tid] = static_cast<float>(sum);
+// Position of a block's stream over (node, column tile, stage), given the
+// column tiles' K steps and the K steps per stage.
+struct TileCursor {
+  int node, ct, q;
+  __device__ __forceinline__ void advance(const int* steps, int n_ct,
+                                          int stage_steps) {
+    if (stage_steps * ++q >= __ldg(steps + ct)) {
+      q = 0;
+      if (++ct == n_ct) {
+        ct = 0;
+        ++node;
+      }
+    }
   }
+};
 
-  const float4* sN4 = reinterpret_cast<const float4*>(sN);
-  const float4* sF4 = reinterpret_cast<const float4*>(sF);
-  const float4* ft4 = reinterpret_cast<const float4*>(t.ft);
-  for (int ct = 0; ct < t.c_pad; ct += kCT) {
-    float acc[kRM][kRN];
+// Ring stages of one node: sum over the column tiles of their stages.
+__device__ __forceinline__ int stages_per_node(const HalfTable& h,
+                                               int stage_steps) {
+  int n = 0;
+  for (int c = 0; c < h.n_ct; ++c)
+    n += (__ldg(h.ct_steps + c) + stage_steps - 1) / stage_steps;
+  return n;
+}
+
+// sTot[b] = sum_i n[b, i] for the block's TB rows, by its first TB
+// threads.  In double: a float32 running sum over ~100 bins would carry
+// ~5e-7 relative error into xi's 1/(sum n)^2.
+template <int TB, int STRIDE>
+__device__ __forceinline__ void row_totals(const float* sN, int nb,
+                                           float* sTot) {
+  if (threadIdx.x < TB) {
+    double sum = 0.0;
+    for (int i = 0; i < nb; ++i) sum += sN[i * STRIDE + threadIdx.x];
+    sTot[threadIdx.x] = static_cast<float>(sum);
+  }
+}
+
+// ----------------------------------------------------------------------
+// The FP32 tier.
+//
+// What bounds it: FP32 FMA issue.  What the design does about it: each of
+// the 2 TB threads owns an 8 x 8 register tile (8 rows x one n8 column
+// tile), so a K row costs 64 fmaf against four 16-byte shared-memory loads
+// (two of densities, two of the staged matrix row), each one wavefront: a
+// warp is 4 row groups x 8 column groups, the densities of 4 row groups
+// are 4 x 32 consecutive bytes, and a staged row keeps the first halves of
+// its 16 n8 tiles in floats [0, 64) and the second halves in [64, 128), so
+// that the 8 column groups of a warp read 128 consecutive bytes.  That is
+// a quarter of the shared-memory traffic per fmaf of an 8 x 4 tile whose
+// 32 lanes read 32 different matrix words.  The matrix rows arrive through
+// the cp.async ring while the previous stage is multiplied (one barrier
+// per stage of up to 32 K rows), and only the symmetric half of an auto
+// table is multiplied.  Folding a stage into the carried sums is 64 fmaf
+// and 16 shared-memory loads against the stage's 2048 and 128; a stage's
+// first K row stores its products instead of adding them to zeros, which
+// saves the 64 moves that would clear the tile.
+//
+// Start copying rows [0, n_rows) of a column tile (row-major, 128 floats
+// per row) into a ring stage, the halves of each n8 tile apart.  Threads
+// [0, NT) call it; the caller commits the group.
+template <int NT>
+__device__ __forceinline__ void stage_fp32(float* dst, const float* src,
+                                           int n_rows) {
+  for (int l = threadIdx.x; l < n_rows * (kCT / 4); l += NT) {
+    const int r = l / (kCT / 4);
+    const int q = l % (kCT / 4);      // 16-byte chunk of the row
+    cp_async16(dst + r * kCT + ((q & 1) * kSlots + (q >> 1)) * 4,
+               src + r * kCT + q * 4);
+  }
+}
+
+// acc (+)= A[rows, 8 K rows] x B[8 K rows, the thread's 8 columns] from
+// shared memory (a4: the densities of the thread's rows at the first K
+// row, b4: the staged rows at the thread's n8 tile).  FIRST: the sums
+// start here, so the first row's products are stored, not added to zeros.
+template <int STRIDE, bool FIRST>
+__device__ __forceinline__ void fp32_k_step(float (&acc)[kRM][8],
+                                            const float4* a4,
+                                            const float4* b4) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const float4 a0 = a4[jj * (STRIDE / 4)];
+    const float4 a1 = a4[jj * (STRIDE / 4) + 1];
+    const float4 b0 = b4[jj * (kCT / 4)];
+    const float4 b1 = b4[jj * (kCT / 4) + kSlots];
+    const float a[kRM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
     for (int r = 0; r < kRM; ++r)
 #pragma unroll
-      for (int c = 0; c < kRN; ++c) acc[r][c] = 0.f;
+      for (int c = 0; c < 8; ++c)
+        acc[r][c] = FIRST && jj == 0 ? __fmul_rn(a[r], bv[c])
+                                     : fmaf(a[r], bv[c], acc[r][c]);
+  }
+}
 
-    for (int j0 = 0; j0 < t.k_pad; j0 += kKT) {
-      __syncthreads();   // the previous tile's readers are done
-      for (int l = tid; l < kKT * kCT / 4; l += kThreads) {
-        const int r = l / (kCT / 4);
-        const int c4 = l % (kCT / 4);
-        reinterpret_cast<float4*>(sF)[l] =
-            __ldg(ft4 + ((size_t)(j0 + r) * t.c_pad + ct) / 4 + c4);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int jj = 0; jj < kKT; ++jj) {
-        const float4 a0 = sN4[(j0 + jj) * (kTB / 4) + rg * 2];
-        const float4 a1 = sN4[(j0 + jj) * (kTB / 4) + rg * 2 + 1];
-        const float4 f = sF4[jj * (kCT / 4) + cg];
-        const float a[kRM] = {a0.x, a0.y, a0.z, a0.w,
-                              a1.x, a1.y, a1.z, a1.w};
-        const float fv[kRN] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-        for (int r = 0; r < kRM; ++r)
-#pragma unroll
-          for (int c = 0; c < kRN; ++c)
-            acc[r][c] = fmaf(a[r], fv[c], acc[r][c]);
-      }
+// xi and sum_i n_i of every node of one table for the block's TB rows, by
+// a block of 2 TB threads.  On entry sN holds n[b, i] at sN[i * TB + b] for
+// i < nb8 (0 for padded bins and masked rows) and a barrier has passed
+// since it was written; on exit the outputs are stored and the block is
+// synchronised, so sN, sXi and sTot may be overwritten.  `stage_steps`
+// (fp32_stage_ok) is the K steps of 8 rows per ring stage; sRing holds
+// kStages * stage_steps * 8 * 128 floats, sXi TB * n_xi, sTot TB.
+template <int TB>
+__device__ __forceinline__ void contract_fp32(const HalfTable& h,
+                                              const TableOut& out, int batch,
+                                              int row0, int stage_steps,
+                                              const float* sN, float* sRing,
+                                              float* sXi, float* sTot) {
+  static_assert(TB % 32 == 0, "block shape");
+  constexpr int NT = 2 * TB, STRIDE = TB;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int rg = (warp >> 1) * 4 + (lane >> 3);   // rows rg * 8 .. + 7
+  const int cg = (warp & 1) * 8 + (lane & 7);     // n8 tile of the column tile
+  const int stage_floats = stage_steps * 8 * kCT;
+
+  for (int item = tid; item < TB * h.n_xi; item += NT) sXi[item] = 0.f;
+  row_totals<TB, STRIDE>(sN, h.nb, sTot);
+
+  const int n_stages = h.n_nodes * stages_per_node(h, stage_steps);
+  TileCursor prod = {0, 0, 0}, cons = {0, 0, 0};
+  int issued = 0;
+  auto issue = [&]() {
+    if (issued < n_stages) {
+      const int n_rows =
+          8 * min(stage_steps,
+                  __ldg(h.ct_steps + prod.ct) - stage_steps * prod.q);
+      stage_fp32<NT>(sRing + (issued % kStages) * stage_floats,
+                     h.b + (size_t)prod.node * h.node_stride +
+                         __ldg(h.ct_off + prod.ct) +
+                         (size_t)prod.q * stage_steps * 8 * kCT,
+                     n_rows);
+      prod.advance(h.ct_steps, h.n_ct, stage_steps);
     }
+    ++issued;
+    cp_async_commit();
+  };
+  for (int s = 0; s < kStages - 1; ++s) issue();
 
-    if (t.is_auto) {
-      // Columns ct + cg*4 .. +3 are (k, i0 .. i0+3) of one statistic k.
-      const int col = ct + cg * kRN;
-      const int k = col / t.nbp;
-      const int i0 = col - k * t.nbp;
+  float acc[kRM][8];
+  float v[kRM];   // auto: sum_i n_i t[b, (k, i)] of the column tile so far
+  for (int s = 0; s < n_stages; ++s) {
+    const int ct = cons.ct;
+    const int steps = __ldg(h.ct_steps + ct);
+    const int step0 = __ldg(h.ct_step0 + ct);
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage s is in; slot s - 1 is free
+    issue();
+    const int n_rows = 8 * min(stage_steps, steps - stage_steps * cons.q);
+    const float4* a4 =
+        reinterpret_cast<const float4*>(
+            sN + (size_t)8 * (step0 + stage_steps * cons.q) * STRIDE) +
+        rg * 2;
+    const float4* b4 =
+        reinterpret_cast<const float4*>(sRing +
+                                        (s % kStages) * stage_floats) + cg;
+    // Auto mode folds every stage's products into v (below), so its sums
+    // start anew with each stage; cross mode sums over the column tile.
+    if (h.is_auto || cons.q == 0)
+      fp32_k_step<STRIDE, true>(acc, a4, b4);
+    else
+      fp32_k_step<STRIDE, false>(acc, a4, b4);
+#pragma unroll 1
+    for (int j0 = 8; j0 < n_rows; j0 += 8)
+      fp32_k_step<STRIDE, false>(acc, a4 + j0 * (STRIDE / 4),
+                                 b4 + j0 * (kCT / 4));
+    const int node = cons.node;
+    const bool first = cons.q == 0;
+    const bool tile_done = stage_steps * (cons.q + 1) >= steps;
+    const bool node_done = tile_done && ct == h.n_ct - 1;
+    cons.advance(h.ct_steps, h.n_ct, stage_steps);
+
+    // Epilogue: acc[r][c] is row rg * 8 + r, column ct * 128 + cg * 8 + c,
+    // summed over the column tile's K rows (cross) or this stage's (auto).
+    if (!h.is_auto) {
+      if (!tile_done) continue;
 #pragma unroll
       for (int r = 0; r < kRM; ++r) {
         const int b = rg * kRM + r;
-        float v = 0.f;
-        if (k < t.n_xi) {
 #pragma unroll
-          for (int c = 0; c < kRN; ++c)
-            v = fmaf(acc[r][c], sN[(i0 + c) * kTB + b], v);
+        for (int c = 0; c < 8; ++c) {
+          const int k = ct * kCT + cg * 8 + c;
+          if (row0 + b < batch && k < h.n_xi)
+            out.xi[(size_t)(row0 + b) * out.stride + (size_t)node * h.n_xi +
+                   k] = acc[r][c] / sTot[b];
         }
-        sP[b * kGroups + cg] = v;
       }
-      __syncthreads();
-      // One thread per (row, statistic) of this column tile sums its
-      // column groups in order.
-      const int k_lo = ct / t.nbp;
-      const int k_hi = min((ct + kCT - 1) / t.nbp, t.n_xi - 1);
-      const int nk = k_hi - k_lo + 1;
-      for (int item = tid; item < kTB * nk; item += kThreads) {
-        const int b = item / nk;
-        const int kk = k_lo + item % nk;
-        const int g_lo = max(kk * t.nbp - ct, 0) / kRN;
-        const int g_hi = min((kk + 1) * t.nbp - ct, kCT) / kRN;
-        float v = 0.f;
-        for (int g = g_lo; g < g_hi; ++g) v += sP[b * kGroups + g];
-        sQ[b * t.n_xi + kk] += v;
-      }
-      // The next tile writes sP only after the __syncthreads() at the
-      // top of its j0 loop.
-    } else {
-#pragma unroll
-      for (int r = 0; r < kRM; ++r)
-#pragma unroll
-        for (int c = 0; c < kRN; ++c) {
-          const int k = ct + cg * kRN + c;
-          if (k < t.n_xi) sQ[(rg * kRM + r) * t.n_xi + k] = acc[r][c];
-        }
+      continue;
     }
+    const int i0 = __ldg(h.col_i0 + ct * kSlots + cg);
+    if (first) {
+#pragma unroll
+      for (int r = 0; r < kRM; ++r) v[r] = 0.f;
+    }
+    const float4* n4 =
+        reinterpret_cast<const float4*>(sN + (size_t)i0 * STRIDE) + rg * 2;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float4 n0 = n4[c * (STRIDE / 4)];
+      const float4 n1 = n4[c * (STRIDE / 4) + 1];
+      const float nv[kRM] = {n0.x, n0.y, n0.z, n0.w, n1.x, n1.y, n1.z, n1.w};
+#pragma unroll
+      for (int r = 0; r < kRM; ++r) v[r] = fmaf(nv[r], acc[r][c], v[r]);
+    }
+    if (!tile_done) continue;
+    // Two n8 tiles of one aligned pair may hold the same statistic: the
+    // even lane adds both sums, its neighbour none.
+    const int k = __ldg(h.col_k + ct * kSlots + cg);
+    const int k_pair = __shfl_xor_sync(0xffffffffu, k, 1);
+    const bool paired = k >= 0 && k == k_pair;
+#pragma unroll
+    for (int r = 0; r < kRM; ++r) {
+      const float other = __shfl_xor_sync(0xffffffffu, v[r], 1);
+      if (k >= 0 && !(paired && (cg & 1)))
+        sXi[(rg * kRM + r) * h.n_xi + k] += paired ? v[r] + other : v[r];
+    }
+    if (!node_done) continue;
+    __syncthreads();   // the node's statistics are complete
+    for (int item = tid; item < TB * h.n_xi; item += NT) {
+      const int b = item / h.n_xi;
+      const int kk = item - b * h.n_xi;
+      if (row0 + b < batch) {
+        const float tot = sTot[b];
+        out.xi[(size_t)(row0 + b) * out.stride + (size_t)node * h.n_xi + kk] =
+            sXi[item] / (tot * tot);
+      }
+      sXi[item] = 0.f;
+    }
+    // The next node adds to sXi only after the barrier of its first stage.
   }
-  __syncthreads();
+  if (out.total != nullptr && tid < TB && row0 + tid < batch)
+    out.total[row0 + tid] = sTot[tid];
+  __syncthreads();   // before the caller reuses sN, sXi and sTot
+}
 
-  for (int item = tid; item < kTB * t.n_xi; item += kThreads) {
-    const int b = item / t.n_xi;
-    const int k = item - b * t.n_xi;
-    if (row0 + b < batch) {
-      const float tot = s.sTot[b];
-      t.out_xi[(size_t)(row0 + b) * t.out_stride + k] =
-          t.is_auto ? sQ[item] / (tot * tot) : sQ[item] / tot;
+// Shared-memory floats of contract_fp32's ring, statistics, per-row
+// parameter terms and row totals, beside the densities.
+inline size_t fp32_smem_floats(int tb, int stage_steps, int nb8, int n_xi) {
+  return (size_t)nb8 * tb + (size_t)kStages * stage_steps * 8 * kCT +
+         (size_t)tb * n_xi + (kParTerms + 1) * tb;
+}
+
+// ----------------------------------------------------------------------
+// The 3xTF32 tier.
+//
+// What bounds it: the tensor cores' issue rate through mma.sync, and the
+// instructions around it (fragment loads, each B fragment's split, the
+// epilogue).
+//
+// A block of tc::kThreads = 512 threads owns TB = 64 batch rows (2 x 8
+// warps of 32 rows x 16 columns) and keeps their float32 densities (the
+// epilogue's n_i) bin-major at a row stride of TB + 4 (conflict-free
+// fragment and epilogue reads).  At 64 rows the densities are also split
+// into hi/lo fragments once per table (PRESPLIT).  Where those copies do
+// not fit in shared memory, the block takes 32 rows (2 x 8 warps of 16
+// rows) and splits each A fragment as it is loaded (tc::SplitOnLoadA): one
+// copy of 32 rows' densities.  The B tiles stream through the ring in
+// stages of up to 64 K rows.  Each chunk (<= 32 K rows, two per stage)
+// accumulates into fresh fragments, added to a float32 running sum (sums
+// of <= nb terms, as contract_fp32's).  The epilogue reduces n_i
+// t[b, (k, i)] over each n8 tile's 8 bins with quad shuffles; a warp's two
+// n8 tiles are one aligned pair, added by the same lane in order.  The
+// column tables (a few ints per tile) are read through the read-only
+// cache, not shared memory, whose size would grow with the column count.
+constexpr int kTcStageSteps = 8;   // 64 K rows: two accumulation chunks
+constexpr int kTcStageFloats = kTcStageSteps * 8 * tc::kBS;
+
+// Shared-memory layout of contract_tc (floats), per block of TB rows:
+//   sN   [nb8][TB + 4]         float32 densities, bin-major
+//   sAh, sAl [nb8 * TB]        (PRESPLIT) their hi/lo, fragment order
+//   sB   [2][64][kBS]          the cp.async ring of B tiles
+//   sXi  [TB][n_xi]            one node's statistics (auto)
+//   sPar [kParTerms][TB], sTot [TB]
+template <int TB, bool PRESPLIT>
+struct TcBlock {
+  static constexpr int kStride = TB + 4;
+  static constexpr int kWM = 2, kWN = tc::kWarps / kWM;   // warps
+  static constexpr int kMT = TB / 32;                   // m16 tiles
+  static constexpr int kNT = tc::kCT / (8 * kWN);       // n8 tiles
+  static size_t smem_floats(int nb8, int n_xi) {
+    return (size_t)nb8 * kStride + (PRESPLIT ? 2 * (size_t)nb8 * TB : 0) +
+           kStages * kTcStageFloats + (size_t)TB * n_xi +
+           (kParTerms + 1) * TB;
+  }
+};
+
+// contract_fp32's function on every thread of a block of tc::kThreads.
+// On entry sN holds n[b, i] at sN[i * (TB + 4) + b] for i < nb8 and a
+// barrier has passed since it was written; on exit the outputs are stored
+// and the block is synchronised.  sAh and sAl (PRESPLIT) hold nb8 * TB
+// floats each, sB the ring, sXi TB * n_xi, sTot TB.
+template <int TB, bool PRESPLIT>
+__device__ __forceinline__ void contract_tc(const HalfTable& h,
+                                            const TableOut& out, int batch,
+                                            int row0, const float* sN,
+                                            float* sAh, float* sAl, float* sB,
+                                            float* sXi, float* sTot) {
+  using S = TcBlock<TB, PRESPLIT>;
+  constexpr int NST = kStages, MT = S::kMT, NT = S::kNT, SN = S::kStride;
+  constexpr int kM16 = TB / 16;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / S::kWN, wn = warp % S::kWN;
+  const int n0 = wn * NT * 8;      // the warp's first column in the tile
+  const int m0 = wm * MT;          // and its first m16 tile
+
+  for (int item = tid; item < TB * h.n_xi; item += tc::kThreads)
+    sXi[item] = 0.f;
+  row_totals<TB, SN>(sN, h.nb, sTot);
+  if constexpr (PRESPLIT) {
+    // The densities' hi/lo in fragment order (slot l holds row `row`, bin
+    // kk): consecutive threads store consecutive words.
+    for (int l = tid; l < h.nb8 * TB; l += tc::kThreads) {
+      const int e = l & 3, ln = (l >> 2) & 31, ms = l >> 7;
+      const int row = (ms % kM16) * 16 + (ln >> 2) + 8 * (e & 1);
+      const int kk = (ms / kM16) * 8 + (ln & 3) + 4 * (e >> 1);
+      uint32_t hi, lo;
+      tc::split_tf32(sN[kk * SN + row], hi, lo);
+      sAh[l] = __uint_as_float(hi);
+      sAl[l] = __uint_as_float(lo);
     }
   }
-  if (t.out_total != nullptr && tid < kTB && row0 + tid < batch)
-    t.out_total[row0 + tid] = s.sTot[tid];
-  __syncthreads();   // before the caller reuses sN, sQ and sTot
+
+  const int n_stages = h.n_nodes * stages_per_node(h, kTcStageSteps);
+  TileCursor prod = {0, 0, 0}, cons = {0, 0, 0};
+  int issued = 0;
+  auto issue = [&]() {
+    if (issued < n_stages) {
+      const int n_rows =
+          8 * min(kTcStageSteps,
+                  __ldg(h.ct_steps + prod.ct) - kTcStageSteps * prod.q);
+      tc::stage_b(sB + (issued % NST) * kTcStageFloats,
+                  h.b + (size_t)prod.node * h.node_stride +
+                      __ldg(h.ct_off + prod.ct) +
+                      (size_t)prod.q * kTcStageSteps * 8 * tc::kCT,
+                  tc::kCT, n_rows);
+      prod.advance(h.ct_steps, h.n_ct, kTcStageSteps);
+    }
+    ++issued;
+    cp_async_commit();
+  };
+  for (int s = 0; s < NST - 1; ++s) issue();
+
+  float run[MT][NT][4];
+  float acc[MT][NT][4], acc_lo[MT][NT][4];
+  for (int s = 0; s < n_stages; ++s) {
+    const int ct = cons.ct;
+    const int steps = __ldg(h.ct_steps + ct);
+    const int step0 = __ldg(h.ct_step0 + ct);
+    cp_async_wait<NST - 2>();
+    __syncthreads();   // stage s is in; slot s - 1 is free
+    issue();
+    const int n_steps = min(kTcStageSteps, steps - kTcStageSteps * cons.q);
+    if (cons.q == 0) {
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) run[mi][ni][e] = 0.f;
+    }
+    // The stage's K rows in chunks of at most kKT, each into fresh
+    // accumulators.
+    for (int c0 = 0; c0 < n_steps; c0 += tc::kKT / 8) {
+      const int s0 = step0 + kTcStageSteps * cons.q + c0;
+      const float* stage = sB + (s % NST) * kTcStageFloats + c0 * 8 * tc::kBS;
+      const int n_chunk = min(tc::kKT / 8, n_steps - c0);
+      if constexpr (PRESPLIT)
+        tc::chunk_mma<MT, NT, true>(
+            acc, acc_lo,
+            tc::FragOrderA{reinterpret_cast<const float4*>(sAh),
+                           reinterpret_cast<const float4*>(sAl), kM16, s0,
+                           m0},
+            stage, n0, n_chunk);
+      else
+        tc::chunk_mma<MT, NT, true>(acc, acc_lo,
+                                    tc::SplitOnLoadA<SN>{sN, s0, m0}, stage,
+                                    n0, n_chunk);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            run[mi][ni][e] += acc[mi][ni][e] + acc_lo[mi][ni][e];
+    }
+    const int node = cons.node;
+    const bool tile_done = kTcStageSteps * (cons.q + 1) >= steps;
+    const bool node_done = tile_done && ct == h.n_ct - 1;
+    cons.advance(h.ct_steps, h.n_ct, kTcStageSteps);
+    if (!tile_done) continue;
+
+    // Epilogue of column tile ct: fragment element e of (mi, ni) is row
+    // (m0 + mi)*16 + g + 8*(e / 2), column n0 + ni*8 + 2t + e % 2.
+    if (!h.is_auto) {
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int b = (m0 + mi) * 16 + g + 8 * (e >> 1);
+            const int k = ct * tc::kCT + n0 + ni * 8 + 2 * t + (e & 1);
+            if (row0 + b < batch && k < h.n_xi)
+              out.xi[(size_t)(row0 + b) * out.stride +
+                     (size_t)node * h.n_xi + k] = run[mi][ni][e] / sTot[b];
+          }
+      continue;
+    }
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      const int c = ct * kSlots + wn * NT + ni;
+      const int k = __ldg(h.col_k + c);
+      const int i = __ldg(h.col_i0 + c) + 2 * t;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int b = (m0 + mi) * 16 + g + 8 * hh;
+          float v = sN[i * SN + b] * run[mi][ni][2 * hh];
+          v = fmaf(sN[(i + 1) * SN + b], run[mi][ni][2 * hh + 1], v);
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (t == 0 && k >= 0) sXi[b * h.n_xi + k] += v;
+        }
+    }
+    if (!node_done) continue;
+    __syncthreads();   // the node's statistics are complete
+    for (int item = tid; item < TB * h.n_xi; item += tc::kThreads) {
+      const int b = item / h.n_xi;
+      const int k = item - b * h.n_xi;
+      if (row0 + b < batch) {
+        const float tot = sTot[b];
+        out.xi[(size_t)(row0 + b) * out.stride + (size_t)node * h.n_xi + k] =
+            sXi[item] / (tot * tot);
+      }
+      sXi[item] = 0.f;
+    }
+    // The next node adds to sXi only after the __syncthreads() of its
+    // first stage.
+  }
+  if (out.total != nullptr && tid < TB && row0 + tid < batch)
+    out.total[row0 + tid] = sTot[tid];
+  __syncthreads();   // before the caller reuses sN, sAh, sAl, sXi and sTot
 }
 
 }  // namespace tabcorr

@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace tabcorr {
 namespace tc {
 
@@ -78,20 +80,9 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, a_hi, b_hi);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N));
-}
+using tabcorr::cp_async16;
+using tabcorr::cp_async_commit;
+using tabcorr::cp_async_wait;
 
 // Start copying rows [0, n_rows) x kCT columns of B (row stride `stride`
 // floats, 16-byte aligned) into the stage `dst` (row stride kBS).  Every

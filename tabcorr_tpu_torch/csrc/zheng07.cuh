@@ -33,6 +33,12 @@
 #include <math.h>
 
 namespace tabcorr {
+// The quadrature loops are unrolled by 4: the nodes' evaluations are
+// independent chains of ~50 dependent instructions, and four warps per
+// scheduler do not hide them (the occupation-bound 'efficient' Delta Sigma
+// grid: 15.1 -> 13.6 ms, the wp + xi_ell bundle 8.0 -> 7.9 ms, H100 80GB
+// HBM3 at 700 W).
+constexpr int kOccUnroll = 4;
 
 // Parameter columns: logMmin, sigma_logM, logM0, logM1, alpha, then (model
 // code 1) the central and satellite assembly-bias strengths.
@@ -149,6 +155,7 @@ __device__ void occupation_phase(const QuadArgs& q, int n_rows, int batch,
       const bool above = decorated && q.sec[(size_t)i * q.ng] >= h.edge;
       if (i < q.nc) {
         const float strength = sPar[6 * TB + b];
+#pragma unroll kOccUnroll
         for (int g = 0; g < q.ng; ++g) {
           const float centered = (lm[g] - log_mmin) + rs[g];
           float ncen = 0.5f * erfcf(-centered * inv_sigma);
@@ -158,6 +165,7 @@ __device__ void occupation_phase(const QuadArgs& q, int n_rows, int batch,
         }
       } else {
         const float strength = sPar[7 * TB + b];
+#pragma unroll kOccUnroll
         for (int g = 0; g < q.ng; ++g) {
           const float log_m = lm[g];
           const float ratio = fminf(exp10f(-log_m) * p10_m0, kRatioMax);

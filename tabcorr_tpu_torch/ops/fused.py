@@ -4,8 +4,8 @@ Ports of the four Pallas kernels of ``tabcorr_tpu/ops/fused.py``.  Every
 kernel has a plain version in tensor ops beside it; a wrapper runs the
 plain version for CPU tensors and launches the kernel (or raises) for
 CUDA tensors.  B1 and B3 compute in full float32 under both accuracy
-contracts ('elementwise', 'scaled'); B2 and B4 take the tensor cores
-under 'scaled' (below).
+contracts ('elementwise', 'scaled'); B2 and B4 take the tensor cores under
+'scaled' (below).
 
 The kernels that evaluate the occupation themselves (B1, B2, B4) take two
 models, chosen by :func:`kernel_model` on the model's exact type: zheng07
@@ -44,11 +44,17 @@ subclasses included, raises on CUDA; the plain versions take any model.
 
 B2 and B4 have a second kernel each for the 'scaled' contract, the
 counterpart of tabcorr_tpu's MXU pass classes: :func:`grid_tc_launch` and
-:func:`slab_tc_launch` run the same functions in 3xTF32 on the tensor
-cores (``csrc/tf32x3.cuh``; slab_tc over the block-triangular half of
-each node matrix, :func:`slab_tc_table_constants`).
-:func:`make_fused_grid_predictor` picks the kernel by the contract
-(:func:`grid_kernel_for`); the plain versions serve both tiers.
+:func:`slab_tc_launch` run the same functions in 3xTF32 on the tensor cores
+(``csrc/tf32x3.cuh``).  :func:`make_fused_grid_predictor` picks the kernel
+by the contract (:func:`grid_kernel_for`); the plain versions serve both
+tiers.  B1 has no such kernel: at the bundle's shapes the FP32 contraction
+is the faster and the more exact of the two, so it serves both contracts.
+
+On the card B1, B3 and both tiers of B4 read their matrices in one
+layout, the block-triangular half of each symmetric matrix
+(:class:`SlabTcTable`, a bundle table as one node; ``csrc/contract.cuh``);
+the dense layouts (:class:`BundleTable`, :class:`SlabTable`) serve the
+plain versions.
 """
 
 from __future__ import annotations
@@ -77,17 +83,16 @@ SLAB_TC_LAUNCHES = 0
 ACCURACY_CONTRACTS = ("elementwise", "scaled")
 
 # The CUDA sources of each library (one nvcc each); grid.cu and slab.cu
-# hold the _tc kernels too.
+# hold their _tc kernels too.
 KERNEL_SOURCES = {"bundle": ("bundle.cu",), "grid": ("grid.cu",),
                   "slab": ("slab.cu",)}
 
 # The models the kernels evaluate, by model code (csrc/zheng07.cuh).
 KERNEL_MODELS = (Zheng07Model, AssembiasZheng07Model)
 
-# Tile geometry of csrc/contract.cuh and csrc/grid.cu: the contraction
-# stages its matrix in chunks of _KT rows and _CT columns, and each thread
-# owns 4 consecutive columns.
-_TB = 64
+# Tile geometry of csrc/grid.cu and of the dense layouts: the matrix is
+# staged in chunks of _KT rows and _CT columns, and each thread owns 4
+# consecutive columns.
 _KT = 32
 _CT = 128
 _MAX_TABLES = 4
@@ -102,15 +107,21 @@ _OCC_CHUNK = 32768
 # Batch rows per block the grid kernel may take, largest first.
 _GRID_BLOCK_ROWS = (64, 32)
 # Tile geometry of csrc/tf32x3.cuh: a staged B tile is _KT (grid_tc) or
-# 64 (slab_tc) rows of _CT columns at a row stride of _TC_BS floats; the
-# cp.async ring stages of grid_tc (by block rows) and slab_tc.
+# 64 (contract.cuh's contract_tc) rows of _CT columns at a row stride of
+# _TC_BS floats; the cp.async ring stages of grid_tc (by block rows) and
+# of both tiers of contract.cuh.
 _TC_BS = _CT + 8
 _GRID_TC_STAGES = {64: 3, 32: 2, 16: 2}
-_SLAB_TC_STAGES = 2
-_SLAB_TC_STAGE_ROWS = 64
-# slab_tc's blocks, first choice first: (rows, densities split once per
-# block); the fallback splits each fragment as it is loaded.
-_SLAB_TC_CONFIGS = ((64, True), (32, False))
+_RING_STAGES = 2
+_TC_STAGE_ROWS = 64
+# The blocks of slab_tc, first choice first: (rows, densities split once
+# per block); the fallback splits each fragment as it is loaded.
+_TC_CONFIGS = ((64, True), (32, False))
+# The FP32 contraction (bundle, contraction, slab): rows per block, and the
+# K steps of 8 rows per ring stage, first choice first; the second is the
+# smaller ring, where the first does not fit in shared memory.
+_FP32_ROWS = 64
+_FP32_STAGE_STEPS = (4, 2)
 # Bin-tile width of slab_tc's block-triangular layout, and the n8 column
 # tiles of one warp in its column tiles (csrc/slab.cu: 16 warps, 2 x 8).
 SLAB_TC_WIDTH = 8
@@ -252,16 +263,16 @@ def check_accuracy(accuracy, n_tables):
 # ----------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class BundleTable:
-    """Host-built constants of one table, as float32 tensors on one device.
+    """Host-built constants of one table for the plain versions of the
+    bundle and contraction kernels, as tensors on one device (the kernels
+    read a one-node :class:`SlabTcTable`).
 
     ``logm``, ``logm_res``, ``sec`` and ``weight`` hold the quadrature
     nodes per bin (n_bins, n_gauss): float32 node, its float64 residual,
-    secondary percentile, and quad_weight * n_h.  ``f_t`` is the matrix in
-    the kernels' layout (k_pad, c_pad), zero-padded:
-
-    * auto:  ``f_t[j, k * nbp + i] = F[k, i, j]``, with ``nbp`` the bin
-      count rounded up to 4, so each thread's 4 columns share one k;
-    * cross: ``f_t[j, k] = F[k, j]``.
+    secondary percentile, and quad_weight * n_h.  ``f_t`` is the dense
+    matrix (k_pad, c_pad) float32, zero-padded: auto ``f_t[j, k * nbp + i]
+    = F[k, i, j]``, with ``nbp`` the bin count rounded up to 4; cross
+    ``f_t[j, k] = F[k, j]``.
     """
 
     auto: bool
@@ -291,8 +302,8 @@ class BundleTable:
 
 def _contraction_matrices(dense, auto):
     """The matrices ``dense`` (n, n_xi, nb, nb) (auto) or (n, n_xi, nb)
-    (cross) in the contraction layout of csrc/contract.cuh, float32,
-    zero-padded to (n, k_pad, c_pad): ``f_t[m, j, k * nbp + i] =
+    (cross) in the dense contraction layout of the plain versions,
+    float32, zero-padded to (n, k_pad, c_pad): ``f_t[m, j, k * nbp + i] =
     F_m[k, i, j]`` (auto) or ``f_t[m, j, k] = F_m[k, j]`` (cross).
     Returns (f_t, nbp)."""
     n, n_xi, nb = dense.shape[:3]
@@ -310,11 +321,13 @@ def _contraction_matrices(dense, auto):
 
 
 def bundle_table_constants(table: TableData) -> BundleTable:
-    """Per-table constants (port of ``_quad_segment_constants`` and the
-    table part of ``_bundle_table_constants``)."""
+    """Per-table constants of the plain versions (port of
+    ``_quad_segment_constants`` and the table part of
+    ``_bundle_table_constants``)."""
+    auto = table.mode == AUTO
     dense = table.tpcf_dense.cpu().numpy().astype(np.float32)
-    f_t, nbp = _contraction_matrices(dense[None], table.mode == AUTO)
-    return BundleTable(auto=table.mode == AUTO, n_bins=table.n_bins,
+    f_t, nbp = _contraction_matrices(dense[None], auto)
+    return BundleTable(auto=auto, n_bins=table.n_bins,
                        n_centrals=table.n_centrals, n_xi=dense.shape[0],
                        nbp=nbp, tpcf_shape=tuple(table.tpcf_shape),
                        f_t=_tensor(f_t[0], table.n_h.device),
@@ -365,41 +378,73 @@ def _bundle_lib():
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.tabcorr_bundle.argtypes = [vp, i, i, i, ctypes.c_double, i,
                                    ctypes.POINTER(vp), ctypes.POINTER(i), i,
-                                   vp]
-    lib.tabcorr_contraction.argtypes = [vp, i, vp, vp, vp] + [i] * 7 + [vp]
+                                   i, vp]
+    lib.tabcorr_contraction.argtypes = ([vp, i] + [vp] * 6 + [i] * 5 +
+                                        [vp, vp, i, vp])
     lib.tabcorr_bundle.restype = lib.tabcorr_contraction.restype = i
     lib.tabcorr_cuda_error_string.argtypes = [i]
     lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _contract_smem_bytes(k_pad, n_xi) -> int:
-    """Dynamic shared memory of one block of the kernels built on
-    csrc/contract.cuh (the layout ``smem_floats`` carves)."""
-    return 4 * (k_pad * _TB + _KT * _CT + _TB * (_CT // 4) + _TB * n_xi +
-                _ROW_TERMS * _TB)
+def _fp32_smem_bytes(stage_steps, n_bins, n_xi) -> int:
+    """Dynamic shared memory of one block of the FP32 kernels built on
+    csrc/contract.cuh with ring stages of ``stage_steps`` K steps (the
+    layout ``fp32_smem_floats`` sizes)."""
+    return 4 * (_round_up(n_bins, 8) * _FP32_ROWS +
+                _RING_STAGES * stage_steps * 8 * _CT + _FP32_ROWS * n_xi +
+                _ROW_TERMS * _FP32_ROWS)
 
 
-def _smem_bytes(consts) -> int:
-    """Dynamic shared memory of one block of csrc/bundle.cu's kernels for
-    these tables."""
-    return _contract_smem_bytes(max(c.k_pad for c in consts),
-                                max(c.n_xi for c in consts))
+def fp32_stage_steps(n_bins, n_xi):
+    """K steps per ring stage of the FP32 contraction kernels (bundle,
+    contraction, slab) for tables of at most ``n_bins`` bins and ``n_xi``
+    statistics: the first of ``_FP32_STAGE_STEPS`` whose block fits in
+    shared memory; None where none fits."""
+    for stage_steps in _FP32_STAGE_STEPS:
+        if _fp32_smem_bytes(stage_steps, n_bins, n_xi) <= _SMEM_LIMIT:
+            return stage_steps
+    return None
 
 
-def _check_smem(smem):
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"tables too large for the kernel's shared memory "
-                         f"({smem} > {_SMEM_LIMIT} bytes).")
+def _check_smem(block, what):
+    if block is None:
+        raise ValueError(f"tables too large for the {what} kernel's shared "
+                         f"memory ({_SMEM_LIMIT} bytes a block).")
+    return block
 
 
 def contraction_fits(n_bins, n_xi) -> bool:
     """Whether the contraction kernel takes a table of this shape."""
-    return _contract_smem_bytes(_round_up(n_bins, _KT), n_xi) <= _SMEM_LIMIT
+    return fp32_stage_steps(n_bins, n_xi) is not None
+
+
+def _half_arrays(h: SlabTcTable):
+    return (h.b, h.ct_step0, h.ct_steps, h.ct_off, h.col_k, h.col_i0)
+
+
+def _check_half(h, device, what, n_nodes=None):
+    """Raise unless ``h`` is the kernels' layout on ``device`` (of
+    ``n_nodes`` nodes, where given)."""
+    if not isinstance(h, SlabTcTable):
+        raise ValueError(f"the {what} kernel reads the half layout "
+                         "(slab_tc_table_constants).")
+    if n_nodes is not None and h.n_nodes != n_nodes:
+        raise ValueError(f"the {what} kernel takes tables of {n_nodes} node.")
+    for a in (h.logm, h.logm_res, h.sec, h.weight, h.b):
+        _check_tensor(a, device, torch.float32, f"{what} constants")
+    for a in _half_arrays(h)[1:]:
+        _check_tensor(a, device, torch.int32, f"{what} column tables")
+
+
+def _stream_args(device):
+    return device.index, torch.cuda.current_stream(device).cuda_stream
 
 
 def bundle_launch(consts, pmat, hod=KernelModel()):
-    """Launch the CUDA bundle kernel once for every table in ``consts``.
+    """Launch the CUDA bundle kernel (FP32) once for every table in
+    ``consts``, each a one-node :class:`SlabTcTable`
+    (``slab_tc_table_constants(table, 1)``).
 
     ``pmat`` is the float32 parameter matrix of the model ``hod`` (zheng07
     by default), one column per name of ``hod.param_names``, on the
@@ -407,68 +452,71 @@ def bundle_launch(consts, pmat, hod=KernelModel()):
     Raises on any input the kernel does not take and on any launch error.
     """
     global BUNDLE_LAUNCHES
-    _check_params(pmat, hod)
     if not 1 <= len(consts) <= _MAX_TABLES:
         raise ValueError(f"the kernel takes 1 to {_MAX_TABLES} tables.")
-    _check_smem(_smem_bytes(consts))
+    _check_params(pmat, hod)
     batch = pmat.shape[0]
     device = pmat.device
+    for h in consts:
+        _check_half(h, device, "bundle", n_nodes=1)
     ptrs, dims, outs = [], [], []
-    for c in consts:
-        arrays = (c.logm, c.logm_res, c.sec, c.weight, c.f_t)
-        for a in arrays:
-            _check_tensor(a, device, torch.float32, "table constants")
+    for h in consts:
         total = torch.empty(batch, device=device, dtype=torch.float32)
-        xi = torch.empty((batch, c.n_xi), device=device, dtype=torch.float32)
+        xi = torch.empty((batch, h.n_xi), device=device, dtype=torch.float32)
         outs.append((total, xi))
-        ptrs += [a.data_ptr() for a in arrays] + [total.data_ptr(),
-                                                  xi.data_ptr()]
-        dims += [c.n_bins, c.n_centrals, c.n_gauss, c.n_xi, c.nbp, c.k_pad,
-                 c.c_pad, int(c.auto)]
+        ptrs += [a.data_ptr() for a in (h.logm, h.logm_res, h.sec, h.weight,
+                                        *_half_arrays(h), total, xi)]
+        dims += [h.n_bins, h.n_centrals, h.n_gauss, h.n_xi, h.n_ct,
+                 int(h.auto)]
+    stage_steps = _check_smem(
+        fp32_stage_steps(max(h.n_bins for h in consts),
+                         max(h.n_xi for h in consts)), "bundle")
     lib = _bundle_lib()
-    stream = torch.cuda.current_stream(device).cuda_stream
     code = lib.tabcorr_bundle(
         pmat.data_ptr(), batch, *hod.launch_args(), len(consts),
         (ctypes.c_void_p * len(ptrs))(*ptrs),
-        (ctypes.c_int * len(dims))(*dims), device.index, stream)
+        (ctypes.c_int * len(dims))(*dims), stage_steps,
+        *_stream_args(device))
     _raise_on_error(code, "bundle", lib.tabcorr_cuda_error_string)
     BUNDLE_LAUNCHES += 1
     return outs
 
 
-def contraction_launch(c: BundleTable, ngal):
+def contraction_launch(h: SlabTcTable, ngal):
     """Launch the CUDA contraction kernel on ngal (B, n_bins) float32 on
-    the table's CUDA device.  Returns (total (B,), xi (B, n_xi)); raises
-    on any input the kernel does not take and on any launch error."""
+    the CUDA device of the one-node table ``h``.  Returns (total (B,), xi
+    (B, n_xi)); raises on any input the kernel does not take and on any
+    launch error."""
     global CONTRACTION_LAUNCHES
     if not ngal.is_cuda:
         raise ValueError("contraction_launch needs CUDA tensors.")
-    if ngal.dim() != 2 or ngal.shape[1] != c.n_bins:
-        raise ValueError(f"ngal must be (B, {c.n_bins}), got "
+    _check_half(h, ngal.device, "contraction", n_nodes=1)
+    if ngal.dim() != 2 or ngal.shape[1] != h.n_bins:
+        raise ValueError(f"ngal must be (B, {h.n_bins}), got "
                          f"{tuple(ngal.shape)}.")
-    _check_tensor(ngal, c.f_t.device, torch.float32, "ngal")
-    _check_smem(_smem_bytes([c]))
+    _check_tensor(ngal, h.b.device, torch.float32, "ngal")
+    stage_steps = _check_smem(fp32_stage_steps(h.n_bins, h.n_xi),
+                              "contraction")
     batch = ngal.shape[0]
     if batch >= 2 ** 31:
         raise ValueError("batch too large.")
     device = ngal.device
     total = torch.empty(batch, device=device, dtype=torch.float32)
-    xi = torch.empty((batch, c.n_xi), device=device, dtype=torch.float32)
+    xi = torch.empty((batch, h.n_xi), device=device, dtype=torch.float32)
     lib = _bundle_lib()
     code = lib.tabcorr_contraction(
-        ngal.data_ptr(), batch, c.f_t.data_ptr(), total.data_ptr(),
-        xi.data_ptr(), c.n_bins, c.n_xi, c.nbp, c.k_pad, c.c_pad,
-        int(c.auto), device.index,
-        torch.cuda.current_stream(device).cuda_stream)
+        ngal.data_ptr(), batch, *(a.data_ptr() for a in _half_arrays(h)),
+        h.n_ct, h.n_bins, h.n_xi, int(h.auto), stage_steps,
+        total.data_ptr(), xi.data_ptr(), *_stream_args(device))
     _raise_on_error(code, "contraction", lib.tabcorr_cuda_error_string)
     CONTRACTION_LAUNCHES += 1
     return total, xi
 
 
-def shaped(consts, results):
+def shaped(tables, results):
     """Reshape each table's flat xi to (B, *tpcf_shape)."""
-    return [(total, xi.reshape((xi.shape[0],) + c.tpcf_shape))
-            for c, (total, xi) in zip(consts, results)]
+    return [(total, xi.reshape((xi.shape[0],) + tuple(t.tpcf_shape)))
+            for t, (total, xi) in zip(tables, results)]
 
 
 def make_fused_bundle_predictor(tables, model, accuracy=None):
@@ -485,7 +533,9 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
         (plain version).
     accuracy : sequence of str, optional
         One contract per table, 'elementwise' (default) or 'scaled'.  Both
-        run at full float32 precision.
+        run at full float32 precision, which meets the stricter of the two:
+        at the bundle's shapes a 3xTF32 tensor-core contraction was slower
+        and less exact than the FP32 one.
 
     Returns
     -------
@@ -495,12 +545,18 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
         version for CPU tensors.
     """
     check_accuracy(accuracy, len(tables))
-    consts = [bundle_table_constants(t) for t in tables]
-    device = consts[0].logm.device
-    if any(c.logm.device != device for c in consts):
+    device = tables[0].n_h.device
+    if any(t.n_h.device != device for t in tables):
         raise ValueError("all tables must be on one device.")
     hod = _kernel_model_on(device, model)
     occ_cen, occ_sat = occupation_functions(model)
+    if device.type == "cuda":
+        _check_smem(fp32_stage_steps(
+            max(t.n_bins for t in tables),
+            max(t.tpcf_dense.shape[0] for t in tables)), "bundle")
+        consts = [slab_tc_table_constants(t, 1) for t in tables]
+    else:
+        consts = [bundle_table_constants(t) for t in tables]
 
     def predict_batch(params):
         _check_params_device(params, device)
@@ -508,7 +564,7 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
             results = bundle_predict_plain(consts, params, occ_cen, occ_sat)
         else:
             results = bundle_launch(consts, _param_matrix(params, hod), hod)
-        return shaped(consts, results)
+        return shaped(tables, results)
 
     return predict_batch
 
@@ -532,16 +588,13 @@ def _param_matrix(params, hod: KernelModel):
 def make_fused_contraction(table: TableData, accuracy="elementwise"):
     """Fused contraction ``ngal (B, n_bins) -> (total (B,), xi (B,
     n_xi))`` for one float32 table: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors.  Full FP32 under both contracts."""
     check_accuracy([accuracy], 1)
-    c = bundle_table_constants(table)
-
-    def contract(ngal):
-        if ngal.device.type == "cpu":
-            return contraction_plain(c, ngal)
-        return contraction_launch(c, ngal)
-
-    return contract
+    if table.n_h.device.type == "cuda":
+        half = slab_tc_table_constants(table, 1)
+        return lambda ngal: contraction_launch(half, ngal)
+    dense = bundle_table_constants(table)
+    return lambda ngal: contraction_plain(dense, ngal)
 
 
 def occupation_density(table: TableData, model, params):
@@ -849,7 +902,8 @@ def grid_tc_launch(g: GridTable, pmat, node_weights=None,
 @dataclasses.dataclass(frozen=True)
 class SlabTable:
     """Host-built constants of a stacked Interpolator grid (one halo
-    binning) for the slab kernel, as float32 tensors on one device.
+    binning) for the slab kernels' plain version, as float32 tensors on
+    one device.
 
     ``logm``, ``logm_res``, ``sec`` and ``weight`` are the quadrature as in
     :class:`BundleTable`; ``f_t`` (n_nodes, k_pad, c_pad) holds every
@@ -931,23 +985,42 @@ def slab_predict_plain(s: SlabTable, params, occupation_cen, occupation_sat):
 
 @functools.cache
 def _slab_lib():
-    """Build (first call only) and bind the entry point of slab.cu."""
+    """Build (first call only) and bind the entry points of slab.cu."""
     lib = load_library("slab", KERNEL_SOURCES["slab"])
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.tabcorr_slab.argtypes = ([vp, i, i, i, ctypes.c_double, vp, vp, vp,
-                                  vp, i, i, i, vp] + [i] * 6 +
-                                 [vp, vp, i, vp])
-    lib.tabcorr_slab_tc.argtypes = ([vp, i, i, i, ctypes.c_double, vp, vp,
-                                     vp, vp, i, i, i, vp, ctypes.c_longlong]
-                                    + [vp] * 5 + [i] * 6 + [vp, vp, i, vp])
+    table = ([vp, i, i, i, ctypes.c_double, vp, vp, vp, vp, i, i, i, vp,
+              ctypes.c_longlong] + [vp] * 5 + [i] * 4)
+    lib.tabcorr_slab.argtypes = table + [i, vp, vp, i, vp]
+    lib.tabcorr_slab_tc.argtypes = table + [i, i, vp, vp, i, vp]
     lib.tabcorr_slab.restype = lib.tabcorr_slab_tc.restype = i
     lib.tabcorr_cuda_error_string.argtypes = [i]
     lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def slab_launch(s: SlabTable, pmat, hod=KernelModel()):
-    """Launch the CUDA slab kernel once.
+def _slab_entry_args(s: SlabTcTable, pmat, hod, block, what):
+    """The arguments of slab.cu's entry points (``block``: the ring stage
+    of slab, the rows and the split of slab_tc) and the allocated outputs
+    (total (B,), xi (B, n_nodes, n_xi))."""
+    _check_params(pmat, hod)
+    device = pmat.device
+    _check_half(s, device, what)
+    batch = pmat.shape[0]
+    total = torch.empty(batch, device=device, dtype=torch.float32)
+    xi = torch.empty((batch, s.n_nodes, s.n_xi), device=device,
+                     dtype=torch.float32)
+    args = (pmat.data_ptr(), batch, *hod.launch_args(), s.logm.data_ptr(),
+            s.logm_res.data_ptr(), s.sec.data_ptr(), s.weight.data_ptr(),
+            s.n_bins, s.n_centrals, s.n_gauss, s.b.data_ptr(), s.node_stride,
+            *(a.data_ptr() for a in _half_arrays(s)[1:]), s.n_ct, s.n_nodes,
+            s.n_xi, int(s.auto), *map(int, block), total.data_ptr(),
+            xi.data_ptr(), *_stream_args(device))
+    return args, (total, xi)
+
+
+def slab_launch(s: SlabTcTable, pmat, hod=KernelModel()):
+    """Launch the CUDA slab kernel (FP32) once, over the block-triangular
+    half of each node matrix (the constants of slab_tc).
 
     ``pmat`` is the float32 parameter matrix of the model ``hod`` (zheng07
     by default; see :func:`bundle_launch`) on the grid's CUDA device.
@@ -955,38 +1028,28 @@ def slab_launch(s: SlabTable, pmat, hod=KernelModel()):
     kernel does not take and on any launch error.
     """
     global SLAB_LAUNCHES
-    _check_params(pmat, hod)
-    device = pmat.device
-    for a in (s.logm, s.logm_res, s.sec, s.weight, s.f_t):
-        _check_tensor(a, device, torch.float32, "slab constants")
-    _check_smem(_contract_smem_bytes(s.k_pad, s.n_xi))
-    batch = pmat.shape[0]
-    total = torch.empty(batch, device=device, dtype=torch.float32)
-    xi = torch.empty((batch, s.n_nodes, s.n_xi), device=device,
-                     dtype=torch.float32)
+    stage_steps = _check_smem(fp32_stage_steps(s.n_bins, s.n_xi), "slab")
+    args, outs = _slab_entry_args(s, pmat, hod, (stage_steps,), "slab")
     lib = _slab_lib()
-    code = lib.tabcorr_slab(
-        pmat.data_ptr(), batch, *hod.launch_args(), s.logm.data_ptr(),
-        s.logm_res.data_ptr(), s.sec.data_ptr(), s.weight.data_ptr(),
-        s.n_bins, s.n_centrals, s.n_gauss, s.f_t.data_ptr(), s.n_nodes,
-        s.n_xi, s.nbp, s.k_pad, s.c_pad, int(s.auto), total.data_ptr(),
-        xi.data_ptr(), device.index,
-        torch.cuda.current_stream(device).cuda_stream)
+    code = lib.tabcorr_slab(*args)
     _raise_on_error(code, "slab", lib.tabcorr_cuda_error_string)
     SLAB_LAUNCHES += 1
-    return total, xi
+    return outs
 
 
 # ----------------------------------------------------------------------
-# slab_tc: B4 on the tensor cores ('scaled' tier), symmetric half
+# The block-triangular half layout of contract.cuh, and slab_tc: B4 on
+# the tensor cores ('scaled' tier)
 # ----------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class SlabTcTable:
-    """Host-built constants of a stacked Interpolator grid for the slab_tc
-    kernel (csrc/slab.cu), as tensors on one device.
+    """Host-built constants of a stacked Interpolator grid for the slab and
+    slab_tc kernels (csrc/slab.cu), and of one table (``n_nodes`` = 1) for
+    the bundle and contraction kernels (csrc/bundle.cu), as tensors on one
+    device.
 
     ``logm``, ``logm_res``, ``sec`` and ``weight`` are the quadrature as in
-    :class:`BundleTable`.  ``b`` (n_nodes, node_stride) float32 holds each
+    :class:`BundleTable` (the contraction kernel reads none of them).  ``b`` (n_nodes, node_stride) float32 holds each
     node's GEMM operand as column tiles of 128 columns, tile ``ct`` a
     row-major (8 * ct_steps[ct], 128) block at ``ct_off[ct]`` covering the
     rows j from ``8 * ct_step0[ct]`` (see :func:`slab_tc_table_constants`
@@ -1071,7 +1134,8 @@ def _slab_tc_columns(nb, n_xi, auto, width):
 
 def slab_tc_table_constants(table: TableData, n_nodes,
                             width=SLAB_TC_WIDTH) -> SlabTcTable:
-    """Constants of the stacked grid ``table`` for the slab_tc kernel.
+    """Constants of the stacked grid ``table`` for the kernels built on
+    csrc/contract.cuh (slab, slab_tc, bundle, contraction).
 
     Auto mode, the block-triangular half: the bins are cut into tiles of
     ``width`` (a multiple of 8); the columns are grouped by bin tile I as
@@ -1130,68 +1194,45 @@ def slab_tc_table_constants(table: TableData, n_nodes,
         **_quadrature_arrays(table))
 
 
-def _slab_tc_smem_bytes(tb, presplit, n_bins, n_xi) -> int:
-    """Dynamic shared memory of one block of csrc/slab.cu's slab_tc kernel
-    with ``tb`` rows (the layout ``SlabTc::smem_floats`` carves)."""
-    nb8 = _round_up(n_bins, 8)
-    return 4 * (nb8 * (tb + 4) + (2 * nb8 * tb if presplit else 0) +
-                _SLAB_TC_STAGES * _SLAB_TC_STAGE_ROWS * _TC_BS + tb * n_xi +
+def _tc_smem_bytes(tb, presplit, n_bins, n_xi) -> int:
+    """Dynamic shared memory of one block of slab_tc with ``tb`` rows (the
+    layout ``TcBlock::smem_floats`` sizes)."""
+    return 4 * (_round_up(n_bins, 8) * (tb + 4 + (2 * tb if presplit else 0))
+                + _RING_STAGES * _TC_STAGE_ROWS * _TC_BS + tb * n_xi +
                 _ROW_TERMS * tb)
 
 
 def slab_tc_config(n_bins, n_xi):
     """(rows per block, densities split once per block) of the slab_tc
-    kernel: the first of ``_SLAB_TC_CONFIGS`` whose block fits in shared
+    kernel: the first of ``_TC_CONFIGS`` whose block fits in shared
     memory; None where none fits, which is never where the slab kernel's
     does."""
-    for tb, presplit in _SLAB_TC_CONFIGS:
-        if _slab_tc_smem_bytes(tb, presplit, n_bins, n_xi) <= _SMEM_LIMIT:
+    for tb, presplit in _TC_CONFIGS:
+        if _tc_smem_bytes(tb, presplit, n_bins, n_xi) <= _SMEM_LIMIT:
             return tb, presplit
     return None
 
 
 def slab_tc_launch(s: SlabTcTable, pmat, hod=KernelModel()):
     """Launch the slab_tc kernel once: :func:`slab_launch`'s function, in
-    3xTF32 on the tensor cores (the 'scaled' tier), over the
-    block-triangular half of each node matrix.  Returns (total (B,), xi
-    (B, n_nodes, n_xi)).  Raises on any input the kernel does not take and
-    on any launch error."""
+    3xTF32 on the tensor cores (the 'scaled' tier), from the same
+    constants.  Returns (total (B,), xi (B, n_nodes, n_xi)).  Raises on
+    any input the kernel does not take and on any launch error."""
     global SLAB_TC_LAUNCHES
-    _check_params(pmat, hod)
-    device = pmat.device
-    for a in (s.logm, s.logm_res, s.sec, s.weight, s.b):
-        _check_tensor(a, device, torch.float32, "slab_tc constants")
-    for a in (s.ct_step0, s.ct_steps, s.ct_off, s.col_k, s.col_i0):
-        _check_tensor(a, device, torch.int32, "slab_tc column tables")
-    block = slab_tc_config(s.n_bins, s.n_xi)
-    if block is None:
-        raise ValueError(f"{s.n_bins} bins are too many for the slab_tc "
-                         "kernel's shared memory (the densities and the "
-                         "cp.async ring).")
-    batch = pmat.shape[0]
-    total = torch.empty(batch, device=device, dtype=torch.float32)
-    xi = torch.empty((batch, s.n_nodes, s.n_xi), device=device,
-                     dtype=torch.float32)
+    block = _check_smem(slab_tc_config(s.n_bins, s.n_xi), "slab_tc")
+    args, outs = _slab_entry_args(s, pmat, hod, block, "slab_tc")
     lib = _slab_lib()
-    code = lib.tabcorr_slab_tc(
-        pmat.data_ptr(), batch, *hod.launch_args(), s.logm.data_ptr(),
-        s.logm_res.data_ptr(), s.sec.data_ptr(), s.weight.data_ptr(),
-        s.n_bins, s.n_centrals, s.n_gauss, s.b.data_ptr(), s.node_stride,
-        s.ct_step0.data_ptr(), s.ct_steps.data_ptr(), s.ct_off.data_ptr(),
-        s.col_k.data_ptr(), s.col_i0.data_ptr(), s.n_ct,
-        s.n_nodes, s.n_xi, int(s.auto), *map(int, block), total.data_ptr(),
-        xi.data_ptr(), device.index,
-        torch.cuda.current_stream(device).cuda_stream)
+    code = lib.tabcorr_slab_tc(*args)
     _raise_on_error(code, "slab_tc", lib.tabcorr_cuda_error_string)
     SLAB_TC_LAUNCHES += 1
-    return total, xi
+    return outs
 
 
 def grid_kernel_takes(n_bins, mode, n_xi) -> bool:
     """Whether the kernel of the layout 'auto' picks takes a grid of this
     shape: the grid kernel for 'packed', the slab kernel for 'slab' (it
-    carves the contraction kernel's shared memory, so it takes one node's
-    shape where that kernel does).  The 'scaled' tier's grid_tc and
+    runs the contraction kernel's blocks, so it takes one node's shape
+    where that kernel does).  The 'scaled' tier's grid_tc and
     slab_tc take every shape their FP32 twins take (grid_tc_config,
     slab_tc_config), so the answer holds for both tiers."""
     if _grid_layout(n_bins, mode) == "packed":
@@ -1216,12 +1257,13 @@ def grid_constants(table: TableData, n_nodes, layout, accuracy,
                    device_type):
     """The constants :func:`make_fused_grid_predictor` builds: for the
     packed layout the :class:`GridTable` (every route); for the slab
-    layout the :class:`SlabTcTable` where slab_tc runs (CUDA, 'scaled'),
-    else the dense :class:`SlabTable` (the slab kernel and the plain
+    layout the :class:`SlabTcTable` on CUDA (both tiers' kernels read the
+    block-triangular half), else the dense :class:`SlabTable` (the plain
     version), never both."""
+    check_accuracy([accuracy], 1)
     if layout == "packed":
         return grid_table_constants(table, n_nodes)
-    if device_type == "cuda" and accuracy == "scaled":
+    if device_type == "cuda":
         return slab_tc_table_constants(table, n_nodes)
     return slab_table_constants(table, n_nodes)
 

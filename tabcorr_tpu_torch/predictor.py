@@ -312,7 +312,8 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
         Fused-engine contract, 'elementwise' or 'scaled'.  An
         Interpolator's 'scaled' route runs the 3xTF32 tensor-core grid
         kernels (``ops.fused.grid_kernel_for``); everything else runs at
-        full float32 precision.
+        full float32 precision (a TabCorr's contraction kernel under both
+        contracts).
     device : str or torch.device, optional
         Where the tables live and the batch runs: 'cuda' (default) or
         'cpu'.

@@ -1,5 +1,5 @@
-"""The CUDA kernels (bundle, contraction, grid, slab) against their plain
-PyTorch versions, for zheng07 and the assembly-bias decorated model.
+"""The CUDA kernels (bundle, contraction, grid, grid_tc, slab, slab_tc) against their plain PyTorch versions, for zheng07 and the
+assembly-bias decorated model.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a GPU machine without JAX it runs on its own:
@@ -134,7 +134,7 @@ def test_kernel_matches_plain_on_odd_shapes(cuda, modulate, kind):
 
 def test_kernel_wrapper_rejects_bad_inputs(cuda):
     table = _synthetic_table("auto", 37, 17, 5, 2, cuda)
-    consts = [fused.bundle_table_constants(table)]
+    consts = [fused.slab_tc_table_constants(table, 1)]
     pmat = torch.ones((8, 5), device=cuda)
     with pytest.raises(ValueError):
         fused.bundle_launch(consts, pmat.double())
@@ -189,14 +189,21 @@ def test_fused_tabcorr_predictor_runs_the_contraction_kernel(cuda):
 def test_contraction_wrapper_rejects_bad_inputs(cuda):
     table = _synthetic_table("auto", 37, 17, 5, 2, cuda)
     contract = fused.make_fused_contraction(table)
-    consts = fused.bundle_table_constants(table)
     ngal = torch.ones((8, 37), device=cuda)
     with pytest.raises(ValueError):
         contract(ngal.double())
     with pytest.raises(ValueError):
         contract(ngal[:, :36].contiguous())
     with pytest.raises(ValueError):
-        fused.contraction_launch(consts, ngal.cpu())
+        contract(ngal.cpu())
+    # The kernel reads the half layout of one node, not the plain version's
+    # dense one.
+    with pytest.raises(ValueError, match="half layout"):
+        fused.contraction_launch(fused.bundle_table_constants(table), ngal)
+    grid = _grid_table(2, 12, 2, 7, "auto", 13, cuda)
+    with pytest.raises(ValueError, match="1 node"):
+        fused.contraction_launch(fused.slab_tc_table_constants(grid, 2),
+                                 torch.ones((8, grid.n_bins), device=cuda))
 
 
 # ----------------------------------------------------------------------
@@ -421,8 +428,12 @@ def test_wide_interpolator_runs_the_slab_kernel(cuda):
 
 def test_slab_wrapper_rejects_bad_inputs(cuda):
     table = _grid_table(3, 8, 1, 3, "auto", 1, cuda)
-    s = fused.slab_table_constants(table, 3)
+    s = fused.slab_tc_table_constants(table, 3)
     pmat = torch.ones((8, 5), device=cuda)
+    with pytest.raises(ValueError, match="half layout"):
+        fused.slab_launch(fused.slab_table_constants(table, 3), pmat)
+    with pytest.raises(RuntimeError, match="slab kernel launch failed"):
+        fused.slab_launch(dataclasses.replace(s, n_nodes=0), pmat)
     with pytest.raises(ValueError):
         fused.slab_launch(s, pmat.double())
     with pytest.raises(ValueError):
@@ -649,22 +660,30 @@ def test_both_tiers_per_element_error_by_cancellation(cuda, mode, layout):
     want = (fused.slab_predict_plain(plain, params, *occ) if layout == "slab"
             else fused.grid_predict_plain(plain, params, None, *occ))[1]
     want = want.double().cpu().numpy().reshape(batch, -1)
+    # The truth: the float64 contraction of the same float32 densities.
+    # Both tiers' kernels evaluate the occupation with the same code, so
+    # what the densities add to this error is the same for both.
+    tot = n.sum(axis=1, keepdims=True)
+    truth = total / (tot * tot if mode == "auto" else tot)
     edges = (1, 2, 5, 10, 30)
-    maxima = {}
+    maxima, maxima64 = {}, {}
     for accuracy in ("elementwise", "scaled"):
         predict = fused.make_fused_grid_predictor(table, 1, model,
                                                   accuracy=accuracy,
                                                   layout=layout)
         got = predict(params)[1].double().cpu().numpy().reshape(batch, -1)
-        rel = np.abs(got - want) / np.abs(want)
         bins = [(kappa >= lo) & (kappa < hi)
                 for lo, hi in zip(edges[:-1], edges[1:])]
-        maxima[accuracy] = [float(rel[b].max()) if b.any() else np.nan
-                            for b in bins]
-    print(f"\n{mode} {layout}, max per-element relative error for kappa in "
-          f"{list(zip(edges[:-1], edges[1:]))}: " +
-          "; ".join(f"{a} {', '.join(f'{e:.3e}' for e in m)}"
-                    for a, m in maxima.items()))
+        for ref, into in ((want, maxima), (truth, maxima64)):
+            rel = np.abs(got - ref) / np.abs(ref)
+            into[accuracy] = [float(rel[b].max()) if b.any() else np.nan
+                              for b in bins]
+    for what, table_of in (("the plain version", maxima),
+                           ("float64 of the float32 densities", maxima64)):
+        print(f"\n{mode} {layout}, max per-element relative error against "
+              f"{what} for kappa in {list(zip(edges[:-1], edges[1:]))}: " +
+              "; ".join(f"{a} {', '.join(f'{e:.3e}' for e in m)}"
+                        for a, m in table_of.items()))
     for accuracy, m in maxima.items():
         assert max(m[:2]) <= 1e-6, (accuracy, m)
 
@@ -701,3 +720,166 @@ def test_fused_interpolator_launches_the_tiers_kernels(cuda, accuracy,
     grew = [getattr(fused, n) - b for n, b in zip(names, before)]
     assert grew == ([0, 1] if accuracy == "scaled" else [1, 0])
     _assert_grid_close(got, plain(params))
+
+
+# ----------------------------------------------------------------------
+# The FP32 contraction's blocks, and the bundle under both contracts
+# ----------------------------------------------------------------------
+def _odd_tables(device):
+    """Odd bin counts (padding of every tile dimension), both modes."""
+    return [_synthetic_table("auto", 37, 17, 5, 2, device),
+            _synthetic_table("cross", 45, 20, 3, 3, device),
+            _synthetic_table("auto", 130, 64, 11, 4, device)]
+
+
+def _bundle_plain(tables, model, params):
+    consts = [fused.bundle_table_constants(t) for t in tables]
+    return fused.shaped(consts, fused.bundle_predict_plain(
+        consts, params, *occupation_functions(model)))
+
+
+@pytest.mark.parametrize("stage_steps", [4, 2])
+@pytest.mark.parametrize("kind", ["zheng07", "assembias"])
+def test_fp32_kernels_at_every_ring_stage(cuda, monkeypatch, kind,
+                                          stage_steps):
+    """bundle, contraction and slab with ring stages of 32 and 16 K rows
+    (the smaller one is taken where shared memory is short), ragged
+    batches, auto and cross."""
+    monkeypatch.setattr(fused, "_FP32_STAGE_STEPS", (stage_steps,))
+    model = _model(kind)
+    tables = _odd_tables(cuda)
+    params = _params(model, 77, 5, cuda)
+    before = fused.BUNDLE_LAUNCHES
+    got = fused.make_fused_bundle_predictor(tables, model)(params)
+    torch.cuda.synchronize()
+    assert fused.BUNDLE_LAUNCHES == before + 1
+    _assert_close(got, _bundle_plain(tables, model, params),
+                  f"bundle, {stage_steps} steps")
+    rng = np.random.default_rng(7)
+    for table in tables[1:]:
+        ngal = torch.tensor(10.0 ** rng.uniform(-6, -2, (131, table.n_bins)),
+                            dtype=torch.float32, device=cuda)
+        got = fused.make_fused_contraction(table)(ngal)
+        want = fused.contraction_plain(fused.bundle_table_constants(table),
+                                       ngal)
+        _assert_close([got], [want], f"contraction, {stage_steps} steps")
+    for mode, n_prim, n_xi, batch in (("auto", 12, 7, 131),
+                                      ("cross", 11, 5, 8)):
+        grid = _grid_table(5, n_prim, 2, n_xi, mode, 13, cuda)
+        p = _params(model, batch, 9, cuda)
+        before = fused.SLAB_LAUNCHES
+        got = fused.make_fused_grid_predictor(grid, 5, model,
+                                              layout="slab")(p)
+        torch.cuda.synchronize()
+        assert fused.SLAB_LAUNCHES == before + 1
+        _assert_grid_close(got, fused.slab_predict_plain(
+            fused.slab_table_constants(grid, 5), p,
+            *occupation_functions(model)))
+
+
+@pytest.mark.parametrize("kind", ["zheng07", "assembias"])
+@pytest.mark.parametrize("accuracy,batch", [
+    (("scaled", "scaled", "scaled"), 77),
+    (("elementwise", "scaled", "elementwise"), 4096 + 37),
+    (None, 13)])
+def test_bundle_kernel_runs_every_contract(cuda, accuracy, batch, kind):
+    """The FP32 bundle kernel under every mix of contracts, auto and cross
+    in one launch: the same bits, held to the plain version."""
+    model = _model(kind, modulate_with_cenocc=kind == "zheng07")
+    tables = _odd_tables(cuda)
+    params = _params(model, batch, 5, cuda)
+    before = fused.BUNDLE_LAUNCHES
+    got = fused.make_fused_bundle_predictor(tables, model, accuracy)(params)
+    torch.cuda.synchronize()
+    assert fused.BUNDLE_LAUNCHES == before + 1
+    _assert_close(got, _bundle_plain(tables, model, params),
+                  f"bundle {accuracy}")
+    default = fused.make_fused_bundle_predictor(tables, model)(params)
+    for (ng, xi), (ng0, xi0) in zip(got, default):
+        assert torch.equal(ng, ng0) and torch.equal(xi, xi0)
+
+
+def test_bundle_runs_the_headline_contract(cuda):
+    wp = TabCorr.read(DATA / "bolplanck_wp.npz")
+    xi = TabCorr.read(DATA / "synthetic_xi_ell.npz")
+    model = AssembiasZheng07Model(threshold=-18,
+                                  redshift=wp.attrs["redshift"])
+    kernel = make_multi_predictor([wp, xi], model, device=cuda,
+                                  accuracy=("elementwise", "scaled"))
+    plain = make_multi_predictor([wp, xi], model, device=cuda,
+                                 engine="plain")
+    params = _params(model, 4096 + 37, 1, cuda)
+    before = fused.BUNDLE_LAUNCHES
+    got = kernel(params)
+    torch.cuda.synchronize()
+    assert fused.BUNDLE_LAUNCHES == before + 1
+    want = plain(params)
+    _assert_close(got, want, "bench tables, headline contract")
+    # wp per element.
+    rel = ((got[0][1] - want[0][1]).abs() / want[0][1].abs()).max()
+    assert float(rel) <= 2e-6
+
+
+def test_fp32_and_tc_kernels_take_768_bins(cuda):
+    """Where the FP32 block's 32-row ring does not fit: 16-row stages for
+    bundle, contraction and slab, and 32-row blocks that split at each
+    fragment load for slab_tc."""
+    assert fused.fp32_stage_steps(768, 5) == 2
+    assert fused.slab_tc_config(768, 5) == (32, False)
+    grid = _grid_table(2, 192, 2, 5, "auto", 21, cuda)
+    assert grid.n_bins == 768
+    model = _model("assembias")
+    params = _params(model, 131, 9, cuda)
+    occ = occupation_functions(model)
+    want = fused.slab_predict_plain(fused.slab_table_constants(grid, 2),
+                                    params, *occ)
+    for accuracy in ("elementwise", "scaled"):
+        got = fused.make_fused_grid_predictor(grid, 2, model,
+                                              accuracy=accuracy,
+                                              layout="slab")(params)
+        _assert_grid_close(got, want)
+    table = dataclasses.replace(grid, tpcf_dense=grid.tpcf_dense[:5],
+                                tpcf_shape=(5,))
+    small = _synthetic_table("cross", 45, 20, 3, 3, cuda)
+    want = _bundle_plain([table, small], model, params)
+    for accuracy in (None, ("scaled", "elementwise")):
+        got = fused.make_fused_bundle_predictor([table, small], model,
+                                                accuracy)(params)
+        _assert_close(got, want, f"768 bins, {accuracy}")
+
+
+def test_bundle_wrapper_raises_on_what_it_does_not_take(cuda):
+    tables = _odd_tables(cuda)[:2]
+    consts = [fused.slab_tc_table_constants(t, 1) for t in tables]
+    pmat = torch.ones((8, 5), device=cuda)
+    with pytest.raises(ValueError):
+        fused.bundle_launch(consts, pmat.double())
+    with pytest.raises(ValueError):
+        fused.bundle_launch(consts, pmat.cpu())
+    with pytest.raises(ValueError):
+        fused.bundle_launch(consts, pmat, hod=fused.KernelModel(code=1))
+    with pytest.raises(ValueError, match="half layout"):
+        fused.bundle_launch([fused.bundle_table_constants(t) for t in tables],
+                            pmat)
+    grid = _grid_table(2, 12, 2, 7, "auto", 13, cuda)
+    with pytest.raises(ValueError, match="1 node"):
+        fused.bundle_launch([fused.slab_tc_table_constants(grid, 2)], pmat)
+    with pytest.raises(ValueError, match="1 to 4 tables"):
+        fused.bundle_launch(consts * 3, pmat)
+    # Too many bins for the block: no quiet step down to the plain version.
+    wide = _synthetic_table("auto", 1600, 800, 2, 5, cuda)
+    for accuracy in (None, ("scaled",)):
+        with pytest.raises(ValueError, match="shared memory"):
+            fused.make_fused_bundle_predictor([wide], _model("zheng07"),
+                                              accuracy)
+    # Shapes and ring stages the C entry points refuse come back as a
+    # launch error.
+    before = fused.BUNDLE_LAUNCHES
+    bad = [dataclasses.replace(consts[0], n_centrals=38), consts[1]]
+    with pytest.raises(RuntimeError, match="bundle kernel launch failed"):
+        fused.bundle_launch(bad, pmat)
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(fused, "_FP32_STAGE_STEPS", (3,))
+        with pytest.raises(RuntimeError, match="bundle kernel launch failed"):
+            fused.bundle_launch(consts, pmat)
+    assert fused.BUNDLE_LAUNCHES == before

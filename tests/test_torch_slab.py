@@ -128,9 +128,11 @@ def test_slab_layout_refuses_the_fold_and_the_cpu_launch():
                 tt.Zheng07Model(threshold=-20)),
             tuple(model.param_dict), interpret=True, layout="slab",
             fold_spline=True)
-    s = fused.slab_table_constants(stacked, 2)
-    with pytest.raises(ValueError, match="CUDA"):
-        fused.slab_launch(s, torch.ones((4, 5)))
+    # The kernel takes CUDA tensors only, whatever the layout.
+    for constants in (fused.slab_tc_table_constants,
+                      fused.slab_table_constants):
+        with pytest.raises(ValueError, match="CUDA"):
+            fused.slab_launch(constants(stacked, 2), torch.ones((4, 5)))
     assert fused.grid_kernel_takes(160, "auto", 42)
     assert not fused.grid_kernel_takes(1000, "auto", 42)
     assert not fused.grid_fits(160, "auto", 42)

@@ -180,7 +180,7 @@ def _layout_contraction(s, node, n):
 
 
 @pytest.mark.parametrize("mode", ["auto", "cross"])
-@pytest.mark.parametrize("n_bins", [160, 37])
+@pytest.mark.parametrize("n_bins", [160, 120, 60, 37])
 @pytest.mark.parametrize("width", [8, 16])
 def test_slab_tc_layout_equals_the_dense_contraction(mode, n_bins, width):
     n_nodes, n_xi = 2, 5
@@ -448,8 +448,9 @@ def test_emulated_slab_tc_agrees_with_the_plain_version(wide):
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("layout,accuracy,device_type,kind", [
     ("slab", "scaled", "cuda", fused.SlabTcTable),
-    ("slab", "elementwise", "cuda", fused.SlabTable),
+    ("slab", "elementwise", "cuda", fused.SlabTcTable),
     ("slab", "scaled", "cpu", fused.SlabTable),
+    ("slab", "elementwise", "cpu", fused.SlabTable),
     ("packed", "scaled", "cuda", fused.GridTable),
     ("packed", "elementwise", "cpu", fused.GridTable)])
 def test_grid_constants_of_the_tier(layout, accuracy, device_type, kind):
