@@ -20,14 +20,16 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    (threshold -18, assembly-bias strengths drawn in [-1, 1]); three
    ensemble steps over its 7 parameters.
 3. Grid: ``make_predictor(interp, engine="fused", accuracy="scaled")``
-   (the grid_tc kernel, 3xTF32 on the tensor cores) on the 64-node
-   'default'-geometry Interpolator (4 x 4 x 4 nodes over alpha_c, alpha_s,
-   log_eta; 60 bins; 42 rows), zheng07 at threshold -20, with a few rows
-   pushed outside the grid; then the same with ``accuracy="elementwise"``
-   (the FP32 grid kernel).
-4. Grid: the same entry point on the 'efficient' Delta Sigma Interpolator
+   (the grid kernel, float64 on the tensor cores, as under both
+   contracts) on the 64-node 'default'-geometry Interpolator (4 x 4 x 4
+   nodes over alpha_c, alpha_s, log_eta; 60 bins; 42 rows), zheng07 at
+   threshold -20, with a few rows pushed outside the grid; then the same
+   with ``accuracy="elementwise"``.
+4. Grid: the same entry points on the 'efficient' Delta Sigma Interpolator
    (cross mode, 1104 bins, 4 log_eta nodes), zheng07 at threshold -21,
-   z = 0.5; then again with the decorated model.
+   z = 0.5; then again with the decorated model.  Beside each grid path
+   the grid kernel and grid_tc (3xTF32 on the tensor cores) run on the
+   same inputs, timed in turns.
 5. Grid sampler: the Gaussian log posterior over the 64-node grid
    predictor on all 8 parameters, three ensemble steps, 262,144 walkers.
 6. Contraction: ``make_predictor(tab, engine="fused")`` on both bundle
@@ -40,9 +42,11 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    parameters; then the 'elementwise' route (the FP32 slab kernel, from
    the same constants).
 
-Paths 3-5 and 7 run the 'scaled' contract, so the grid_tc and slab_tc
-kernels; the 'elementwise' passes keep the FP32 grid and slab kernels on a
-path and held against the same plain versions.
+Paths 3-5 and 7 run the 'scaled' contract: the grid kernel and slab_tc;
+the 'elementwise' passes run the grid kernel and the FP32 slab kernel,
+held against the same plain versions.  No contract routes to grid_tc
+(``fused.grid_kernel_for``), so one direct pass through its wrapper holds
+it against the plain version and times it.
 
 Every launch counter is set to 0 right before each path and read right
 after it.  Then each kernel's results are held against its plain PyTorch
@@ -74,7 +78,8 @@ SEED = 7
 OUT_ROWS = (17, 4099, BATCH - 1)
 SLAB_OUT_ROWS = (17, 4099, SLAB_BATCH - 1)
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): FP32 on
-# the CUDA cores, dense TF32 on the tensor cores, and HBM3.
+# the CUDA cores (and FP64 on the tensor cores: the same rate), dense TF32
+# on the tensor cores, and HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
@@ -172,9 +177,11 @@ def main():
         return float(np.median(k_ms)), float(np.median(p_ms)), k_ms, p_ms
 
     def library_ms(fn, n_iter=2):
-        """ms of one PyTorch call, full float32 (no TF32), contracted left
-        to right (the outer product n n^T first, then one GEMM)."""
+        """ms of one PyTorch call with TF32 off (full float32, or
+        float64), an einsum contracted left to right (the outer product n
+        n^T first, then one GEMM)."""
         einsum_opt = torch.backends.opt_einsum.enabled
+        tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.opt_einsum.enabled = False
         try:
@@ -182,6 +189,7 @@ def main():
             return window_ms(fn, n_iter)
         finally:
             torch.backends.opt_einsum.enabled = einsum_opt
+            torch.backends.cuda.matmul.allow_tf32 = tf32
 
     ctx = dict(torch=torch, np=np, fused=fused, card=card, reset=reset,
                expect=expect, window_ms=window_ms, alternate=alternate,
@@ -236,10 +244,12 @@ def nbytes(*tensors):
 
 def bound(flop, n_bytes, tensor_flop=None):
     """The least time the card could take: the larger of the operations
-    over their peak and the bytes over the HBM rate.  FP32 kernels: all
-    ``flop`` at the FP32 CUDA-core peak.  3xTF32 kernels (``tensor_flop``,
-    the contraction's FLOP): three TF32 products each at the dense TF32
-    peak, and ``bound_fp32_ms`` keeps the FP32 CUDA-core figure."""
+    over their peak and the bytes over the HBM rate.  FP32 kernels, and
+    the grid kernel on the FP64 tensor cores: all ``flop`` at 67 TFLOP/s,
+    the FP32 CUDA-core peak, which is also the FP64 tensor-core peak.
+    3xTF32 kernels (``tensor_flop``, the contraction's FLOP): three TF32
+    products each at the dense TF32 peak, and ``bound_fp32_ms`` keeps the
+    FP32 CUDA-core figure."""
     bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
     fp32_ms = flop / PEAK_FP32_FLOPS * 1e3
     ops_ms = (fp32_ms if tensor_flop is None else
@@ -529,7 +539,11 @@ def grid_phases(ctx, kernels):
                 "ds_efficient decorated")
         cases.append((name, interp_ds, model_ds, params_ds))
 
-    launches = 0
+    # The kernel the 'scaled' contract routes to (fused.grid_kernel_for).
+    kname = fused.grid_kernel_for("packed", "scaled")
+    launch = {"grid": fused.grid_launch, "grid_tc": fused.grid_tc_launch}[
+        kname]
+    launches = grid_launches = 0
     for name, interp, model, params in cases:
         predict = make_predictor(interp, model, engine="fused",
                                  accuracy="scaled", device="cuda")
@@ -539,8 +553,8 @@ def grid_phases(ctx, kernels):
         ngal, xi = predict(params)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launched = ctx["expect"](name, grid_tc=1)
-        launches += launched["grid_tc"]
+        launched = ctx["expect"](name, **{kname: 1})
+        launches += launched[kname]
         xi = xi.reshape(BATCH, -1)
         out = torch.zeros(BATCH, dtype=torch.bool, device="cuda")
         out[list(OUT_ROWS)] = True
@@ -550,8 +564,8 @@ def grid_phases(ctx, kernels):
         check(bool(torch.isfinite(ngal[~out]).all() and
                    torch.isfinite(xi[~out]).all()),
               f"{name}: NaN or inf in rows inside the grid")
-        print(f"{name}: {launched['grid_tc']} grid_tc kernel launch, xi "
-              f"{tuple(xi.shape)}, rows {OUT_ROWS} outside the grid all "
+        print(f"{name}: 'scaled', {launched[kname]} {kname} kernel launch, "
+              f"xi {tuple(xi.shape)}, rows {OUT_ROWS} outside the grid all "
               f"NaN, the rest finite; first call {first_s:.3f} s")
 
         # ---- kernel against its plain version, same inputs -------------
@@ -566,7 +580,7 @@ def grid_phases(ctx, kernels):
         ngal_err = rel(ngal[~out], ngal_p[~out])
         xi_err = scaled(xi[~out], xi_p[~out])
         err = max_abs((ngal[~out], ngal_p[~out]), (xi[~out], xi_p[~out]))
-        print(f"{name}: grid_tc kernel vs plain (B={BATCH}): ngal max rel "
+        print(f"{name}: {kname} kernel vs plain (B={BATCH}): ngal max rel "
               f"{ngal_err:.3e} (<= 1e-6), xi max scaled {xi_err:.3e} "
               f"(<= 1e-6), max abs {err:.3e}")
         check(ngal_err <= 1e-6, f"{name}: ngal kernel vs plain {ngal_err}")
@@ -581,7 +595,7 @@ def grid_phases(ctx, kernels):
             err_host = max(err_host, float(np.max(np.abs(got - xi64.ravel()))
                                            / np.max(np.abs(xi64))))
             err_ngal = max(err_ngal, abs(float(ngal[i]) / ng64 - 1))
-        print(f"{name}: grid_tc kernel vs float64 Interpolator.predict at "
+        print(f"{name}: {kname} kernel vs float64 Interpolator.predict at "
               f"{N_PROBE} probes: xi max scaled {err_host:.3e} (<= 1e-6), "
               f"ngal max rel {err_ngal:.3e} (<= 1e-6)")
         check(err_host <= 1e-6, f"{name}: xi vs float64 {err_host}")
@@ -591,20 +605,23 @@ def grid_phases(ctx, kernels):
         hod = fused.KernelModel.of(model)
         pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
         k_ms, p_ms, k_w, p_w = ctx["alternate"](
-            lambda: fused.grid_tc_launch(g, pmat, nw, hod),
+            lambda: launch(g, pmat, nw, hod),
             lambda: fused.grid_predict_plain(g, params, nw, *occ), 3, 2)
         e2e_ms = ctx["window_ms"](lambda: predict(params), 3)
-        print(f"timing ({name}): grid_tc kernel {k_ms:.4f} ms per "
+        print(f"timing ({name}): {kname} kernel {k_ms:.4f} ms per "
               f"{BATCH}-vector batch (windows {k_w}), plain PyTorch "
               f"{p_ms:.4f} ms (windows {p_w}); whole predictor "
               f"{e2e_ms:.4f} ms ({BATCH / e2e_ms * 1e3:.6g} predictions/s) "
               f"on {ctx['card']}")
+        tier_comparison(ctx, name, g, pmat, nw, hod)
+        if name != "grid64":
+            grid_launches += grid_elementwise_cross_pass(
+                ctx, name, interp, model, params, out, ngal_p, xi_p)
         if name == "grid64":
             dense = 2.0 * g.npair * g.n_nodes * g.n_xi * BATCH
             print(f"grid64: {dense:.4g} FLOP of packed contraction per "
                   f"batch (2 x {g.npair} x {g.n_nodes * g.n_xi} per "
-                  f"sample): {dense / k_ms / 1e9:.4g} TFLOP/s in grid_tc "
-                  f"(3xTF32: {3 * dense / k_ms / 1e9:.4g} TFLOP/s of TF32)")
+                  f"sample): {dense / k_ms / 1e9:.4g} TFLOP/s in {kname}")
             flop = BATCH * (quadrature_flop(g.n_bins, g.n_gauss) + g.npair +
                             2 * g.n_nodes * g.n_xi * (g.npair + 1))
             n_bytes = (nbytes(pmat, nw, g.logm, g.logm_res, g.sec, g.weight,
@@ -626,10 +643,15 @@ def grid_phases(ctx, kernels):
             grid_numbers = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                                 **bound(flop, n_bytes, tensor_flop=dense),
                                 library_ms=lib_ms)
-            grid64 = (interp, model, params, g, nw, occ, hod, pmat, out,
-                      flop, n_bytes, lib_ms)
+            grid64 = (interp, model, params, stacked, g, nw, occ, hod, pmat,
+                      out, flop, n_bytes)
 
-    grid_elementwise_pass(ctx, kernels, *grid64)
+    grid_elementwise_pass(ctx, kernels, *grid64, grid_launches)
+    if kname == "grid":
+        # grid_tc is on no path: one direct pass keeps it built, launched
+        # and held against the plain version.
+        grid_tc_direct_pass(ctx, kernels, *grid64[2:3], *grid64[4:], dense,
+                            grid_numbers["library_ms"])
 
     # ---- path: the ensemble sampler over the 64-node grid -------------
     _, interp, model, params = cases[0]
@@ -644,22 +666,112 @@ def grid_phases(ctx, kernels):
     walkers = walkers_around(ctx, model, names, BATCH, SEED + 1)
     ctx["reset"]()
     accepts, step_s, _ = run_sampler(ctx, log_prob, walkers, N_GRID_STEPS,
-                                     "GRID_TC_LAUNCHES", SEED + 1)
-    launched = ctx["expect"]("grid sampler", grid_tc=1 + 2 * N_GRID_STEPS)
-    launches += launched["grid_tc"]
-    print(f"grid sampler: {launched['grid_tc']} grid_tc kernel launches (1 "
+                                     COUNTERS[kname], SEED + 1)
+    launched = ctx["expect"]("grid sampler", **{kname: 1 + 2 * N_GRID_STEPS})
+    launches += launched[kname]
+    print(f"grid sampler: {launched[kname]} {kname} kernel launches (1 "
           f"initial log-prob, 2 per step x {N_GRID_STEPS}), accept fractions "
           f"{accepts}, {BATCH / float(np.median(step_s)):.6g} walker-steps/s "
           f"(median of per-step host-clock times {step_s} s) on "
           f"{ctx['card']}")
-    record(kernels, "grid_tc", launches, **grid_numbers)
+    # The grid kernel's numbers come from its 'elementwise' pass.
+    record(kernels, kname, launches,
+           **(grid_numbers if kname == "grid_tc" else {}))
 
 
-def grid_elementwise_pass(ctx, kernels, interp, model, params, g, nw, occ,
-                          hod, pmat, out, flop, n_bytes, lib_ms):
-    """The 64-node grid under the 'elementwise' contract: the FP32 grid
-    kernel on a path, held against the plain version, timed."""
+def grid_tc_direct_pass(ctx, kernels, params, g, nw, occ, hod, pmat, out,
+                        flop, n_bytes, dense, lib_ms):
+    """grid_tc on the 64-node grid through its wrapper, where no contract
+    routes to it: held against the plain version, timed."""
     torch, fused = ctx["torch"], ctx["fused"]
+    ctx["reset"]()
+    ngal, xi = fused.grid_tc_launch(g, pmat, nw, hod)
+    torch.cuda.synchronize()
+    launched = ctx["expect"]("grid_tc direct", grid_tc=1)
+    # The node weights make xi NaN outside the grid; ngal is the kernel's
+    # occupation, finite (the predictor masks it).
+    check(bool(torch.isnan(xi[out]).all() and torch.isfinite(ngal).all() and
+               torch.isfinite(xi[~out]).all()), "grid_tc direct: NaN rows")
+    ngal_p, xi_p = fused.grid_predict_plain(g, params, nw, *occ)
+    ngal_err = rel(ngal[~out], ngal_p[~out])
+    xi_err = scaled(xi[~out], xi_p[~out])
+    err = max_abs((ngal[~out], ngal_p[~out]), (xi[~out], xi_p[~out]))
+    print(f"grid64 grid_tc (direct, on no path): vs plain (B={BATCH}): ngal "
+          f"max rel {ngal_err:.3e} (<= 1e-6), xi max scaled {xi_err:.3e} "
+          f"(<= 1e-6), max abs {err:.3e}")
+    check(ngal_err <= 1e-6, f"grid_tc direct: ngal vs plain {ngal_err}")
+    check(xi_err <= 1e-6, f"grid_tc direct: xi vs plain {xi_err}")
+    k_ms, p_ms, k_w, p_w = ctx["alternate"](
+        lambda: fused.grid_tc_launch(g, pmat, nw, hod),
+        lambda: fused.grid_predict_plain(g, params, nw, *occ), 3, 2)
+    print(f"timing (grid64 grid_tc direct): {k_ms:.4f} ms per {BATCH}-vector "
+          f"batch (windows {k_w}), plain PyTorch {p_ms:.4f} ms (windows "
+          f"{p_w}) on {ctx['card']}")
+    record(kernels, "grid_tc", launched["grid_tc"], max_abs_err=err,
+           ms=k_ms, plain_ms=p_ms, **bound(flop, n_bytes, tensor_flop=dense),
+           library_ms=lib_ms)
+
+
+def tier_comparison(ctx, name, g, pmat, nw, hod):
+    """The grid kernel (FP64 tensor cores) and grid_tc (3xTF32) on the same
+    inputs: the same occupation bit for bit, and their times in turns."""
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
+    ngal_grid = fused.grid_launch(g, pmat, nw, hod)[0]
+    ngal_tc = fused.grid_tc_launch(g, pmat, nw, hod)[0]
+    torch.cuda.synchronize()
+    check(bool(torch.equal(ngal_grid, ngal_tc)),
+          f"{name}: ngal of the grid kernel and grid_tc differ")
+    g_w, tc_w = [], []
+    for _ in range(2):
+        tc_w.append(ctx["window_ms"](
+            lambda: fused.grid_tc_launch(g, pmat, nw, hod), 3))
+        g_w += [ctx["window_ms"](lambda: fused.grid_launch(g, pmat, nw, hod),
+                                 3) for _ in range(2)]
+        tc_w.append(ctx["window_ms"](
+            lambda: fused.grid_tc_launch(g, pmat, nw, hod), 3))
+    print(f"tiers ({name}): ngal of grid and grid_tc bit-identical; grid "
+          f"(FP64 tensor cores) {float(np.median(g_w)):.4f} ms (windows "
+          f"{g_w}), grid_tc (3xTF32) {float(np.median(tc_w)):.4f} ms "
+          f"(windows {tc_w}) per {BATCH}-vector batch on {ctx['card']}")
+
+
+def grid_elementwise_cross_pass(ctx, name, interp, model, params, out,
+                                ngal_p, xi_p):
+    """A Delta Sigma grid under the 'elementwise' contract: the grid kernel
+    (1104 cross bins, 32-row blocks) on a path, held against the plain
+    version (``ngal_p``, ``xi_p``, same inputs).  Returns its launches."""
+    torch = ctx["torch"]
+    from tabcorr_tpu_torch import make_predictor
+    predict = make_predictor(interp, model, engine="fused",
+                             accuracy="elementwise", device="cuda")
+    ctx["reset"]()
+    ngal, xi = predict(params)
+    torch.cuda.synchronize()
+    launched = ctx["expect"](f"{name} elementwise", grid=1)
+    xi = xi.reshape(BATCH, -1)
+    check(bool(torch.isnan(ngal[out]).all() and torch.isnan(xi[out]).all()
+               and torch.isfinite(ngal[~out]).all() and
+               torch.isfinite(xi[~out]).all()),
+          f"{name} elementwise: NaN rows")
+    ngal_err = rel(ngal[~out], ngal_p[~out])
+    xi_err = scaled(xi[~out], xi_p[~out])
+    print(f"{name} elementwise: {launched['grid']} grid kernel launch, "
+          f"{interp.tabcorr_list[0].n_bins} cross bins; grid kernel vs plain "
+          f"(B={BATCH}): ngal max rel {ngal_err:.3e} (<= 1e-6), xi max "
+          f"scaled {xi_err:.3e} (<= 1e-6)")
+    check(ngal_err <= 1e-6, f"{name} elementwise: ngal vs plain {ngal_err}")
+    check(xi_err <= 1e-6, f"{name} elementwise: xi vs plain {xi_err}")
+    return launched["grid"]
+
+
+def grid_elementwise_pass(ctx, kernels, interp, model, params, stacked, g,
+                          nw, occ, hod, pmat, out, flop, n_bytes,
+                          other_launches):
+    """The 64-node grid under the 'elementwise' contract: the grid kernel
+    (FP64 tensor cores) on a path, held against the plain version and the
+    float64 host path, timed beside the plain version and beside one
+    float64 PyTorch product of the same contraction."""
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
     from tabcorr_tpu_torch import make_predictor
     predict = make_predictor(interp, model, engine="fused",
                              accuracy="elementwise", device="cuda")
@@ -668,7 +780,9 @@ def grid_elementwise_pass(ctx, kernels, interp, model, params, g, nw, occ,
     torch.cuda.synchronize()
     launched = ctx["expect"]("grid64 elementwise", grid=1)
     xi = xi.reshape(BATCH, -1)
-    check(bool(torch.isnan(xi[out]).all() and torch.isfinite(xi[~out]).all()),
+    check(bool(torch.isnan(ngal[out]).all() and torch.isnan(xi[out]).all()
+               and torch.isfinite(ngal[~out]).all() and
+               torch.isfinite(xi[~out]).all()),
           "grid64 elementwise: NaN rows")
     ngal_p, xi_p = fused.grid_predict_plain(g, params, nw, *occ)
     ngal_err = rel(ngal[~out], ngal_p[~out])
@@ -679,14 +793,41 @@ def grid_elementwise_pass(ctx, kernels, interp, model, params, g, nw, occ,
           f"1e-6), xi max scaled {xi_err:.3e} (<= 1e-6), max abs {err:.3e}")
     check(ngal_err <= 1e-6, f"grid64 elementwise: ngal vs plain {ngal_err}")
     check(xi_err <= 1e-6, f"grid64 elementwise: xi vs plain {xi_err}")
+    err_host = err_ngal = 0.0
+    for i in range(N_PROBE):
+        ng64, xi64 = interp.predict(host_model(model, params, i),
+                                    check_consistency=False)
+        got = xi[i].double().cpu().numpy()
+        err_host = max(err_host, float(np.max(np.abs(got - xi64.ravel())) /
+                                       np.max(np.abs(xi64))))
+        err_ngal = max(err_ngal, abs(float(ngal[i]) / ng64 - 1))
+    print(f"grid64 elementwise: grid kernel vs float64 Interpolator.predict "
+          f"at {N_PROBE} probes: xi max scaled {err_host:.3e} (<= 1e-6), "
+          f"ngal max rel {err_ngal:.3e} (<= 1e-6)")
+    check(err_host <= 1e-6, f"grid64 elementwise: xi vs float64 {err_host}")
+    check(err_ngal <= 1e-6, f"grid64 elementwise: ngal vs float64 {err_ngal}")
     k_ms, p_ms, k_w, p_w = ctx["alternate"](
         lambda: fused.grid_launch(g, pmat, nw, hod),
         lambda: fused.grid_predict_plain(g, params, nw, *occ), 3, 2)
     print(f"timing (grid64 elementwise): grid kernel {k_ms:.4f} ms per "
           f"{BATCH}-vector batch (windows {k_w}), plain PyTorch {p_ms:.4f} "
           f"ms (windows {p_w}) on {ctx['card']}")
-    record(kernels, "grid", launched["grid"], max_abs_err=err, ms=k_ms,
-           plain_ms=p_ms, **bound(flop, n_bytes), library_ms=lib_ms)
+    # One float64 PyTorch product for the contraction alone, over the
+    # packed pair weights of the whole batch (the float32 products n_i n_j
+    # widened, as the kernel forms them): (B, npair) x (npair, columns).
+    dens = fused.occupation_density(stacked, model, params)
+    w64 = (dens[:, g.pair_i.long()] * dens[:, g.pair_j.long()]).double()
+    del dens
+    fp64 = g.fp[:g.npair, :g.n_nodes * g.nxp].double()
+    lib_ms = ctx["library_ms"](lambda: torch.matmul(w64, fp64))
+    print(f"timing (grid64): one float64 torch.matmul {tuple(w64.shape)} x "
+          f"{tuple(fp64.shape)} (contraction only) {lib_ms:.4f} ms, "
+          f"{2.0 * w64.shape[0] * g.npair * fp64.shape[1] / lib_ms / 1e9:.4g}"
+          f" TFLOP/s, on {ctx['card']}")
+    del w64, fp64
+    record(kernels, "grid", launched["grid"] + other_launches,
+           max_abs_err=err, ms=k_ms, plain_ms=p_ms, **bound(flop, n_bytes),
+           library_ms=lib_ms)
 
 
 # ----------------------------------------------------------------------

@@ -18,42 +18,49 @@
 //   unfolded: xi[b, node, k] = t[b, (node, k)] / D_b,
 //   D_b = (sum_i n[b, i])^2 (auto) or sum_i n[b, i] (cross).
 //
-// What bounds it on an H100: FP32 FMA in the contraction.  At the 64-node
-// 'default' grid (60 bins, 42 rows per node) a parameter vector costs
-// 1830 x 2688 multiply-adds against 600 occupation evaluations, with 20
-// bytes of parameters and 256 bytes of node weights in and 172 bytes out;
-// the 19.7 MB packed matrix stays in the 50 MB L2.  For a cross table with
-// many bins (1104 in the 'efficient' Delta Sigma grid) the occupation
+// grid_kernel (both accuracy contracts) runs the contraction on the FP64
+// tensor cores.  What bounds it on an H100: the FP64 tensor-core rate
+// (67 TFLOP/s, as the FP32 CUDA cores): at the 64-node 'default' grid (60
+// bins, 42 rows per node) a parameter vector costs 1830 x 2688
+// multiply-adds against 600 occupation evaluations, with 20 bytes of
+// parameters and 256 bytes of node weights in and 172 bytes out; the
+// 20.9 MB packed matrix stays in the 50 MB L2.  For a cross table with many
+// bins (1104 in the 'efficient' Delta Sigma grid) the occupation
 // quadrature dominates instead (11,040 evaluations against 1104 x 52
 // multiply-adds).
 //
 // What the design does about it:
-// * A block owns TB batch rows (64, or 32 when the densities of 64 rows
-//   would not fit in shared memory, as for the 1104-bin table).  Their
-//   densities are computed into shared memory once and never touch
+// * A block owns TB batch rows (64; 32 or 16 where the densities of more
+//   rows would not fit in shared memory, as for the 1104-bin table).
+//   Their densities are computed into shared memory once and never touch
 //   device memory.
-// * The contraction is a register-tiled FP32 GEMM as in bundle.cu: Fp is
-//   staged through shared memory in kKT x kCT tiles, each thread
-//   accumulates a (TB / 8) x 4 tile.  Each K tile of kKT pairs sums
-//   with fmaf into a fresh float32 partial, which is added to a running
-//   sum in double.  One sequential float32 sum over 1830 pairs of
-//   positive terms put 1.4e-6 (scaled) into the 64-node grid's xi on the
-//   card (3.0e-6 at the worst of 1024 rows in a CPU emulation against a
-//   float64 contraction); the two-level sum with the double running sum
-//   and fold gives 2.3e-7 there, for 32 double adds per 1024 FMAs (and
-//   the registers they need: see the launch bounds below).  The
-//   pair weights are not
-//   materialised (1830 pairs x 64 rows would be 468 KB): each K tile's
-//   kKT x TB operand is formed from the staged densities while Fp's tile
-//   is staged, one float32 product per element, as tabcorr_tpu forms
-//   gi * gj.
-// * Each node's columns are padded to nxp (a multiple of 4), so a
-//   thread's 4 columns share one node.  The fold's epilogue multiplies
-//   them by nw[b, node] and reduces over the nodes of each column tile in
-//   node order through shared memory into a TB x nxp accumulator in
-//   double (the spline weights have both signs, so the fold cancels up to
-//   ~4x): no atomics, bit-reproducible.  The denominator divides once at
-//   the end.
+// * The contraction is a stream of stages (column tile ct of kCT = 128
+//   columns, K chunk q of kKT = 32 pairs) on mma.sync m16n8k8 f64: each
+//   MMA warp owns 32 rows (16 in a 16-row block) x 32 columns of the tile,
+//   one float64 accumulator per output over all K: no partial sums, no
+//   running sum, and no chain restarted (float64 rounding over 1856 terms
+//   stays far below the float32 operands' own).
+// * Fp stays float32 in device memory and streams through a cp.async ring
+//   (cp_async.cuh) of 32 x 128 stages; each element is widened to float64
+//   (exactly) when its B fragment is loaded, by each warp that reads it
+//   (two at 64 rows): a float64 copy of a stage would take another 32 KB
+//   of shared memory.  The pair weights, one float32 product n_i n_j per
+//   element (as tabcorr_tpu forms g_i g_j), are widened and stored in
+//   fragment order (double-buffered, conflict-free 16-byte loads), formed
+//   while the previous chunk's MMAs run: at 64 rows each warp forms its
+//   share between its own k-steps.  Cross mode widens the densities
+//   themselves.
+// * A 64-row block has 8 warps (2 x 4 over the tile), two blocks per SM.
+//   Where the 1104-bin table's densities fill shared memory (32- and
+//   16-row blocks), the block has 16 warps: all of them evaluate the
+//   occupation, stage and form the weights, and the first four run the
+//   MMAs.
+// * The fold's epilogue multiplies each column's float64 sum by the node
+//   weight nw[b, node] in float64 and adds it to a TB x nxp float64
+//   accumulator in shared memory, node by node with a barrier between
+//   nodes, so each output is summed in node order (the spline weights
+//   have both signs, so the fold cancels up to ~4x): no atomics,
+//   bit-reproducible.  The denominator divides once at the end.
 // * NaN: nothing skips a zero weight or clamps one, and there is no fast
 //   math, so a NaN node weight (a parameter outside the grid) makes every
 //   xi of its row NaN.  Rows past the batch end are masked, not padded.
@@ -61,6 +68,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cp_async.cuh"
 #include "tf32x3.cuh"
 #include "zheng07.cuh"
 
@@ -68,12 +76,13 @@ namespace {
 
 using tabcorr::QuadArgs;
 
-constexpr int kThreads = 256;    // 8 row groups x 32 column groups
-constexpr int kKT = 32;          // rows (p) of Fp per staged tile
+constexpr int kKT = 32;          // rows (p) of Fp per staged chunk
 constexpr int kCT = 128;         // columns of Fp per staged tile
-constexpr int kRN = 4;           // columns per thread
-constexpr int kGroups = kCT / kRN;
-constexpr int kRowGroups = kThreads / kGroups;
+constexpr int kRN = 4;           // node columns are padded to a multiple
+constexpr int kMmaK = 8;         // K of one mma.sync m16n8k8 f64
+constexpr int kBS = tabcorr::tc::kBS;   // staged row stride (floats)
+static_assert(kKT == tabcorr::tc::kKT && kCT == tabcorr::tc::kCT,
+              "both kernels stage Fp in tf32x3.cuh's tiles");
 
 struct GridArgs {
   const float* params;   // (B, hod.n_params)
@@ -90,51 +99,87 @@ struct GridArgs {
   int nb_rows;           // bins rounded up to kKT (rows of sN)
 };
 
-// Shared-memory layout (floats), per block of TB rows:
-//   sN   [nb_rows][TB]  per-bin densities, bin-major
-//   sA   [kKT][TB]      the staged K tile of pair weights (auto)
-//   sF   [kKT][kCT]     the staged tile of Fp
-//   sP   [TB][kCT]      weighted columns of one tile (fold)
-//   sQ   [TB][nxp]      folded sums per statistic, double
-//   sPar [kParTerms][TB] per-row parameter terms
-//   sTot [TB]           sum_i n_i per row
-inline size_t smem_floats(int tb, int nb_rows, int nxp) {
-  return (size_t)nb_rows * tb + kKT * tb + kKT * kCT + (size_t)tb * kCT +
-         2 * (size_t)tb * nxp + (tabcorr::kParTerms + 1) * tb;
+// The block shape of TB rows.  The MMA warps form a kWM x 4 grid over
+// the TB x 128 tile, each warp (TB / kWM) rows x 32 columns.  At 64 rows:
+// 8 warps, all of them MMA warps, two ring stages, two blocks per SM.  At
+// 32 and 16 rows, where a block's densities fill shared memory and one
+// block holds the SM: 16 warps for the occupation, the first 4 of them MMA
+// warps, and three stages (no other block's copies to overlap).
+template <int TB>
+struct F64Grid {
+  static constexpr int kWM = TB == 64 ? 2 : 1;
+  static constexpr int kMmaWarps = 4 * kWM;
+  static constexpr int kThreads = TB == 64 ? 256 : 512;
+  static constexpr int kMinBlocks = TB == 64 ? 2 : 1;
+  static constexpr int kStages = TB == 64 ? 2 : 3;
+  static constexpr int kMT = TB / kWM / 16;     // m16 tiles per warp
+};
+
+// Shared-memory layout (bytes), per block of TB rows:
+//   sA   double [2][kKT * TB]   the chunk's pair weights in fragment order,
+//                               double-buffered
+//   sQ   double [TB][nxp]       folded sums per statistic
+//   sB   float  [stages][kKT][kBS]  the cp.async ring of Fp tiles
+//   sN   float  [nb_rows][TB]   per-bin densities, bin-major
+//   sPar float  [kParTerms][TB] per-row parameter terms
+//   sTot float  [TB]            sum_i n_i per row
+template <int TB>
+size_t smem_bytes(int nb_rows, int nxp) {
+  return 8 * (2 * (size_t)kKT * TB + (size_t)TB * nxp) +
+         4 * ((size_t)F64Grid<TB>::kStages * kKT * kBS + (size_t)nb_rows * TB +
+              (tabcorr::kParTerms + 1) * (size_t)TB);
 }
 
-// Two blocks per SM: the double running sum takes the kernel to 144
-// registers, one 256-thread block per SM, and 137.7 ms at the 64-node
-// grid (262,144 rows); capped at 128 registers (24 bytes of spill at
-// TB = 64) it runs two blocks per SM in 91.6 ms (H100 80GB HBM3, 700 W).
-template <int TB, int MODEL>
-__global__ void __launch_bounds__(kThreads, 2)
+// d += a b on one m16n8k8 f64 tile: lane (g = lane / 4, t = lane % 4)
+// holds a_i = A[g + 8 (i % 2)][t + 4 (i / 2)], b_i = B[t + 4 i][g] and
+// d = {D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1]}.
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+template <int TB, bool AUTO, int MODEL>
+__global__ void __launch_bounds__(F64Grid<TB>::kThreads,
+                                  F64Grid<TB>::kMinBlocks)
 grid_kernel(const GridArgs args) {
-  constexpr int kRM = TB / kRowGroups;   // rows per thread
-  static_assert(kRM % 4 == 0, "rows per thread are read as float4");
-  extern __shared__ float4 smem4[];
-  float* sN = reinterpret_cast<float*>(smem4);
-  float* sA = sN + (size_t)args.nb_rows * TB;
-  float* sF = sA + kKT * TB;
-  float* sP = sF + kKT * kCT;
-  // Every offset above is a multiple of 4 floats, so sQ is 16-byte
-  // aligned.
-  double* sQ = reinterpret_cast<double*>(sP + TB * kCT);
-  float* sPar = reinterpret_cast<float*>(sQ + (size_t)TB * args.nxp);
+  using S = F64Grid<TB>;
+  constexpr int NT = S::kThreads, MT = S::kMT, kStages = S::kStages;
+  constexpr int kM16 = TB / 16;
+  constexpr int kNT8 = 32 / 8;               // n8 tiles per warp
+  constexpr int kHalves = kMmaK / 4;         // double2 per lane per A tile
+  constexpr int kSteps = kKT / kMmaK;        // k-steps per chunk
+  constexpr int kItems = kKT * TB / 2;       // double2 of a chunk's weights
+  // At 64 rows every warp runs the MMAs, and forms its share of the next
+  // chunk's weights between its k-steps, where ptxas can interleave the
+  // two; otherwise the other warps form them after the MMAs are issued.
+  constexpr bool kAllMma = NT == S::kMmaWarps * 32;
+  static_assert(!kAllMma || kItems % (NT * kSteps) == 0,
+                "each k-step forms whole items per thread");
+  extern __shared__ double4 smem_d4[];
+  double* sA = reinterpret_cast<double*>(smem_d4);
+  double* sQ = sA + 2 * kKT * TB;
+  float* sB = reinterpret_cast<float*>(sQ + (size_t)TB * args.nxp);
+  float* sN = sB + kStages * kKT * kBS;
+  float* sPar = sN + (size_t)args.nb_rows * TB;
   float* sTot = sPar + tabcorr::kParTerms * TB;
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool mma_warp = kAllMma || warp < S::kMmaWarps;
+  const int n0 = (warp & 3) * 32;            // the warp's first column
+  const int m0 = (warp >> 2) * MT;           // and its first m16 tile
   const int row0 = blockIdx.x * TB;
-  const int rg = tid / kGroups;   // row group: rows rg*kRM .. +kRM-1
-  const int cg = tid % kGroups;   // column group: columns cg*kRN .. +kRN-1
   const bool fold = args.nw != nullptr;
 
   tabcorr::param_terms<TB>(args.params, args.batch, row0, args.hod, sPar);
   __syncthreads();
-  tabcorr::occupation_phase<TB, kThreads, MODEL>(
+  tabcorr::occupation_phase<TB, NT, MODEL>(
       args.q, args.nb_rows, args.batch, row0, args.hod, sPar, sN);
-  for (int item = tid; item < TB * args.nxp; item += kThreads)
-    sQ[item] = 0.0;
+  for (int item = tid; item < TB * args.nxp; item += NT) sQ[item] = 0.0;
   __syncthreads();
   if (tid < TB) {
     // sum_i n_i in double, as in bundle.cu.
@@ -143,120 +188,180 @@ grid_kernel(const GridArgs args) {
     sTot[tid] = static_cast<float>(sum);
   }
 
-  const float4* sF4 = reinterpret_cast<const float4*>(sF);
-  const float4* fp4 = reinterpret_cast<const float4*>(args.fp);
-  for (int ct = 0; ct < args.c_pad; ct += kCT) {
-    double acc[kRM][kRN];
-#pragma unroll
-    for (int r = 0; r < kRM; ++r)
-#pragma unroll
-      for (int c = 0; c < kRN; ++c) acc[r][c] = 0.0;
+  // Stage s is (column tile s / nq, chunk s % nq); the ring's copies keep
+  // their position as counters.
+  const int nq = args.k_pad / kKT;
+  const int n_stages = nq * (args.c_pad / kCT);
+  int p_ct = 0, p_q = 0;
+  auto issue = [&](int s) {
+    if (s < n_stages) {
+      tabcorr::tc::stage_b<NT>(sB + (s % kStages) * kKT * kBS,
+                               args.fp + (size_t)p_q * kKT * args.c_pad +
+                                   (size_t)p_ct * kCT,
+                               args.c_pad, kKT);
+      if (++p_q == nq) {
+        p_q = 0;
+        ++p_ct;
+      }
+    }
+    tabcorr::cp_async_commit();
+  };
+  // Item f of chunk q's weights (kKT pairs x TB rows) in fragment order:
+  // double2 (k-step ks, m16 tile m, half h, lane) holds A[r][p] and
+  // A[r + 8][p], r = 16 m + lane / 4, p = kMmaK ks + lane % 4 + 4 h, so a
+  // warp's load of one half is 512 contiguous bytes.  Each weight is one
+  // float32 product, widened exactly; pairs past npair give weight 0.
+  auto form_item = [&](double2* a2, int q, int f) {
+    const int ln = f & 31, rest = f >> 5;
+    const int h = rest % kHalves, ms = rest / kHalves;
+    const int r = (ms % kM16) * 16 + (ln >> 2);
+    const int p = q * kKT + (ms / kM16) * kMmaK + (ln & 3) + 4 * h;
+    float v0, v1;
+    if constexpr (AUTO) {
+      const int pc = min(p, args.npair - 1);
+      const float* ni = sN + __ldg(args.pair_i + pc) * TB + r;
+      const float* nj = sN + __ldg(args.pair_j + pc) * TB + r;
+      const bool real = p < args.npair;
+      v0 = real ? ni[0] * nj[0] : 0.f;
+      v1 = real ? ni[8] * nj[8] : 0.f;
+    } else {
+      v0 = sN[p * TB + r];          // p < k_pad == nb_rows; 0 past nb
+      v1 = sN[p * TB + r + 8];
+    }
+    a2[f] = make_double2(static_cast<double>(v0), static_cast<double>(v1));
+  };
+  auto a_buf = [&](int buf) {
+    return reinterpret_cast<double2*>(sA + buf * kKT * TB);
+  };
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int f = tid; f < kItems; f += NT) form_item(a_buf(0), 0, f);
 
-    for (int j0 = 0; j0 < args.k_pad; j0 += kKT) {
-      __syncthreads();   // the previous tile's readers are done
-      for (int l = tid; l < kKT * kCT / 4; l += kThreads) {
-        const int r = l / (kCT / 4);
-        const int c4 = l % (kCT / 4);
-        reinterpret_cast<float4*>(sF)[l] =
-            __ldg(fp4 + ((size_t)(j0 + r) * args.c_pad + ct) / 4 + c4);
-      }
-      if (args.is_auto) {
-        for (int l = tid; l < kKT * TB; l += kThreads) {
-          const int p = j0 + l / TB;
-          const int b = l % TB;
-          float v = 0.f;
-          if (p < args.npair)
-            v = sN[__ldg(args.pair_i + p) * TB + b] *
-                sN[__ldg(args.pair_j + p) * TB + b];
-          sA[l] = v;
+  // Column tile ct, then its chunks q; s counts the stages.  The
+  // accumulators are cleared once per tile, ahead of the chunk loop, never
+  // by a clear selected inside it (on q == 0): ptxas (CUDA 12.8) folds
+  // that into the first MMA's predicated-accumulator form, and the rows
+  // g + 8 of the accumulators then came out wrong from the second chunk
+  // on (64-row blocks).
+  const int n_ct = args.c_pad / kCT;
+  int s = 0;
+  for (int ct = 0; ct < n_ct; ++ct) {
+    double acc[MT][kNT8][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNT8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0;
+    for (int q = 0; q < nq; ++q, ++s) {
+      const int q_next = q + 1 == nq ? 0 : q + 1;
+      tabcorr::cp_async_wait<kStages - 2>();
+      __syncthreads();   // stage s and its weights are in; slot s - 1 is free
+      issue(s + kStages - 1);
+      // The next chunk's weights (past the last stage a harmless copy of
+      // chunk 0) go to the buffer chunk s - 1 read, before the barrier.
+      double2* next = a_buf((s + 1) & 1);
+      if (mma_warp) {
+        const double2* a2 = a_buf(s & 1);
+        const float* sb = sB + (s % kStages) * kKT * kBS;
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ++ks) {
+          double a[MT][4];
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+            for (int h = 0; h < kHalves; ++h) {
+              const double2 v =
+                  a2[((ks * kM16 + m0 + mi) * kHalves + h) * 32 + lane];
+              a[mi][2 * h] = v.x;
+              a[mi][2 * h + 1] = v.y;
+            }
+          }
+          const float* b_row = sb + (ks * kMmaK + t) * kBS + n0 + g;
+#pragma unroll
+          for (int ni = 0; ni < kNT8; ++ni) {
+            const double b[2] = {static_cast<double>(b_row[ni * 8]),
+                                 static_cast<double>(b_row[4 * kBS + ni * 8])};
+#pragma unroll
+            for (int mi = 0; mi < MT; ++mi) mma_f64(acc[mi][ni], a[mi], b);
+          }
+          if constexpr (kAllMma) {
+            constexpr int kPer = kItems / (NT * kSteps);
+#pragma unroll
+            for (int j = 0; j < kPer; ++j)
+              form_item(next, q_next, tid + NT * (ks * kPer + j));
+          }
         }
       }
-      __syncthreads();
-      // Cross mode: the weights are the densities themselves.
-      const float4* sA4 = reinterpret_cast<const float4*>(
-          args.is_auto ? sA : sN + (size_t)j0 * TB);
-      float part[kRM][kRN];
-#pragma unroll
-      for (int r = 0; r < kRM; ++r)
-#pragma unroll
-        for (int c = 0; c < kRN; ++c) part[r][c] = 0.f;
-#pragma unroll 4
-      for (int jj = 0; jj < kKT; ++jj) {
-        float a[kRM];
-#pragma unroll
-        for (int r4 = 0; r4 < kRM / 4; ++r4) {
-          const float4 v = sA4[jj * (TB / 4) + rg * (kRM / 4) + r4];
-          a[4 * r4] = v.x;
-          a[4 * r4 + 1] = v.y;
-          a[4 * r4 + 2] = v.z;
-          a[4 * r4 + 3] = v.w;
-        }
-        const float4 f = sF4[jj * (kCT / 4) + cg];
-        const float fv[kRN] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-        for (int r = 0; r < kRM; ++r)
-#pragma unroll
-          for (int c = 0; c < kRN; ++c)
-            part[r][c] = fmaf(a[r], fv[c], part[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRM; ++r)
-#pragma unroll
-        for (int c = 0; c < kRN; ++c) acc[r][c] += (double)part[r][c];
+      if constexpr (!kAllMma)
+        for (int f = tid; f < kItems; f += NT) form_item(next, q_next, f);
     }
 
-    // Columns ct + cg*4 .. +3 are (node, k0 .. k0+3) of one node.
-    const int col = ct + cg * kRN;
-    const int node = col / args.nxp;
-    const int k0 = col - node * args.nxp;
+    // Epilogue of column tile ct: accumulator element e of (mi, ni) is
+    // row 16 (m0 + mi) + g + 8 (e / 2), column n0 + 8 ni + 2 t + e % 2.
     if (!fold) {
+      if (mma_warp) {
 #pragma unroll
-      for (int r = 0; r < kRM; ++r) {
-        const int b = rg * kRM + r;
-        const size_t row = (size_t)row0 + b;
-        if (row < (size_t)args.batch && node < args.n_nodes) {
-          const float tot = sTot[b];
-          const float den = args.is_auto ? tot * tot : tot;
-          float* out = args.out_xi + (row * args.n_nodes + node) * args.n_xi;
+        for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-          for (int c = 0; c < kRN; ++c)
-            if (k0 + c < args.n_xi)
-              out[k0 + c] = static_cast<float>(acc[r][c]) / den;
-        }
+          for (int ni = 0; ni < kNT8; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int b = (m0 + mi) * 16 + g + 8 * (e >> 1);
+              const int col = ct * kCT + n0 + ni * 8 + 2 * t + (e & 1);
+              const int node = col / args.nxp;
+              const int k = col - node * args.nxp;
+              const size_t row = (size_t)row0 + b;
+              if (row < (size_t)args.batch && node < args.n_nodes &&
+                  k < args.n_xi) {
+                const float tot = sTot[b];
+                const float den = args.is_auto ? tot * tot : tot;
+                args.out_xi[(row * args.n_nodes + node) * args.n_xi + k] =
+                    static_cast<float>(acc[mi][ni][e]) / den;
+              }
+            }
       }
       continue;
     }
+    // Fold: the tile's nodes in order, one barrier after each, so that
+    // every sQ element takes its nodes in node order.
+    const int col0 = ct * kCT;
+    const int node_lo = col0 / args.nxp;
+    const int node_hi = min((col0 + kCT - 1) / args.nxp, args.n_nodes - 1);
+    int cnode[kNT8][2], ck[kNT8][2];
 #pragma unroll
-    for (int r = 0; r < kRM; ++r) {
-      const int b = rg * kRM + r;
-      float wgt = 0.f;
-      if (row0 + b < args.batch && node < args.n_nodes)
-        wgt = __ldg(args.nw + (size_t)(row0 + b) * args.n_nodes + node);
+    for (int ni = 0; ni < kNT8; ++ni)
 #pragma unroll
-      for (int c = 0; c < kRN; ++c)
-        sP[b * kCT + cg * kRN + c] = static_cast<float>(acc[r][c]) * wgt;
-    }
-    __syncthreads();
-    // One thread per (row, statistic) adds this tile's nodes in order.
-    const int node_lo = ct / args.nxp;
-    const int node_hi = min((ct + kCT - 1) / args.nxp, args.n_nodes - 1);
-    for (int item = tid; item < TB * args.n_xi; item += kThreads) {
-      const int b = item / args.n_xi;
-      const int k = item % args.n_xi;
-      double q = sQ[b * args.nxp + k];
-      for (int nd = node_lo; nd <= node_hi; ++nd) {
-        const int c = nd * args.nxp + k - ct;
-        if (c >= 0 && c < kCT) q += (double)sP[b * kCT + c];
+      for (int c = 0; c < 2; ++c) {
+        const int col = col0 + n0 + ni * 8 + 2 * t + c;
+        cnode[ni][c] = col / args.nxp;
+        ck[ni][c] = col - cnode[ni][c] * args.nxp;
       }
-      sQ[b * args.nxp + k] = q;
+    for (int nd = node_lo; nd <= node_hi; ++nd) {
+      if (mma_warp) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int b = (m0 + mi) * 16 + g + 8 * r;
+            if (row0 + b >= args.batch) continue;
+            const double wgt = static_cast<double>(
+                __ldg(args.nw + (size_t)(row0 + b) * args.n_nodes + nd));
+#pragma unroll
+            for (int ni = 0; ni < kNT8; ++ni)
+#pragma unroll
+              for (int c = 0; c < 2; ++c)
+                if (cnode[ni][c] == nd && ck[ni][c] < args.n_xi)
+                  sQ[b * args.nxp + ck[ni][c]] +=
+                      wgt * acc[mi][ni][2 * r + c];
+          }
+      }
+      __syncthreads();
     }
-    // The next tile writes sP only after the __syncthreads() at the top
-    // of its j0 loop.
   }
   __syncthreads();
 
   if (fold) {
-    for (int item = tid; item < TB * args.n_xi; item += kThreads) {
+    for (int item = tid; item < TB * args.n_xi; item += NT) {
       const int b = item / args.n_xi;
       const int k = item % args.n_xi;
       if (row0 + b < args.batch) {
@@ -271,26 +376,42 @@ grid_kernel(const GridArgs args) {
     args.out_total[row0 + tid] = sTot[tid];
 }
 
-template <int TB, int MODEL>
+template <int TB, bool AUTO, int MODEL>
 int launch(const GridArgs& args, int device, void* stream) {
-  const size_t smem = smem_floats(TB, args.nb_rows, args.nxp) *
-                      sizeof(float);
+  namespace tc = tabcorr::tc;
+  const size_t smem = smem_bytes<TB>(args.nb_rows, args.nxp);
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(grid_kernel<TB, MODEL>,
+  if (err != cudaSuccess) return tc::setup_error(err);
+  err = cudaFuncSetAttribute(grid_kernel<TB, AUTO, MODEL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return tc::setup_error(err);
   if (args.batch == 0) return 0;
   const int grid = (args.batch + TB - 1) / TB;
-  grid_kernel<TB, MODEL><<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(args);
+  grid_kernel<TB, AUTO, MODEL><<<grid, F64Grid<TB>::kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(args);
   return (int)cudaGetLastError();
 }
 
+template <int TB, bool AUTO>
+int launch_model(const GridArgs& args, int device, void* stream) {
+  using tabcorr::kAssembiasZheng07;
+  using tabcorr::kZheng07;
+  return args.hod.model == kZheng07
+             ? launch<TB, AUTO, kZheng07>(args, device, stream)
+             : launch<TB, AUTO, kAssembiasZheng07>(args, device, stream);
+}
+
+template <int TB>
+int launch_mode(const GridArgs& args, int device, void* stream) {
+  return args.is_auto ? launch_model<TB, true>(args, device, stream)
+                      : launch_model<TB, false>(args, device, stream);
+}
+
 // ----------------------------------------------------------------------
-// grid_tc: the same function on the tensor cores, in 3xTF32 (the 'scaled'
-// tier; tf32x3.cuh).
+// grid_tc: the same function on the tensor cores, in 3xTF32 (tf32x3.cuh);
+// slower than grid_kernel, so no contract routes to it
+// (ops/fused.py:grid_kernel_for).
 //
 // What bounds it: the tensor cores' issue rate through mma.sync (grid64:
 // 3 x 2 x 1856 x 2816 TF32 FLOP per row), then the split of each B
@@ -652,8 +773,8 @@ bool make_grid_args(const float* params, const float* nw, int batch,
 
 extern "C" {
 
-// Launch the grid kernel on `stream` with TB = `tb` (32 or 64) rows per
-// block.  `model`, `modulate` and `split` select the occupation
+// Launch the grid kernel (FP64 tensor cores) on `stream` with TB = `tb`
+// (64, 32 or 16) rows per block (see smem_bytes).  `model`, `modulate` and `split` select the occupation
 // (zheng07.cuh).  `nw` null writes the unfolded (B, n_nodes, n_xi)
 // output.  Returns the CUDA error code of the launch (0 on success); the
 // kernel runs asynchronously.
@@ -671,15 +792,9 @@ int tabcorr_grid(const float* params, const float* nw, int batch, int model,
                       c_pad, n_nodes, n_xi, nxp, is_auto, out_total, out_xi,
                       &args))
     return (int)cudaErrorInvalidValue;
-  using tabcorr::kAssembiasZheng07;
-  using tabcorr::kZheng07;
-  const bool plain = args.hod.model == kZheng07;
-  if (tb == 64)
-    return plain ? launch<64, kZheng07>(args, device, stream)
-                 : launch<64, kAssembiasZheng07>(args, device, stream);
-  if (tb == 32)
-    return plain ? launch<32, kZheng07>(args, device, stream)
-                 : launch<32, kAssembiasZheng07>(args, device, stream);
+  if (tb == 64) return launch_mode<64>(args, device, stream);
+  if (tb == 32) return launch_mode<32>(args, device, stream);
+  if (tb == 16) return launch_mode<16>(args, device, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -86,10 +86,11 @@ using tabcorr::cp_async_wait;
 
 // Start copying rows [0, n_rows) x kCT columns of B (row stride `stride`
 // floats, 16-byte aligned) into the stage `dst` (row stride kBS).  Every
-// thread of the block calls it; the caller commits the group.
+// thread of the block (NT threads) calls it; the caller commits the group.
+template <int NT = kThreads>
 __device__ __forceinline__ void stage_b(float* dst, const float* src,
                                         size_t stride, int n_rows) {
-  for (int l = threadIdx.x; l < n_rows * (kCT / 4); l += kThreads) {
+  for (int l = threadIdx.x; l < n_rows * (kCT / 4); l += NT) {
     const int r = l / (kCT / 4);
     const int c4 = l % (kCT / 4);
     cp_async16(dst + r * kBS + c4 * 4, src + r * stride + c4 * 4);

@@ -8,11 +8,12 @@
   several statistics at once, around a batched multi-statistic predictor
   such as ``predictor.make_multi_predictor``.
 
-The chi^2 contraction runs in full float32:
-``make_gaussian_logpost_batched`` sets
-``torch.backends.cuda.matmul.allow_tf32 = False``, since TF32's ~10-bit
-mantissa would round the residuals far above the predictions' 1e-6
-accuracy.
+The chi^2 contraction of ``make_gaussian_logpost_batched`` runs in
+float64 and rounds to float32 once: a float32 product may run in TF32,
+whose ~10-bit mantissa would round the residuals far above the
+predictions' 1e-6 accuracy, and a float64 one never does, so the
+process-wide ``torch.backends.cuda.matmul.allow_tf32`` is neither read
+nor set.
 """
 
 from __future__ import annotations
@@ -130,12 +131,11 @@ def make_gaussian_logpost_batched(predict_all, param_names, base_params,
     ``vectorized=True``.
     """
     device = resolve_device(device)
-    # Full float32 chi^2 (see the module docstring).
-    torch.backends.cuda.matmul.allow_tf32 = False
     data_list = [torch.as_tensor(d, dtype=torch.float32,
                                  device=device).reshape(-1)
                  for d in data_list]
-    inv_cov_list = [torch.as_tensor(c, dtype=torch.float32, device=device)
+    inv_cov_list = [torch.as_tensor(c, dtype=torch.float32,
+                                    device=device).double()
                     for c in inv_cov_list]
     if len(data_list) != len(inv_cov_list):
         raise ValueError("data_list and inv_cov_list lengths differ.")
@@ -155,9 +155,10 @@ def make_gaussian_logpost_batched(predict_all, param_names, base_params,
                 f"{len(data_list)} data vectors were given.")
         logp = torch.zeros(batch, dtype=theta.dtype, device=theta.device)
         for (_, xi), data, inv_cov in zip(results, data_list, inv_cov_list):
-            resid = xi.reshape(batch, -1) - data
-            logp = logp - 0.5 * torch.einsum("bi,ij,bj->b", resid, inv_cov,
-                                             resid)
+            resid = (xi.reshape(batch, -1) - data).double()
+            # In float64 (see the module docstring).
+            chi2 = torch.sum((resid @ inv_cov) * resid, dim=-1)
+            logp = logp - 0.5 * chi2.to(logp.dtype)
         if ngal_data is not None:
             ngal0 = results[0][0]
             logp = logp - 0.5 * ((ngal0 - ngal_data) / ngal_sigma) ** 2

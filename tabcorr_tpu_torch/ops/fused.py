@@ -3,9 +3,9 @@
 Ports of the four Pallas kernels of ``tabcorr_tpu/ops/fused.py``.  Every
 kernel has a plain version in tensor ops beside it; a wrapper runs the
 plain version for CPU tensors and launches the kernel (or raises) for
-CUDA tensors.  B1 and B3 compute in full float32 under both accuracy
-contracts ('elementwise', 'scaled'); B2 and B4 take the tensor cores under
-'scaled' (below).
+CUDA tensors.  B1 and B3 compute in full float32 and B2 contracts in
+float64 on the tensor cores, under both accuracy contracts ('elementwise',
+'scaled'); B4 takes the tensor cores under 'scaled' (below).
 
 The kernels that evaluate the occupation themselves (B1, B2, B4) take two
 models, chosen by :func:`kernel_model` on the model's exact type: zheng07
@@ -42,13 +42,14 @@ subclasses included, raises on CUDA; the plain versions take any model.
   node's matrix, without the spline fold.  :func:`slab_launch`
   (``csrc/slab.cu``) and :func:`slab_predict_plain`.
 
-B2 and B4 have a second kernel each for the 'scaled' contract, the
-counterpart of tabcorr_tpu's MXU pass classes: :func:`grid_tc_launch` and
-:func:`slab_tc_launch` run the same functions in 3xTF32 on the tensor cores
-(``csrc/tf32x3.cuh``).  :func:`make_fused_grid_predictor` picks the kernel
-by the contract (:func:`grid_kernel_for`); the plain versions serve both
-tiers.  B1 has no such kernel: at the bundle's shapes the FP32 contraction
-is the faster and the more exact of the two, so it serves both contracts.
+B2 and B4 have a second kernel each, in 3xTF32 on the tensor cores
+(``csrc/tf32x3.cuh``): :func:`grid_tc_launch` and :func:`slab_tc_launch`.
+B4 picks its kernel by the contract, the counterpart of tabcorr_tpu's MXU
+pass classes: slab_tc under 'scaled'.  B2's grid kernel contracts in
+float64 on the tensor cores and is faster than grid_tc, so it serves both
+contracts, as B1's and B3's FP32 kernels do (:func:`grid_kernel_for`);
+grid_tc stays reachable through its wrapper.  The plain versions serve
+every kernel.
 
 On the card B1, B3 and both tiers of B4 read their matrices in one
 layout, the block-triangular half of each symmetric matrix
@@ -104,8 +105,10 @@ _ROW_TERMS = 9
 # Rows per tensor-op occupation pass ahead of the contraction kernel: it
 # bounds the (chunk, n_bins, n_gauss) intermediates.
 _OCC_CHUNK = 32768
-# Batch rows per block the grid kernel may take, largest first.
-_GRID_BLOCK_ROWS = (64, 32)
+# Batch rows per block the grid kernel may take, largest first, and the
+# stages of its cp.async ring.
+_GRID_BLOCK_ROWS = (64, 32, 16)
+_GRID_STAGES = {64: 2, 32: 3, 16: 3}
 # Tile geometry of csrc/tf32x3.cuh: a staged B tile is _KT (grid_tc) or
 # 64 (contract.cuh's contract_tc) rows of _CT columns at a row stride of
 # _TC_BS floats; the cp.async ring stages of grid_tc (by block rows) and
@@ -335,8 +338,10 @@ def bundle_table_constants(table: TableData) -> BundleTable:
 
 
 def bundle_predict_plain(consts, params, occupation_cen, occupation_sat):
-    """The bundle in float32 tensor ops, ``_PLAIN_CHUNK`` batch rows at a
-    time (bounding the (chunk, n_xi * nbp) contraction intermediate).
+    """The bundle in tensor ops, ``_PLAIN_CHUNK`` batch rows at a time
+    (bounding the (chunk, n_xi * nbp) contraction intermediate): float32
+    densities, as in the kernel, contracted in float64
+    (:func:`_contract_chunk`).
 
     Returns ``[(total (B,), xi (B, n_xi)), ...]`` per table.
     """
@@ -361,14 +366,20 @@ def contraction_plain(c: BundleTable, ngal):
 
 
 def _contract_chunk(c: BundleTable, ngal):
+    """(total, xi) of one chunk of float32 densities: the contraction in
+    float64, rounded to float32 before the division, as the grid and slab
+    plain versions do, so that the plain version is the more accurate
+    side of a comparison with the kernels (a float32 product sums the
+    bins in another order than the kernels and in TF32 where a caller
+    allows it)."""
     total = _total(ngal)
-    ngal = torch.nn.functional.pad(ngal, (0, c.k_pad - c.n_bins))
-    t = ngal @ c.f_t
+    n = torch.nn.functional.pad(ngal, (0, c.k_pad - c.n_bins)).double()
+    t = n @ c.f_t.double()
     if not c.auto:
-        return total, t[:, :c.n_xi] / total[:, None]
+        return total, t[:, :c.n_xi].float() / total[:, None]
     t = t[:, :c.n_xi * c.nbp].reshape(-1, c.n_xi, c.nbp)
-    q = torch.sum(t * ngal[:, None, :c.nbp], dim=-1)
-    return total, q / (total * total)[:, None]
+    q = torch.sum(t * n[:, None, :c.nbp], dim=-1)
+    return total, q.float() / (total * total)[:, None]
 
 
 @functools.cache
@@ -730,8 +741,8 @@ def grid_predict_plain(g: GridTable, params, node_weights, occupation_cen,
     contraction over the pairs and the node fold run in float64 and round
     to float32 at the end.  A float32 matrix product sums the 1830 pairs
     of the 64-node grid in long float32 runs and lands up to ~3e-6
-    (scaled) from the float64 result, more than the kernel, which sums in
-    two levels (csrc/grid.cu).
+    (scaled) from the float64 result; the grid kernel sums in float64
+    (csrc/grid.cu), and grid_tc in two levels.
 
     Returns (total (B,), xi): with ``node_weights`` (B, n_nodes) the
     folded (B, n_xi), else the per-node (B, n_nodes, n_xi).
@@ -775,16 +786,19 @@ def _grid_lib():
 
 
 def _grid_smem_bytes(tb, n_bins, nxp) -> int:
-    """Dynamic shared memory of one block of csrc/grid.cu's kernel with
-    ``tb`` rows (the layout ``smem_floats`` carves)."""
-    return 4 * (_round_up(n_bins, _KT) * tb + _KT * tb + _KT * _CT +
-                tb * _CT + 2 * tb * nxp + _ROW_TERMS * tb)
+    """Dynamic shared memory of one block of csrc/grid.cu's grid kernel
+    with ``tb`` rows (the layout ``smem_bytes`` carves): the double-buffered
+    float64 pair weights and the float64 fold sums, then the float32 ring
+    of Fp tiles, densities and row terms."""
+    return (8 * (2 * _KT * tb + tb * nxp) +
+            4 * (_GRID_STAGES[tb] * _KT * _TC_BS + _round_up(n_bins, _KT) * tb +
+                 _ROW_TERMS * tb))
 
 
 def grid_block_rows(n_bins, n_xi):
     """Batch rows per block of the grid kernel for a table of this shape:
-    64, or 32 where 64 rows' densities do not fit in shared memory; None
-    where neither fits."""
+    64, or 32 or 16 where more rows' densities do not fit in shared
+    memory; None where none fits."""
     nxp = _round_up(n_xi, 4)
     for tb in _GRID_BLOCK_ROWS:
         if _grid_smem_bytes(tb, n_bins, nxp) <= _SMEM_LIMIT:
@@ -878,9 +892,9 @@ def _grid_entry_args(g: GridTable, pmat, node_weights, hod, block, total,
 def grid_tc_launch(g: GridTable, pmat, node_weights=None,
                    hod=KernelModel()):
     """Launch the grid_tc kernel once: :func:`grid_launch`'s function, in
-    3xTF32 on the tensor cores (the 'scaled' tier), from the same
-    constants.  Raises on any input the kernel does not take and on any
-    launch error."""
+    3xTF32 on the tensor cores, from the same constants (no contract routes
+    to it: :func:`grid_kernel_for`).  Raises on any input the kernel does
+    not take and on any launch error."""
     global GRID_TC_LAUNCHES
     total, xi = _check_grid_launch(g, pmat, node_weights, hod)
     block = grid_tc_config(g.n_bins, g.n_xi, g.auto)
@@ -1244,13 +1258,16 @@ def grid_kernel_takes(n_bins, mode, n_xi) -> bool:
 # The grid predictor: B2 (packed) or B4 (slab), by tier
 # ----------------------------------------------------------------------
 def grid_kernel_for(layout, accuracy):
-    """The kernel :func:`make_fused_grid_predictor` launches on CUDA: the
-    'scaled' tier runs the 3xTF32 tensor-core kernels (grid_tc, slab_tc),
-    the 'elementwise' tier the FP32 kernels (grid, slab) -- the
-    counterpart of tabcorr_tpu's MXU pass classes, where the contract
-    picks the precision."""
-    base = "grid" if layout == "packed" else "slab"
-    return base + "_tc" if accuracy == "scaled" else base
+    """The kernel :func:`make_fused_grid_predictor` launches on CUDA.  The
+    packed layout runs the grid kernel (FP64 tensor cores) under both
+    contracts: it is faster than grid_tc at every grid measured and more
+    exact.  The slab layout picks by the contract, the counterpart of
+    tabcorr_tpu's MXU pass classes: 'scaled' runs slab_tc (3xTF32 on the
+    tensor cores), 'elementwise' the FP32 slab kernel.  grid_tc is reached
+    through :func:`grid_tc_launch` only."""
+    if layout == "packed":
+        return "grid"
+    return "slab_tc" if accuracy == "scaled" else "slab"
 
 
 def grid_constants(table: TableData, n_nodes, layout, accuracy,
@@ -1283,10 +1300,10 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
         On a CUDA device a model the kernels evaluate (:func:`kernel_model`);
         on the CPU any model (plain versions).
     accuracy : str
-        'elementwise' (the FP32 kernels) or 'scaled' (the 3xTF32
-        tensor-core kernels, within 1e-6 of each row's largest statistic);
-        see :func:`grid_kernel_for`.  On the CPU both run the plain
-        versions.
+        'elementwise' or 'scaled' (within 1e-6 of each row's largest
+        statistic): the grid kernel under both, the FP32 or the 3xTF32
+        slab kernel; see :func:`grid_kernel_for`.  On the CPU both run
+        the plain versions.
     layout : str
         'packed' (the grid kernels, B2), 'slab' (the slab kernels, B4), or
         'auto': tabcorr_tpu's rule (:func:`grid_layout_for`), the slab

@@ -309,11 +309,11 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
         outside the grid -- pair it with a log posterior that maps
         non-finite predictions to -inf; True clamps to the edge splines.
     accuracy : str, optional
-        Fused-engine contract, 'elementwise' or 'scaled'.  An
-        Interpolator's 'scaled' route runs the 3xTF32 tensor-core grid
-        kernels (``ops.fused.grid_kernel_for``); everything else runs at
-        full float32 precision (a TabCorr's contraction kernel under both
-        contracts).
+        Fused-engine contract, 'elementwise' or 'scaled'.  A wide
+        Interpolator's 'scaled' route runs the 3xTF32 tensor-core slab
+        kernel (``ops.fused.grid_kernel_for``); the packed grid kernel
+        contracts in float64 and a TabCorr's contraction kernel in full
+        float32, under both contracts.
     device : str or torch.device, optional
         Where the tables live and the batch runs: 'cuda' (default) or
         'cpu'.
@@ -395,10 +395,6 @@ def make_multi_predictor(objs, model, n_gauss=10, *, device="cuda",
                              device=device) for obj in objs]
     if engine == "bundle":
         return fused.make_fused_bundle_predictor(tables, model, accuracy)
-    if device.type == "cuda":
-        # The plain version's matmuls must stay full float32 (TF32 keeps
-        # ~10 mantissa bits).
-        torch.backends.cuda.matmul.allow_tf32 = False
     consts = [fused.bundle_table_constants(t) for t in tables]
     occ_cen, occ_sat = occupation_functions(model)
 

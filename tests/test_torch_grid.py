@@ -178,7 +178,8 @@ def test_slab_layout_is_not_ported(monkeypatch):
     assert not fused.grid_fits(128, "auto", 2)
     assert fused.grid_kernel_takes(128, "auto", 2)
     assert fused.grid_fits(1104, "cross", 13)
-    assert not fused.grid_fits(2000, "cross", 13)
+    assert fused.grid_fits(2000, "cross", 13)     # 16-row blocks
+    assert not fused.grid_fits(3000, "cross", 13)
 
 
 def _jax_and_port_nodes(keys, xps, batch, seed, extrapolate):

@@ -300,6 +300,75 @@ def test_grid_kernel_takes_1104_cross_bins(cuda):
     _assert_grid_close(got, want)
 
 
+@pytest.mark.parametrize("fold", [False, True])
+def test_grid_kernel_takes_16_row_blocks(cuda, fold):
+    """A 1400-bin cross grid: only 16 rows' densities fit in a block."""
+    n_nodes = 3
+    table = _grid_table(n_nodes, 350, 2, 5, "cross", 17, cuda)
+    assert fused.grid_block_rows(1400, 5) == 16
+    model = _model("assembias")
+    predict = fused.make_fused_grid_predictor(table, n_nodes, model,
+                                              fold_spline=fold)
+    g = fused.grid_table_constants(table, n_nodes)
+    params = _params(model, 131, 9, cuda)
+    nw = torch.tensor(np.random.default_rng(4).dirichlet(np.ones(n_nodes),
+                                                         131),
+                      dtype=torch.float32, device=cuda) if fold else None
+    before = fused.GRID_LAUNCHES
+    got = predict(params, nw) if fold else predict(params)
+    torch.cuda.synchronize()
+    assert fused.GRID_LAUNCHES == before + 1
+    _assert_grid_close(got, fused.grid_predict_plain(
+        g, params, nw, *occupation_functions(model)))
+
+
+def _ds_efficient_grid(kind, device):
+    """The 'efficient' Delta Sigma grid stacked for the grid kernels (cross,
+    1104 bins, 4 nodes of 13 rows) and its model."""
+    interp = Interpolator.read(DATA / "ds_efficient.npz")
+    model = {"zheng07": Zheng07Model, "assembias": AssembiasZheng07Model}[
+        kind](threshold=-21, redshift=0.5, prim_haloprop_key="halo_m258m")
+    model.param_dict.update(log_eta=0.0, alpha_s=1.0, alpha_c=0.0)
+    tables = [interp.tabcorr_list[i].table_data(device=device)
+              for i in interp.param_dict_table["tabcorr_index"]]
+    return dataclasses.replace(
+        tables[0], tpcf_dense=torch.cat([t.tpcf_dense for t in tables]),
+        tpcf_shape=(4 * 13,)), model
+
+
+@pytest.mark.parametrize("kind", ["zheng07", "assembias"])
+@pytest.mark.parametrize("shape", ["auto 60 bins", "cross 1104 bins",
+                                   "cross 1400 bins"])
+def test_grid_kernels_share_the_occupation_bit_for_bit(cuda, shape, kind):
+    """The occupation's tolerance: ngal of the grid kernel and of grid_tc
+    on the same inputs is bit-identical (both run zheng07.cuh's
+    occupation_phase, its loops unrolled by kOccUnroll, with blocks of the
+    same rows), and within 2^-22 relative of the plain version's (tensor
+    ops round the transcendental functions elsewhere)."""
+    if shape.startswith("auto"):
+        n_nodes, table, model = 2, _grid_table(2, 15, 2, 7, "auto", 13,
+                                               cuda), _model(kind)
+    elif shape == "cross 1104 bins":
+        (table, model), n_nodes = _ds_efficient_grid(kind, cuda), 4
+    else:
+        n_nodes, table, model = 3, _grid_table(3, 350, 2, 5, "cross", 17,
+                                               cuda), _model(kind)
+    g = fused.grid_table_constants(table, n_nodes)
+    assert fused.grid_block_rows(g.n_bins, g.n_xi) == \
+        fused.grid_tc_config(g.n_bins, g.n_xi, g.auto)[0]
+    hod = fused.KernelModel.of(model)
+    params = _params(model, 4096 + 37, 12, cuda)
+    pmat = fused._param_matrix(params, hod)
+    ngal = fused.grid_launch(g, pmat, None, hod)[0]
+    ngal_tc = fused.grid_tc_launch(g, pmat, None, hod)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(ngal, ngal_tc)
+    want = fused.grid_predict_plain(g, params, None,
+                                    *occupation_functions(model))[0]
+    rel = ((ngal.double() - want.double()).abs() / want.double().abs()).max()
+    assert float(rel) <= 2.0 ** -22, float(rel)
+
+
 def test_fused_interpolator_nan_outside_the_grid(cuda):
     interp = Interpolator.read(DATA / "ds_efficient.npz")
     model = Zheng07Model(threshold=-21, redshift=0.5,
@@ -328,6 +397,17 @@ def test_grid_wrapper_rejects_bad_inputs(cuda):
         fused.grid_launch(g, pmat.cpu())
     with pytest.raises(ValueError):
         fused.grid_launch(g, pmat, torch.ones((8, 2), device=cuda))
+    # Shapes the C entry point refuses come back as a launch error, and a
+    # table whose 16-row block does not fit in shared memory raises.
+    before = fused.GRID_LAUNCHES
+    with pytest.raises(RuntimeError, match="grid kernel launch failed"):
+        fused.grid_launch(dataclasses.replace(g, npair=g.npair + 1), pmat)
+    wide = fused.grid_table_constants(_grid_table(1, 750, 2, 1, "cross", 1,
+                                                  cuda), 1)
+    assert wide.n_bins == 3000 and fused.grid_block_rows(3000, 1) is None
+    with pytest.raises(ValueError, match="shared memory"):
+        fused.grid_launch(wide, pmat)
+    assert fused.GRID_LAUNCHES == before
 
 
 # ----------------------------------------------------------------------
@@ -450,7 +530,7 @@ class HodModelStandIn(Zheng07Model):
 
 
 # ----------------------------------------------------------------------
-# The 'scaled' tier: grid_tc and slab_tc (3xTF32 on the tensor cores)
+# grid_tc and slab_tc (3xTF32 on the tensor cores); slab_tc is 'scaled'
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("kind", ["zheng07", "assembias"])
 @pytest.mark.parametrize("mode", ["auto", "cross"])
@@ -460,9 +540,7 @@ def test_grid_tc_kernel_matches_plain(cuda, mode, fold, batch, kind):
     n_nodes = 6
     table = _grid_table(n_nodes, 12, 2, 7, mode, 13, cuda)
     model = _model(kind)
-    predict = fused.make_fused_grid_predictor(table, n_nodes, model,
-                                              accuracy="scaled",
-                                              fold_spline=fold)
+    hod = fused.KernelModel.of(model)
     g = fused.grid_table_constants(table, n_nodes)
     params = _params(model, batch, 9, cuda)
     nw = None
@@ -472,7 +550,8 @@ def test_grid_tc_kernel_matches_plain(cuda, mode, fold, batch, kind):
                           dtype=torch.float32, device=cuda)
         nw[3] = torch.nan
     before = (fused.GRID_LAUNCHES, fused.GRID_TC_LAUNCHES)
-    got = predict(params, nw) if fold else predict(params)
+    # No contract routes to grid_tc (grid_kernel_for): its wrapper.
+    got = fused.grid_tc_launch(g, fused._param_matrix(params, hod), nw, hod)
     torch.cuda.synchronize()
     assert (fused.GRID_LAUNCHES, fused.GRID_TC_LAUNCHES) == (before[0],
                                                              before[1] + 1)
@@ -497,15 +576,13 @@ def test_grid_tc_kernel_takes_1104_cross_bins(cuda):
     table = dataclasses.replace(
         tables[0], tpcf_dense=torch.cat([t.tpcf_dense for t in tables]),
         tpcf_shape=(4 * 13,))
-    predict = fused.make_fused_grid_predictor(table, 4, model,
-                                              accuracy="scaled",
-                                              fold_spline=True)
+    hod = fused.KernelModel.of(model)
     g = fused.grid_table_constants(table, 4)
     params = _params(model, 301, 10, cuda)
     nw = torch.tensor(np.random.default_rng(4).dirichlet(np.ones(4), 301),
                       dtype=torch.float32, device=cuda)
     before = fused.GRID_TC_LAUNCHES
-    got = predict(params, nw)
+    got = fused.grid_tc_launch(g, fused._param_matrix(params, hod), nw, hod)
     torch.cuda.synchronize()
     assert fused.GRID_TC_LAUNCHES == before + 1
     want = fused.grid_predict_plain(g, params, nw,
@@ -550,17 +627,14 @@ def test_grid_tc_takes_the_grid_kernels_large_shapes(cuda, shape):
                                 auto=not cross) == ((16, False) if cross
                                                     else (64, False))
     model = _model("assembias")
-    predict = fused.make_fused_grid_predictor(table, n_nodes, model,
-                                              accuracy="scaled",
-                                              layout="packed",
-                                              fold_spline=True)
+    hod = fused.KernelModel.of(model)
     g = fused.grid_table_constants(table, n_nodes)
     params = _params(model, 131, 9, cuda)
     nw = torch.tensor(np.random.default_rng(4).dirichlet(np.ones(n_nodes),
                                                          131),
                       dtype=torch.float32, device=cuda)
     before = fused.GRID_TC_LAUNCHES
-    got = predict(params, nw)
+    got = fused.grid_tc_launch(g, fused._param_matrix(params, hod), nw, hod)
     torch.cuda.synchronize()
     assert fused.GRID_TC_LAUNCHES == before + 1
     _assert_grid_close(got, fused.grid_predict_plain(
@@ -634,13 +708,18 @@ def _cancelling_table(mode, n_bins, n_xi, seed, device):
                                          ("auto", "packed"),
                                          ("auto", "slab")])
 def test_both_tiers_per_element_error_by_cancellation(cuda, mode, layout):
-    """Per-element relative error of the FP32 kernel ('elementwise') and
-    the 3xTF32 kernel ('scaled') against the plain version, by each
-    element's cancellation kappa = sum |terms| / |sum| (float64, from the
-    plain densities).  Both tiers meet 1e-6 per element wherever kappa <
-    5; both pass it by about the same margin, so no reading yet shows an
-    'elementwise' table that needs the FP32 kernels.  Run with -s for the
-    table of maxima."""
+    """Per-element relative error of each tier's kernel against the plain
+    version, by each element's cancellation kappa = sum |terms| / |sum|
+    (float64, from the plain densities): for the packed layout the FP64
+    grid kernel (both contracts) and grid_tc (3xTF32, through its
+    wrapper), for the slab layout the FP32 slab kernel ('elementwise') and
+    slab_tc ('scaled').  Every kernel meets
+    1e-6 per element wherever kappa < 5.  Two more references separate
+    what the error is made of: the float64 contraction of the same
+    float32 densities over the float64 table, and over the float32
+    table the kernels read (their own operands, so what is left against
+    it is summation and the densities' differences).  Run with -s for
+    the tables of maxima."""
     batch = 4096
     table, dense = _cancelling_table(mode, 60, 40, 7, cuda)
     model = _model("zheng07")
@@ -651,49 +730,62 @@ def test_both_tiers_per_element_error_by_cancellation(cuda, mode, layout):
     n = fused._plain_ngal(plain, {k: v[:, None, None]
                                   for k, v in params.items()},
                           *occ).double().cpu().numpy()
-    if mode == "auto":
-        total = np.einsum("bi,kij,bj->bk", n, dense, n)
-        terms = np.einsum("bi,kij,bj->bk", n, np.abs(dense), n)
-    else:
-        total, terms = n @ dense.T, n @ np.abs(dense).T
+    dense32 = table.tpcf_dense.double().cpu().numpy()
+
+    def contract(f):
+        if mode == "auto":
+            return np.einsum("bi,kij,bj->bk", n, f, n)
+        return n @ f.T
+
+    total, terms, total32 = contract(dense), contract(np.abs(dense)), \
+        contract(dense32)
     kappa = terms / np.abs(total)
     want = (fused.slab_predict_plain(plain, params, *occ) if layout == "slab"
             else fused.grid_predict_plain(plain, params, None, *occ))[1]
     want = want.double().cpu().numpy().reshape(batch, -1)
-    # The truth: the float64 contraction of the same float32 densities.
-    # Both tiers' kernels evaluate the occupation with the same code, so
-    # what the densities add to this error is the same for both.
     tot = n.sum(axis=1, keepdims=True)
-    truth = total / (tot * tot if mode == "auto" else tot)
+    den = tot * tot if mode == "auto" else tot
+    refs = {"the plain version": want,
+            "float64 of the float32 densities": total / den,
+            "float64 over the kernels' operands": total32 / den}
     edges = (1, 2, 5, 10, 30)
-    maxima, maxima64 = {}, {}
-    for accuracy in ("elementwise", "scaled"):
-        predict = fused.make_fused_grid_predictor(table, 1, model,
-                                                  accuracy=accuracy,
-                                                  layout=layout)
+    bins = [(kappa >= lo) & (kappa < hi)
+            for lo, hi in zip(edges[:-1], edges[1:])]
+    if layout == "slab":
+        kernels = {name: fused.make_fused_grid_predictor(
+            table, 1, model, accuracy=accuracy, layout=layout)
+            for name, accuracy in (("slab", "elementwise"),
+                                   ("slab_tc", "scaled"))}
+    else:
+        hod = fused.KernelModel.of(model)
+        pmat = fused._param_matrix(params, hod)
+        kernels = {"grid (FP64)": lambda _: fused.grid_launch(plain, pmat,
+                                                              hod=hod),
+                   "grid_tc": lambda _: fused.grid_tc_launch(plain, pmat,
+                                                             hod=hod)}
+    maxima = {what: {} for what in refs}
+    for name, predict in kernels.items():
         got = predict(params)[1].double().cpu().numpy().reshape(batch, -1)
-        bins = [(kappa >= lo) & (kappa < hi)
-                for lo, hi in zip(edges[:-1], edges[1:])]
-        for ref, into in ((want, maxima), (truth, maxima64)):
+        for what, ref in refs.items():
             rel = np.abs(got - ref) / np.abs(ref)
-            into[accuracy] = [float(rel[b].max()) if b.any() else np.nan
-                              for b in bins]
-    for what, table_of in (("the plain version", maxima),
-                           ("float64 of the float32 densities", maxima64)):
+            maxima[what][name] = [float(rel[b].max()) if b.any() else np.nan
+                                  for b in bins]
+    for what, table_of in maxima.items():
         print(f"\n{mode} {layout}, max per-element relative error against "
               f"{what} for kappa in {list(zip(edges[:-1], edges[1:]))}: " +
               "; ".join(f"{a} {', '.join(f'{e:.3e}' for e in m)}"
                         for a, m in table_of.items()))
-    for accuracy, m in maxima.items():
-        assert max(m[:2]) <= 1e-6, (accuracy, m)
+    for name, m in maxima["the plain version"].items():
+        assert max(m[:2]) <= 1e-6, (name, m)
 
 
 @pytest.mark.parametrize("accuracy", ["scaled", "elementwise"])
 @pytest.mark.parametrize("wide", [False, True])
 def test_fused_interpolator_launches_the_tiers_kernels(cuda, accuracy,
                                                        wide):
-    """make_predictor(engine='fused') on an Interpolator: 'scaled' runs
-    only the _tc kernel of its layout, 'elementwise' only the FP32 one."""
+    """make_predictor(engine='fused') on an Interpolator: the packed
+    layout runs only the grid kernel under both contracts; the slab layout
+    only slab_tc under 'scaled', only the FP32 slab under 'elementwise'."""
     tabs = []
     for j in range(4):
         t = synthetic_tabcorr(np.random.default_rng(5), 32 if wide else 10,
@@ -718,7 +810,7 @@ def test_fused_interpolator_launches_the_tiers_kernels(cuda, accuracy,
     got = predict(params)
     torch.cuda.synchronize()
     grew = [getattr(fused, n) - b for n, b in zip(names, before)]
-    assert grew == ([0, 1] if accuracy == "scaled" else [1, 0])
+    assert grew == ([0, 1] if wide and accuracy == "scaled" else [1, 0])
     _assert_grid_close(got, plain(params))
 
 

@@ -141,3 +141,34 @@ def test_run_ensemble_thins_and_is_reproducible():
     again, _, _ = run()
     assert chain.shape == (4, 16, 2) and lp.shape == (4, 16)
     torch.testing.assert_close(chain, again, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("start", [False, True])
+def test_log_posterior_and_plain_engine_leave_the_tf32_flag(start):
+    """Neither building nor calling the log posterior or the plain
+    multi-statistic engine changes the process-wide TF32 flag: the chi^2
+    and the plain contraction run in float64."""
+    import tabcorr_tpu_torch as ttt
+    from tabcorr_tpu_torch.utils.synthetic import synthetic_tabcorr
+
+    flag = torch.backends.cuda.matmul
+    before = flag.allow_tf32
+    try:
+        flag.allow_tf32 = start
+        data, inv_cov, theta = _posterior_inputs()
+        log_prob = mcmc.make_gaussian_logpost_batched(
+            _linear_predictor(torch), NAMES, BASE, data, inv_cov,
+            device="cpu")
+        assert flag.allow_tf32 is start
+        assert log_prob(torch.tensor(theta)).shape == (32,)
+        assert flag.allow_tf32 is start
+        tab = synthetic_tabcorr(np.random.default_rng(3), 6, 1, 4, "auto")
+        model = ttt.Zheng07Model(threshold=-20)
+        predict = ttt.make_multi_predictor([tab], model, device="cpu",
+                                           engine="plain")
+        assert flag.allow_tf32 is start
+        params = ttt.params_batch(model, batch_shape=(3,), device="cpu")
+        assert predict(params)[0][1].dtype == torch.float32
+        assert flag.allow_tf32 is start
+    finally:
+        flag.allow_tf32 = before

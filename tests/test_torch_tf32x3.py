@@ -458,7 +458,7 @@ def test_grid_constants_of_the_tier(layout, accuracy, device_type, kind):
     consts = fused.grid_constants(table, 2, layout, accuracy, device_type)
     assert type(consts) is kind
     want = {("slab", "scaled"): "slab_tc", ("slab", "elementwise"): "slab",
-            ("packed", "scaled"): "grid_tc",
+            ("packed", "scaled"): "grid",
             ("packed", "elementwise"): "grid"}[layout, accuracy]
     assert fused.grid_kernel_for(layout, accuracy) == want
 
@@ -500,10 +500,11 @@ def test_tc_wrappers_need_cuda_and_report_their_shapes():
     assert not fused.contraction_fits(800, 42)
     assert fused.grid_kernel_takes(400, "auto", 42)
     # grid_tc: 64-row blocks with the pair offsets in shared memory at 60
-    # bins, 32 rows at the 1104-bin Delta Sigma table, 16 at 1400 bins.
+    # bins, 32 rows at the 1104-bin Delta Sigma table, 16 at 1400 bins, as
+    # the grid kernel.
     assert fused.grid_tc_config(60, 42) == (64, True)
     assert fused.grid_tc_config(1104, 13, auto=False) == (32, False)
-    assert fused.grid_block_rows(1400, 13) == 32
+    assert fused.grid_block_rows(1400, 13) == 16
     assert fused.grid_tc_config(1400, 13, auto=False) == (16, False)
     # A packed auto grid past the packed layout's 127 bins: the offsets
     # stay in device memory.
