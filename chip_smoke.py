@@ -6,7 +6,8 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
 It builds the hand-written CUDA kernels (tabcorr_tpu_torch/csrc: the
 bundle and contraction kernels in bundle.cu, the grid kernels in grid.cu,
-the slab kernels in slab.cu, one nvcc each, in parallel) and drives
+the slab kernels in slab.cu, the occupation kernel of the HOD families in
+occupation.cu, one nvcc each, in parallel) and drives
 ``tabcorr_tpu_torch`` through the entry points a user calls, at real
 shapes, 262,144 parameter vectors each unless said otherwise:
 
@@ -42,6 +43,26 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    parameters; then the 'elementwise' route (the FP32 slab kernel, from
    the same constants).
 
+8. The other HOD families, whose densities the occupation kernel
+   computes and the kernels read (model code 2): the bundle on the wp +
+   xi_ell tables for Leauthaud11 and ZuMandelbaum15 (threshold 10.5;
+   log10 M1 +- 0.1, the central scatter +-25%, alphasat 0.8-1.2, bsat and
+   bcut +-10%; three ensemble steps over those five); the grid kernel on
+   the 64-node grid for Leauthaud11 (three sampler steps) and on the
+   'efficient' Delta Sigma grid for AssembiasLeauthaud11 at z = 0.5 under
+   both contracts; the contraction kernel for Cacciato09 on wp and
+   Tinker13 (quiescent) on xi_ell; slab_tc and slab on the wide grid for
+   AssembiasZuMandelbaum15 at 32,768 rows (two sampler steps).  Each
+   prints the occupation kernel and the kernel it feeds separately, beside
+   the occupation's plain version (tensor ops); the occupation kernel
+   against its plain version (tabcorr_tpu's fused-against-XLA bar) and
+   against float64 (1e-6), the kernel against the plain contraction of
+   the same densities, and the path and the port's plain float32 engine
+   against float64 at 16 probes (the path within max(1e-6, twice the
+   plain engine's error)).  Then code 2 fed zheng07's tensor-op densities
+   against codes 0 / 1 on the same rows: the bundle, the 64-node grid,
+   both slab tiers.
+
 Paths 3-5 and 7 run the 'scaled' contract: the grid kernel and slab_tc;
 the 'elementwise' passes run the grid kernel and the FP32 slab kernel,
 held against the same plain versions.  No contract routes to grid_tc
@@ -60,6 +81,7 @@ last lists the kernels as JSON, and the last line is one JSON object
 naming the device.
 """
 
+import copy
 import dataclasses
 import json
 import subprocess
@@ -82,6 +104,8 @@ SLAB_OUT_ROWS = (17, 4099, SLAB_BATCH - 1)
 # on the tensor cores, and HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+# FP64 on the CUDA cores (the same data sheet).
+PEAK_FP64_FLOPS = 34e12
 PEAK_HBM_BYTES = 3.35e12
 STRENGTHS = ("mean_occupation_centrals_assembias_param1",
              "mean_occupation_satellites_assembias_param1")
@@ -93,11 +117,16 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "grid_tc": (CSRC + "grid.cu", "tabcorr_tpu/ops/fused.py:1485"),
     "slab": (CSRC + "slab.cu", "tabcorr_tpu/ops/fused.py:1162"),
     "slab_tc": (CSRC + "slab.cu", "tabcorr_tpu/ops/fused.py:1162"),
+    # The occupation phase the Pallas kernels B1, B4 and B2 trace in their
+    # bodies for the SHMR, CLF and quiescent/active families.
+    "occupation": (CSRC + "occupation.cu",
+                   "tabcorr_tpu/ops/fused.py:985, 1373, 1941"),
 }
 COUNTERS = {"bundle": "BUNDLE_LAUNCHES",
             "contraction": "CONTRACTION_LAUNCHES",
             "grid": "GRID_LAUNCHES", "grid_tc": "GRID_TC_LAUNCHES",
-            "slab": "SLAB_LAUNCHES", "slab_tc": "SLAB_TC_LAUNCHES"}
+            "slab": "SLAB_LAUNCHES", "slab_tc": "SLAB_TC_LAUNCHES",
+            "occupation": "OCCUPATION_LAUNCHES"}
 
 
 def check(ok, message):
@@ -119,6 +148,34 @@ def main():
         print("chip_smoke: torch finds no CUDA device; nothing was run.",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+    ctx = make_context()
+    kernels = {}
+    bundle_phase(ctx, kernels)
+    bundle_phase(ctx, kernels, decorated=True)
+    grid_phases(ctx, kernels)
+    contraction_phase(ctx, kernels)
+    slab_phase(ctx, kernels)
+    family_phases(ctx, kernels)
+
+    for name in KERNELS:
+        check(kernels[name]["launches"] > 0,
+              f"{name} never launched on its path")
+    print(f"whole run: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], **kernels[name]}
+        for name in KERNELS]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def make_context():
+    """Build every kernel library from the checkout, print the card, and
+    return the helpers the phases share."""
+    import torch
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     import numpy as np
@@ -191,28 +248,9 @@ def main():
             torch.backends.opt_einsum.enabled = einsum_opt
             torch.backends.cuda.matmul.allow_tf32 = tf32
 
-    ctx = dict(torch=torch, np=np, fused=fused, card=card, reset=reset,
-               expect=expect, window_ms=window_ms, alternate=alternate,
-               library_ms=library_ms)
-    kernels = {}
-    bundle_phase(ctx, kernels)
-    bundle_phase(ctx, kernels, decorated=True)
-    grid_phases(ctx, kernels)
-    contraction_phase(ctx, kernels)
-    slab_phase(ctx, kernels)
-
-    for name in KERNELS:
-        check(kernels[name]["launches"] > 0,
-              f"{name} never launched on its path")
-    print(f"whole run: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], **kernels[name]}
-        for name in KERNELS]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return dict(torch=torch, np=np, fused=fused, card=card, reset=reset,
+                expect=expect, window_ms=window_ms, alternate=alternate,
+                library_ms=library_ms)
 
 
 def record(kernels, name, launches, **numbers):
@@ -302,8 +340,8 @@ def bench_params(model, rng, batch, device):
 
 def host_model(model, params, i):
     """A copy of ``model`` at row ``i`` of the float32 batch."""
-    m = type(model)(threshold=model.threshold, redshift=model.redshift,
-                    prim_haloprop_key=model.prim_haloprop_key)
+    m = copy.copy(model)
+    m.param_dict = dict(model.param_dict)
     for k, v in params.items():
         m.param_dict[k] = float(v[i])
     return m
@@ -1085,6 +1123,693 @@ def slab_phase(ctx, kernels):
     record(kernels, "slab", launched["slab"], max_abs_err=err, ms=k_ms,
            plain_ms=p_ms, **bound(flop, quad + nbytes(s_tc.b) + out_bytes),
            library_ms=lib_ms)
+
+
+# ----------------------------------------------------------------------
+# The other HOD families: model code 2 (densities in)
+# ----------------------------------------------------------------------
+SHMR_SAMPLED = {"Leauthaud11Model": ("smhm_m1_0", "scatter_model_param1",
+                                     "alphasat", "bsat", "bcut"),
+                "ZuMandelbaum15Model": ("smhm_m1", "smhm_sigma", "alphasat",
+                                        "bsat", "bcut")}
+
+
+def family_params(model, rng, batch):
+    """Parameters around an SHMR family's values: log10 M1 +- 0.1, the
+    central scatter within +-25% (Leauthaud11 0.15-0.25), alphasat
+    0.8-1.2, bsat and bcut +-10%; assembly-bias strengths uniform in
+    [-1, 1]; row 0 at the model's values."""
+    from tabcorr_tpu_torch import params_batch
+    p = model.param_dict
+    o = {"alphasat": rng.uniform(0.8, 1.2, batch),
+         "bsat": p["bsat"] * rng.uniform(0.9, 1.1, batch),
+         "bcut": p["bcut"] * rng.uniform(0.9, 1.1, batch)}
+    if "smhm_m1_0" in p:
+        o["smhm_m1_0"] = p["smhm_m1_0"] + rng.uniform(-0.1, 0.1, batch)
+        o["scatter_model_param1"] = rng.uniform(0.15, 0.25, batch)
+    else:
+        o["smhm_m1"] = p["smhm_m1"] * 10.0 ** rng.uniform(-0.1, 0.1, batch)
+        o["smhm_sigma"] = p["smhm_sigma"] * rng.uniform(0.75, 1.25, batch)
+    for name in STRENGTHS:
+        if name in p:
+            o[name] = rng.uniform(-1.0, 1.0, batch)
+    for key in o:
+        o[key][0] = p[key]
+    return params_batch(model, o, (batch,), device="cuda")
+
+
+def family_walkers(ctx, model, names, batch, seed):
+    """Walkers within 2% of the model's values."""
+    torch, np = ctx["torch"], ctx["np"]
+    rng = np.random.default_rng(seed)
+    v = np.array([model.param_dict[k] for k in names])
+    return torch.tensor(v[None, :] * (1.0 + 0.02 * rng.normal(
+        size=(batch, len(names)))), dtype=torch.float32, device="cuda")
+
+
+def median_ms(ctx, fn, n_windows=3, n_iter=1):
+    return float(ctx["np"].median([ctx["window_ms"](fn, n_iter)
+                                   for _ in range(n_windows)]))
+
+
+def probe_check(label, got, plain, host, per_element):
+    """Errors of the kernel path (``got``) and of the port's plain float32
+    engine (``plain``) against the float64 host path (``host(i) -> [(ngal,
+    xi), ...]``) at N_PROBE rows; each at most max(1e-6, twice the plain
+    engine's).  ``per_element`` flags the tables read per element (wp)."""
+    import numpy as np
+    errs = {}
+    for what, outs in (("kernel", got), ("plain f32", plain)):
+        e_ng = e_xi = 0.0
+        for i in range(N_PROBE):
+            for t, (ng64, xi64) in enumerate(host(i)):
+                ng, xi = outs[t]
+                x = xi[i].double().cpu().numpy().ravel()
+                want = np.ravel(xi64)
+                e_ng = max(e_ng, abs(float(ng[i]) / float(ng64) - 1))
+                e_xi = max(e_xi, float(
+                    np.max(np.abs(x / want - 1)) if per_element[t] else
+                    np.max(np.abs(x - want)) / np.max(np.abs(want))))
+        errs[what] = (e_ng, e_xi)
+    (k_ng, k_xi), (p_ng, p_xi) = errs["kernel"], errs["plain f32"]
+    print(f"{label} vs float64 host at {N_PROBE} probes: kernel ngal rel "
+          f"{k_ng:.3e}, xi {k_xi:.3e}; plain float32 engine ngal rel "
+          f"{p_ng:.3e}, xi {p_xi:.3e} (kernel <= max(1e-6, 2 x plain))")
+    check(k_ng <= max(1e-6, 2 * p_ng), f"{label}: ngal vs float64 {k_ng}")
+    check(k_xi <= max(1e-6, 2 * p_xi), f"{label}: xi vs float64 {k_xi}")
+
+
+def kernel_vs_plain(label, got, want, per_element):
+    """The kernels' limits on the same densities: ngal 1e-6 relative, wp
+    2e-6 relative per element, xi 1e-6 scaled; returns max |error|."""
+    ng_err = max(rel(g[0], w[0]) for g, w in zip(got, want))
+    xi_err = max((rel if pe else scaled)(g[1], w[1])
+                 for g, w, pe in zip(got, want, per_element))
+    limit = 2e-6 if any(per_element) else 1e-6
+    print(f"{label}: ngal max rel {ng_err:.3e} (<= 1e-6), xi max "
+          f"{xi_err:.3e} (<= {limit:g}; wp per element, xi_ell scaled)")
+    check(ng_err <= 1e-6, f"{label}: ngal kernel vs plain {ng_err}")
+    if len(per_element) > 1:
+        for g, w, pe in zip(got, want, per_element):
+            err = (rel if pe else scaled)(g[1], w[1])
+            check(err <= (2e-6 if pe else 1e-6),
+                  f"{label}: xi kernel vs plain {err}")
+    else:
+        check(xi_err <= limit, f"{label}: xi kernel vs plain {xi_err}")
+    return max_abs(*[(g[k], w[k]) for g, w in zip(got, want)
+                     for k in (0, 1)])
+
+
+# Operations of the occupation kernel of an SHMR family, read off
+# csrc/occupation.cu with each libm call counted as one operation (a lower
+# bound): per inversion chain and bin the bisection seed (15 steps of 13),
+# per inversion and node three float32 Newton steps of 22 and the float64
+# Newton step with the erfc (16); per satellite node the power law (7);
+# per node the decoration (8) and the quadrature FMA (2).
+BISECTION_F32_OPS = 15 * 13
+NEWTON_F32_OPS = 3 * 22
+SHMR_F64_OPS = 16
+SAT_F64_OPS = 7
+DECORATION_F64_OPS = 8
+
+
+def occupation_bound(fam, n_bins, n_centrals, n_gauss, batch):
+    """The least time of the occupation kernel for an SHMR family
+    (Leauthaud11 and ZuMandelbaum15 forms): its operations, float32 at the
+    FP32 peak and float64 at the FP64 peak, against its bytes (the
+    parameters and the quadrature read once, the densities written
+    once)."""
+    n_sat = n_bins - n_centrals
+    inversions = n_centrals + (n_sat if fam.modulate else 0)   # bins
+    f32 = inversions * (BISECTION_F32_OPS + n_gauss * NEWTON_F32_OPS)
+    f64 = n_gauss * (inversions * SHMR_F64_OPS + n_sat * SAT_F64_OPS +
+                     n_bins * (2 + (DECORATION_F64_OPS if fam.decorated
+                                    else 0)))
+    ops_ms = (f32 * batch / PEAK_FP32_FLOPS +
+              f64 * batch / PEAK_FP64_FLOPS) * 1e3
+    n_bytes = 4 * (len(fam.param_names) * batch + 4 * n_bins * n_gauss +
+                   n_bins * batch)
+    bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def density_errors(got, want):
+    """Per element |got - want| / (|want| + 1e-6 of the row's largest
+    |want|)."""
+    got, want = got.double(), want.double()
+    floor = 1e-6 * want.abs().amax(1, keepdim=True)
+    return float(((got - want).abs() / (want.abs() + floor)).max())
+
+
+def occupation_check(ctx, label, c, table, table64, model, params,
+                     n_f64=4096):
+    """The occupation kernel against its plain version (the model's
+    occupation in tensor ops) over the batch, at tabcorr_tpu's
+    fused-against-XLA bar (1e-4 relative + 2e-6 of the row's largest
+    density), and with the plain version against the float64 tensor path
+    on the first ``n_f64`` rows (kernel within 1e-6 there).  Returns the
+    kernel's (n_bins, B) densities and max |kernel - plain|."""
+    torch, fused = ctx["torch"], ctx["fused"]
+    fam = fused.OccupationFamily.of(model)
+    check(fam is not None, f"{label}: the occupation kernel does not "
+          "evaluate the model")
+    dens = fused.occupation_launch(c, fam, fused.family_columns(params, fam))
+    plain = fused.occupation_density(table, model, params)
+    k_rows = dens.t()
+    check(bool(torch.isfinite(dens).all()), f"{label}: non-finite densities")
+    d = (k_rows.double() - plain.double()).abs()
+    ratio = float((d / (1e-4 * plain.double().abs() + 2e-6 * plain.double(
+    ).abs().amax(1, keepdim=True))).max())
+    p64 = {k: v[:n_f64].double() for k, v in params.items()}
+    want64 = fused.occupation_density(table64, model, p64)
+    k_err = density_errors(k_rows[:n_f64], want64)
+    p_err = density_errors(plain[:n_f64], want64)
+    print(f"{label} occupation kernel: against plain {ratio:.3e} of the "
+          f"bar (<= 1); against float64 ({n_f64} rows) kernel {k_err:.3e} "
+          f"(<= 1e-6), plain float32 {p_err:.3e} (relative, floored at "
+          f"1e-6 of the row's largest)")
+    check(ratio <= 1.0, f"{label}: occupation kernel vs plain {ratio}")
+    check(k_err <= 1e-6, f"{label}: occupation kernel vs float64 {k_err}")
+    return dens, float(d.max())
+
+
+def family_phases(ctx, kernels):
+    """The SHMR, CLF and quiescent/active families through B1, B2, B3 and
+    B4 by model code 2, and code 2 against codes 0/1 on zheng07."""
+    t0 = time.perf_counter()
+    bundle_family_phase(ctx, kernels)
+    grid_family_phase(ctx, kernels)
+    contraction_family_phase(ctx, kernels)
+    slab_family_phase(ctx, kernels)
+    density_in_cross_check(ctx)
+    print(f"family phases: {time.perf_counter() - t0:.1f} s")
+
+
+def bundle_family_phase(ctx, kernels):
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
+    from tabcorr_tpu_torch import (Leauthaud11Model, TabCorr,
+                                   ZuMandelbaum15Model, make_multi_predictor)
+    from tabcorr_tpu_torch.mcmc import make_gaussian_logpost_batched
+
+    data = Path(__file__).resolve().parent / "tabcorr_tpu_torch" / "data"
+    wp_tab = TabCorr.read(data / "bolplanck_wp.npz")
+    xi_tab = TabCorr.read(data / "synthetic_xi_ell.npz")
+    tabs = (wp_tab, xi_tab)
+    tables = [t.table_data(device="cuda") for t in tabs]
+    tables64 = [t.table_data(device="cuda", dtype=torch.float64)
+                for t in tabs]
+    consts = [fused.slab_tc_table_constants(t, 1) for t in tables]
+    plain_consts = [fused.bundle_table_constants(t) for t in tables]
+    code2 = fused.KernelModel(code=fused.DENSITY_IN)
+    models = [Leauthaud11Model(threshold=10.5,
+                               redshift=wp_tab.attrs["redshift"]),
+              ZuMandelbaum15Model(threshold=10.5, prim_haloprop_key=str(
+                  wp_tab.attrs["prim_haloprop_key"]))]
+    launches = occ_launches = 0
+    for j, model in enumerate(models):
+        label = f"bundle {type(model).__name__}"
+        params = family_params(model, np.random.default_rng(SEED + 20 + j),
+                               BATCH)
+        predict = make_multi_predictor(list(tabs), model, device="cuda")
+        # ---- path: predict, then the ensemble sampler -------------------
+        ctx["reset"]()
+        outs = predict(params)
+        torch.cuda.synchronize()
+        check(fused.BUNDLE_LAUNCHES == 1 and fused.OCCUPATION_LAUNCHES == 2,
+              f"{label}: predict did not launch the occupation (once per "
+              "table) and the bundle kernel")
+        for ng, xi in outs:
+            check(bool(torch.isfinite(ng).all() and torch.isfinite(xi).all()),
+                  f"{label}: non-finite output")
+        names = SHMR_SAMPLED[type(model).__name__]
+        data_wp = outs[0][1][0].double().cpu().numpy().ravel()
+        data_xi = outs[1][1][0].double().cpu().numpy().ravel()
+        log_prob = make_gaussian_logpost_batched(
+            predict, names, model.param_dict, [data_wp, data_xi],
+            [np.diag(1.0 / (0.05 * np.abs(data_wp) + 1e-3) ** 2),
+             np.diag(1.0 / (0.05 * np.abs(data_xi) + 1e-3) ** 2)],
+            device="cuda")
+        walkers = family_walkers(ctx, model, names, BATCH, SEED + 20 + j)
+        accepts, step_s, _ = run_sampler(ctx, log_prob, walkers,
+                                         N_GRID_STEPS, "BUNDLE_LAUNCHES",
+                                         SEED + 20 + j)
+        got = ctx["expect"](label, bundle=2 + 2 * N_GRID_STEPS,
+                            occupation=2 * (2 + 2 * N_GRID_STEPS))
+        launches += got["bundle"]
+        occ_launches += got["occupation"]
+        print(f"{label} path: {got['bundle']} bundle kernel launches (model "
+              f"code 2) fed by {got['occupation']} occupation kernel "
+              f"launches, {N_GRID_STEPS} ensemble steps x {BATCH} walkers "
+              f"over {names}, accept fractions {accepts}, "
+              f"{BATCH / float(np.median(step_s)):.6g} walker-steps/s "
+              f"(median of per-step host-clock times {step_s} s) on "
+              f"{ctx['card']}")
+        # ---- the occupation kernel against its plain version ------------
+        dens = [occupation_check(ctx, f"{label} {name}", c, d, d64, model,
+                                 params)[0]
+                for name, c, d, d64 in zip(("wp", "xi_ell"), consts, tables,
+                                           tables64)]
+        # ---- the bundle kernel against its plain version, same densities -
+        got_k = fused.bundle_launch(consts, dens, code2)
+        want = [fused.contraction_plain(c, d.t())
+                for c, d in zip(plain_consts, dens)]
+        kernel_vs_plain(f"{label} kernel vs plain (same densities)", got_k,
+                        want, (True, False))
+        # ---- against float64 at 16 probes, beside the plain engine -------
+        plain_engine = make_multi_predictor(list(tabs), model,
+                                            device="cuda", engine="plain")
+        probe = {k: v[:N_PROBE] for k, v in params.items()}
+        probe_check(label, predict(probe), plain_engine(probe),
+                    lambda i: [t.predict(host_model(model, params, i),
+                                         check_consistency=False)
+                               for t in tabs], (True, False))
+        # ---- timing: the occupation kernel and its plain version, then
+        # the bundle kernel ------------------------------------------------
+        hod = fused.KernelModel.of(model)
+        occ_ms, plain_occ_ms, _, _ = ctx["alternate"](
+            lambda: [fused.kernel_densities(c, t, model, hod, params)
+                     for c, t in zip(consts, tables)],
+            lambda: [fused.occupation_density(t, model, params)
+                     for t in tables], 3, 1, rounds=2)
+        k_ms, p_ms, k_w, p_w = ctx["alternate"](
+            lambda: fused.bundle_launch(consts, dens, code2),
+            lambda: [fused.contraction_plain(c, d.t())
+                     for c, d in zip(plain_consts, dens)], 10, 2)
+        e2e_ms = median_ms(ctx, lambda: predict(params))
+        print(f"timing ({label}): occupation kernel (both tables) "
+              f"{occ_ms:.4f} ms, its plain version (tensor ops) "
+              f"{plain_occ_ms:.4f} ms; bundle kernel (code 2) {k_ms:.4f} ms "
+              f"(windows {k_w}), plain contraction {p_ms:.4f} ms (windows "
+              f"{p_w}); whole predictor {e2e_ms:.4f} ms "
+              f"({BATCH / e2e_ms * 1e3:.6g} predictions/s) per "
+              f"{BATCH}-vector batch on {ctx['card']}")
+        del dens, outs
+    record(kernels, "bundle", launches)
+    record(kernels, "occupation", occ_launches)
+
+
+def grid_family_phase(ctx, kernels):
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
+    from tabcorr_tpu_torch import (AssembiasLeauthaud11Model, Interpolator,
+                                   Leauthaud11Model, make_predictor)
+    from tabcorr_tpu_torch.mcmc import make_gaussian_logpost_batched
+    from tabcorr_tpu_torch.predictor import grid_node_weights, stacked_grid
+    from tabcorr_tpu_torch.utils.synthetic import grid64_interpolator
+
+    data = Path(__file__).resolve().parent / "tabcorr_tpu_torch" / "data"
+    code2 = fused.KernelModel(code=fused.DENSITY_IN)
+    launches = occ_launches = 0
+    interp64 = grid64_interpolator()
+    model64 = Leauthaud11Model(threshold=10.5, redshift=float(
+        interp64.tabcorr_list[0].attrs["redshift"]))
+    model64.param_dict.update(alpha_c=0.2, alpha_s=1.0, log_eta=0.0)
+    rng = np.random.default_rng(SEED + 30)
+    params64 = family_params(model64, rng, BATCH)
+    for key, lo, hi in (("alpha_c", 0.05, 0.35), ("alpha_s", 0.85, 1.15),
+                        ("log_eta", -0.3, 0.3)):
+        v = rng.uniform(lo, hi, BATCH)
+        v[0] = model64.param_dict[key]
+        params64[key] = torch.tensor(v, dtype=torch.float32, device="cuda")
+    params64["alpha_c"][list(OUT_ROWS)] = 0.5
+    interp_ds = Interpolator.read(data / "ds_efficient.npz")
+    model_ds = AssembiasLeauthaud11Model(
+        threshold=10.5, redshift=0.5, prim_haloprop_key="halo_m258m")
+    model_ds.param_dict.update(log_eta=0.0, alpha_s=1.0, alpha_c=0.0)
+    params_ds = family_params(model_ds, rng, BATCH)
+    v = rng.uniform(-0.45, 0.45, BATCH)
+    v[0] = 0.0
+    v[list(OUT_ROWS)] = 0.6
+    params_ds["log_eta"] = torch.tensor(v, dtype=torch.float32,
+                                        device="cuda")
+    out = torch.zeros(BATCH, dtype=torch.bool, device="cuda")
+    out[list(OUT_ROWS)] = True
+    cases = [("grid64 Leauthaud11", interp64, model64, params64,
+              ("scaled",)),
+             ("ds_efficient AssembiasLeauthaud11", interp_ds, model_ds,
+              params_ds, ("scaled", "elementwise"))]
+    for name, interp, model, params, contracts in cases:
+        for accuracy in contracts:
+            label = f"{name} '{accuracy}'"
+            predict = make_predictor(interp, model, engine="fused",
+                                     accuracy=accuracy, device="cuda")
+            ctx["reset"]()
+            ngal, xi = predict(params)
+            torch.cuda.synchronize()
+            got = ctx["expect"](label, grid=1, occupation=1)
+            launches += got["grid"]
+            occ_launches += got["occupation"]
+            xi = xi.reshape(BATCH, -1)
+            check(bool(torch.isnan(ngal[out]).all() and
+                       torch.isnan(xi[out]).all() and
+                       torch.isfinite(ngal[~out]).all() and
+                       torch.isfinite(xi[~out]).all()),
+                  f"{label}: NaN rows are not exactly the out-of-grid rows")
+            print(f"{label}: 1 occupation kernel and 1 grid kernel launch "
+                  f"(model code 2), rows {OUT_ROWS} outside the grid all "
+                  f"NaN, the rest finite")
+        # ---- the occupation kernel against its plain version ------------
+        stacked, n_nodes, _ = stacked_grid(interp, device="cuda")
+        g = fused.grid_table_constants(stacked, n_nodes)
+        nw = grid_node_weights(interp, params)
+        table64 = interp.tabcorr_list[0].table_data(device="cuda",
+                                                    dtype=torch.float64)
+        dens, occ_err = occupation_check(ctx, name, g, stacked, table64,
+                                         model, params)
+        # ---- the grid kernel against its plain version, same densities --
+        total_k, xi_k = fused.grid_launch(g, dens, nw, code2)
+        total_p, xi_p = fused.grid_contract_plain(g, dens.t(), nw)
+        kernel_vs_plain(f"{name} kernel vs plain (same densities)",
+                        [(total_k[~out], xi_k[~out])],
+                        [(total_p[~out], xi_p[~out])], (False,))
+        # ---- against float64 at 16 probes, beside the plain engine ------
+        plain_engine = make_predictor(interp, model, engine="plain",
+                                      device="cuda")
+        probe = {k: v[:N_PROBE] for k, v in params.items()}
+        probe_check(name, [predict(probe)], [plain_engine(probe)],
+                    lambda i: [interp.predict(host_model(model, params, i),
+                                              check_consistency=False)],
+                    (False,))
+        # ---- timing -------------------------------------------------------
+        hod = fused.KernelModel.of(model)
+        occ_ms, plain_occ_ms, occ_w, _ = ctx["alternate"](
+            lambda: fused.kernel_densities(g, stacked, model, hod, params),
+            lambda: fused.occupation_density(stacked, model, params), 3, 1,
+            rounds=2)
+        k_ms = median_ms(ctx, lambda: fused.grid_launch(g, dens, nw, code2),
+                         n_iter=3)
+        e2e_ms = median_ms(ctx, lambda: predict(params))
+        print(f"timing ({name}): occupation kernel ({g.n_bins} bins, "
+              f"{BATCH} rows) {occ_ms:.4f} ms (windows {occ_w}), its plain "
+              f"version (tensor ops, chunks of {fused._OCC_CHUNK} rows) "
+              f"{plain_occ_ms:.4f} ms; grid kernel (code 2) {k_ms:.4f} ms, "
+              f"whole predictor {e2e_ms:.4f} ms "
+              f"({BATCH / e2e_ms * 1e3:.6g} predictions/s) on {ctx['card']}")
+        if interp is interp_ds:
+            fam = hod.family
+            occ_numbers = dict(
+                max_abs_err=occ_err, ms=occ_ms, plain_ms=plain_occ_ms,
+                **occupation_bound(fam, g.n_bins, g.n_centrals, g.n_gauss,
+                                   BATCH), library_ms=None)
+            print(f"bound ({name} occupation kernel): "
+                  f"{occ_numbers['bound_ms']:.4f} ms "
+                  f"({occ_numbers['bound_by']}); kernel at "
+                  f"{occ_numbers['bound_ms'] / occ_ms:.3f} of it")
+            # ---- the decoration moves Delta Sigma -----------------------
+            p = {k: v[:4096].clone() for k, v in params.items()}
+            p["log_eta"].fill_(0.0)
+            moved = {}
+            for strength in (0.0, 0.8):
+                for key in STRENGTHS:
+                    p[key].fill_(strength)
+                moved[strength] = predict(p)[1].reshape(4096, -1)
+            d = (moved[0.8] - moved[0.0]).double().abs().amax(1) / \
+                moved[0.0].double().abs().amax(1)
+            print(f"{name}: strength 0.8 against 0 moves Delta Sigma by "
+                  f"{float(d.min()):.3e} to {float(d.max()):.3e} scaled over "
+                  f"4096 rows (> 1e-4)")
+            check(float(d.min()) > 1e-4,
+                  f"{name}: the decoration does not move Delta Sigma")
+        del dens, xi_k, xi_p
+    # ---- path: the ensemble sampler over the 64-node grid ---------------
+    predict = make_predictor(interp64, model64, engine="fused",
+                             accuracy="scaled", device="cuda")
+    names = SHMR_SAMPLED["Leauthaud11Model"] + ("alpha_c", "alpha_s")
+    fiducial = {k: v[:1] for k, v in params64.items()}
+    data_xi = predict(fiducial)[1][0].double().cpu().numpy().ravel()
+    log_prob = make_gaussian_logpost_batched(
+        lambda p: [predict(p)], names, model64.param_dict, [data_xi],
+        [np.diag(1.0 / (0.05 * np.abs(data_xi) + 1e-3) ** 2)], device="cuda")
+    walkers = family_walkers(ctx, model64, names, BATCH, SEED + 31)
+    ctx["reset"]()
+    accepts, step_s, _ = run_sampler(ctx, log_prob, walkers, N_GRID_STEPS,
+                                     "GRID_LAUNCHES", SEED + 31)
+    got = ctx["expect"]("grid64 Leauthaud11 sampler",
+                        grid=1 + 2 * N_GRID_STEPS,
+                        occupation=1 + 2 * N_GRID_STEPS)
+    occ_launches += got["occupation"]
+    got = got["grid"]
+    launches += got
+    print(f"grid64 Leauthaud11 sampler: {got} grid kernel launches, "
+          f"{len(names)} sampled parameters, accept fractions {accepts}, "
+          f"{BATCH / float(np.median(step_s)):.6g} walker-steps/s (median of "
+          f"per-step host-clock times {step_s} s) on {ctx['card']}")
+    record(kernels, "grid", launches)
+    record(kernels, "occupation", occ_launches, **occ_numbers)
+
+
+def contraction_family_phase(ctx, kernels):
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
+    from tabcorr_tpu_torch import (Cacciato09Model, TabCorr, Tinker13Model,
+                                   make_predictor, params_batch)
+
+    data = Path(__file__).resolve().parent / "tabcorr_tpu_torch" / "data"
+    wp_tab = TabCorr.read(data / "bolplanck_wp.npz")
+    xi_tab = TabCorr.read(data / "synthetic_xi_ell.npz")
+    cases = [
+        ("wp Cacciato09", wp_tab, Cacciato09Model(
+            threshold=10.0,
+            prim_haloprop_key=str(wp_tab.attrs["prim_haloprop_key"]))),
+        ("xi_ell Tinker13 quiescent", xi_tab, Tinker13Model(
+            threshold=10.5, sfr_designation="quiescent",
+            redshift=xi_tab.attrs["redshift"]))]
+    rng = np.random.default_rng(SEED + 40)
+    inputs = []
+    for name, tab, model in cases:
+        # Every parameter within ~1% of its value; row 0 at the values.
+        o = {k: v + 0.01 * abs(v) * rng.normal(size=BATCH)
+             for k, v in model.param_dict.items()}
+        for k, v in model.param_dict.items():
+            o[k][0] = v
+        inputs.append((name, tab, model,
+                       params_batch(model, o, (BATCH,), device="cuda"),
+                       make_predictor(tab, model, engine="fused",
+                                      device="cuda")))
+    # ---- path ---------------------------------------------------------------
+    ctx["reset"]()
+    outs = [predict(p) for *_, p, predict in inputs]
+    torch.cuda.synchronize()
+    got = ctx["expect"]("contraction families", contraction=len(cases),
+                        occupation=len(cases))
+    launched = got["contraction"]
+    print(f"contraction families path: {launched} contraction kernel "
+          f"launches fed by {got['occupation']} occupation kernel launches "
+          f"(make_predictor(engine='fused'): Cacciato09 on wp, Tinker13 on "
+          f"xi_ell)")
+    for (name, tab, model, params, predict), (ngal, xi) in zip(inputs, outs):
+        check(bool(torch.isfinite(ngal).all() and torch.isfinite(xi).all()),
+              f"{name}: non-finite output")
+        is_wp = tab is wp_tab
+        table = tab.table_data(device="cuda")
+        c = fused.slab_tc_table_constants(table, 1)
+        c_plain = fused.bundle_table_constants(table)
+        table64 = tab.table_data(device="cuda", dtype=torch.float64)
+        dens = occupation_check(ctx, name, c, table, table64, model,
+                                params)[0].t().contiguous()
+        kernel_vs_plain(f"{name} kernel vs plain (same densities)",
+                        [fused.contraction_launch(c, dens)],
+                        [fused.contraction_plain(c_plain, dens)], (is_wp,))
+        plain_engine = make_predictor(tab, model, engine="plain",
+                                      device="cuda")
+        probe = {k: v[:N_PROBE] for k, v in params.items()}
+        probe_check(name, [predict(probe)], [plain_engine(probe)],
+                    lambda i: [tab.predict(host_model(model, params, i),
+                                           check_consistency=False)],
+                    (is_wp,))
+        hod = fused.KernelModel.of(model)
+        occ_ms, plain_occ_ms, _, _ = ctx["alternate"](
+            lambda: fused.kernel_densities(c, table, model, hod, params,
+                                           bin_major=False),
+            lambda: fused.occupation_density(table, model, params), 3, 1,
+            rounds=1)
+        k_ms = median_ms(ctx, lambda: fused.contraction_launch(c, dens),
+                         n_iter=10)
+        print(f"timing ({name}): occupation kernel {occ_ms:.4f} ms, its "
+              f"plain version (tensor ops) {plain_occ_ms:.4f} ms, "
+              f"contraction kernel {k_ms:.4f} ms per {BATCH}-vector batch "
+              f"on {ctx['card']}")
+        del dens
+    record(kernels, "contraction", launched)
+    record(kernels, "occupation", got["occupation"])
+
+
+def slab_family_phase(ctx, kernels):
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
+    from tabcorr_tpu_torch import (AssembiasZuMandelbaum15Model,
+                                   make_predictor)
+    from tabcorr_tpu_torch.mcmc import make_gaussian_logpost_batched
+    from tabcorr_tpu_torch.predictor import stacked_grid
+    from tabcorr_tpu_torch.utils.synthetic import wide_grid_interpolator
+
+    interp = wide_grid_interpolator()
+    model = AssembiasZuMandelbaum15Model(threshold=10.5, redshift=0.0)
+    model.param_dict.update(alpha_c=0.2, alpha_s=1.0, log_eta=0.0)
+    rng = np.random.default_rng(SEED + 50)
+    params = family_params(model, rng, SLAB_BATCH)
+    for key, lo, hi in (("alpha_c", 0.05, 0.35), ("alpha_s", 0.85, 1.15),
+                        ("log_eta", -0.3, 0.3)):
+        v = rng.uniform(lo, hi, SLAB_BATCH)
+        v[0] = model.param_dict[key]
+        params[key] = torch.tensor(v, dtype=torch.float32, device="cuda")
+    params["alpha_c"][list(SLAB_OUT_ROWS)] = 0.5
+    out = torch.zeros(SLAB_BATCH, dtype=torch.bool, device="cuda")
+    out[list(SLAB_OUT_ROWS)] = True
+    label = "wide grid AssembiasZuMandelbaum15"
+    code2 = fused.KernelModel(code=fused.DENSITY_IN)
+    predict = make_predictor(interp, model, engine="fused",
+                             accuracy="scaled", device="cuda")
+    # ---- path: 'scaled' (slab_tc), then the sampler ------------------------
+    ctx["reset"]()
+    ngal, xi = predict(params)
+    torch.cuda.synchronize()
+    launches = ctx["expect"](label, slab_tc=1, occupation=1)["slab_tc"]
+    occ_launches = 1
+    xi = xi.reshape(SLAB_BATCH, -1)
+    check(bool(torch.isnan(ngal[out]).all() and torch.isnan(xi[out]).all()
+               and torch.isfinite(ngal[~out]).all() and
+               torch.isfinite(xi[~out]).all()),
+          f"{label}: NaN rows are not exactly the out-of-grid rows")
+    names = SHMR_SAMPLED["ZuMandelbaum15Model"] + STRENGTHS
+    fiducial = {k: v[:1] for k, v in params.items()}
+    data_xi = predict(fiducial)[1][0].double().cpu().numpy().ravel()
+    log_prob = make_gaussian_logpost_batched(
+        lambda p: [predict(p)], names, model.param_dict, [data_xi],
+        [np.diag(1.0 / (0.05 * np.abs(data_xi) + 1e-3) ** 2)], device="cuda")
+    walkers = family_walkers(ctx, model, names, SLAB_BATCH, SEED + 51)
+    walkers[:, -2:] = torch.rand_like(walkers[:, -2:]) * 1.6 - 0.8
+    ctx["reset"]()
+    accepts, step_s, _ = run_sampler(ctx, log_prob, walkers, N_SLAB_STEPS,
+                                     "SLAB_TC_LAUNCHES", SEED + 51)
+    got = ctx["expect"](f"{label} sampler", slab_tc=1 + 2 * N_SLAB_STEPS,
+                        occupation=1 + 2 * N_SLAB_STEPS)
+    occ_launches += got["occupation"]
+    got = got["slab_tc"]
+    launches += got
+    print(f"{label}: 'scaled' path 1 slab_tc launch (model code 2), rows "
+          f"{SLAB_OUT_ROWS} NaN; sampler {got} slab_tc launches, "
+          f"{len(names)} sampled parameters, accept fractions {accepts}, "
+          f"{SLAB_BATCH / float(np.median(step_s)):.6g} walker-steps/s "
+          f"(median of per-step host-clock times {step_s} s) on "
+          f"{ctx['card']}")
+    # ---- path: one 'elementwise' pass (slab) -------------------------------
+    predict_e = make_predictor(interp, model, engine="fused",
+                               accuracy="elementwise", device="cuda")
+    ctx["reset"]()
+    ngal_e, xi_e = predict_e(params)
+    torch.cuda.synchronize()
+    slab_launches = ctx["expect"](f"{label} elementwise", slab=1,
+                                  occupation=1)["slab"]
+    occ_launches += 1
+    xi_e = xi_e.reshape(SLAB_BATCH, -1)
+    check(bool(torch.isnan(xi_e[out]).all() and
+               torch.isfinite(xi_e[~out]).all()),
+          f"{label} elementwise: NaN rows")
+    # ---- both tiers against the plain version, same densities ---------------
+    stacked, n_nodes, _ = stacked_grid(interp, device="cuda")
+    s_tc = fused.slab_tc_table_constants(stacked, n_nodes)
+    s = fused.slab_table_constants(stacked, n_nodes)
+    table64 = interp.tabcorr_list[0].table_data(device="cuda",
+                                                dtype=torch.float64)
+    dens = occupation_check(ctx, label, s_tc, stacked, table64, model,
+                            params)[0]
+    want = fused.slab_contract_plain(s, dens.t())
+    for tier, launch in (("slab_tc", fused.slab_tc_launch),
+                         ("slab", fused.slab_launch)):
+        total, nodes = launch(s_tc, dens, code2)
+        kernel_vs_plain(f"{label} {tier} vs plain (same densities)",
+                        [(total, nodes.reshape(-1, s.n_xi))],
+                        [(want[0], want[1].reshape(-1, s.n_xi))], (False,))
+    plain_engine = make_predictor(interp, model, engine="plain",
+                                  device="cuda")
+    probe = {k: v[:N_PROBE] for k, v in params.items()}
+    probe_check(label, [predict(probe)], [plain_engine(probe)],
+                lambda i: [interp.predict(host_model(model, params, i),
+                                          check_consistency=False)],
+                (False,))
+    hod = fused.KernelModel.of(model)
+    occ_ms, plain_occ_ms, _, _ = ctx["alternate"](
+        lambda: fused.kernel_densities(s_tc, stacked, model, hod, params),
+        lambda: fused.occupation_density(stacked, model, params), 3, 1,
+        rounds=2)
+    tc_ms = median_ms(ctx, lambda: fused.slab_tc_launch(s_tc, dens, code2))
+    fp32_ms = median_ms(ctx, lambda: fused.slab_launch(s_tc, dens, code2))
+    e2e_ms = median_ms(ctx, lambda: predict(params))
+    print(f"timing ({label}): occupation kernel {occ_ms:.4f} ms, its plain "
+          f"version (tensor ops) {plain_occ_ms:.4f} ms, slab_tc (code 2) {tc_ms:.4f} ms, slab (code 2) {fp32_ms:.4f} ms, "
+          f"whole 'scaled' predictor {e2e_ms:.4f} ms "
+          f"({SLAB_BATCH / e2e_ms * 1e3:.6g} predictions/s) per "
+          f"{SLAB_BATCH}-vector batch on {ctx['card']}")
+    record(kernels, "slab_tc", launches)
+    record(kernels, "slab", slab_launches)
+    record(kernels, "occupation", occ_launches)
+
+
+def density_in_cross_check(ctx):
+    """Model code 2 fed zheng07's tensor-op densities against code 0 (and
+    the decorated model's against code 1) on the same rows: the bundle on
+    the wp + xi_ell tables, the grid kernel on the 64-node grid with the
+    fold, both slab tiers on the wide grid.  Limits: ngal 1e-6 relative,
+    wp 2e-6 per element, xi 1e-6 scaled."""
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
+    from tabcorr_tpu_torch import (AssembiasZheng07Model, TabCorr,
+                                   Zheng07Model)
+    from tabcorr_tpu_torch.predictor import grid_node_weights, stacked_grid
+    from tabcorr_tpu_torch.utils.synthetic import (grid64_interpolator,
+                                                   wide_grid_interpolator)
+
+    code2 = fused.KernelModel(code=fused.DENSITY_IN)
+    data = Path(__file__).resolve().parent / "tabcorr_tpu_torch" / "data"
+    tabs = [TabCorr.read(data / f) for f in ("bolplanck_wp.npz",
+                                             "synthetic_xi_ell.npz")]
+    tables = [t.table_data(device="cuda") for t in tabs]
+    model = Zheng07Model(threshold=-18, redshift=tabs[0].attrs["redshift"])
+    params = bench_params(model, np.random.default_rng(SEED + 60), BATCH,
+                          "cuda")
+    hod = fused.KernelModel.of(model)
+    pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
+    consts = [fused.slab_tc_table_constants(t, 1) for t in tables]
+    dens = [fused.occupation_density(t, model, params).t().contiguous()
+            for t in tables]
+    kernel_vs_plain("cross-check bundle: code 2 against code 0",
+                    fused.bundle_launch(consts, dens, code2),
+                    fused.bundle_launch(consts, pmat, hod), (True, False))
+    del dens
+
+    interp = grid64_interpolator()
+    model = Zheng07Model(threshold=-20, redshift=0.0)
+    model.param_dict.update(alpha_c=0.2, alpha_s=1.0, log_eta=0.0)
+    rng = np.random.default_rng(SEED + 61)
+    params = bench_params(model, rng, BATCH, "cuda")
+    for key, lo, hi in (("alpha_c", 0.05, 0.35), ("alpha_s", 0.85, 1.15),
+                        ("log_eta", -0.3, 0.3)):
+        params[key] = torch.tensor(rng.uniform(lo, hi, BATCH),
+                                   dtype=torch.float32, device="cuda")
+    stacked, n_nodes, _ = stacked_grid(interp, device="cuda")
+    g = fused.grid_table_constants(stacked, n_nodes)
+    nw = grid_node_weights(interp, params)
+    pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
+    dens = fused.occupation_density(stacked, model, params).t().contiguous()
+    kernel_vs_plain("cross-check grid64: code 2 against code 0",
+                    [fused.grid_launch(g, dens, nw, code2)],
+                    [fused.grid_launch(g, pmat, nw, hod)], (False,))
+    del dens
+
+    interp = wide_grid_interpolator()
+    model = AssembiasZheng07Model(threshold=-20, redshift=0.0)
+    params = bench_params(model, np.random.default_rng(SEED + 62),
+                          SLAB_BATCH, "cuda")
+    hod = fused.KernelModel.of(model)
+    pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
+    stacked, n_nodes, _ = stacked_grid(interp, device="cuda")
+    s_tc = fused.slab_tc_table_constants(stacked, n_nodes)
+    dens = fused.occupation_density(stacked, model, params).t().contiguous()
+    for tier, launch in (("slab_tc", fused.slab_tc_launch),
+                         ("slab", fused.slab_launch)):
+        a = launch(s_tc, dens, code2)
+        b = launch(s_tc, pmat, hod)
+        kernel_vs_plain(f"cross-check wide grid {tier}: code 2 against "
+                        f"code 1", [(a[0], a[1].reshape(-1, s_tc.n_xi))],
+                        [(b[0], b[1].reshape(-1, s_tc.n_xi))], (False,))
 
 
 if __name__ == "__main__":

@@ -2,8 +2,11 @@
 // (sm_90a).
 //
 // bundle_kernel: zheng07 occupation quadrature (optionally with the
-// Heaviside assembly-bias decoration) and every table's wp / xi_ell
-// contraction for a batch of parameter vectors, in one launch.  Replaces
+// Heaviside assembly-bias decoration), or for any other model the
+// per-table densities computed beforehand by the occupation kernel
+// (occupation.cu) or in tensor ops (model code 2, zheng07.cuh), and
+// every table's wp / xi_ell contraction for a batch of parameter vectors,
+// in one launch.  Replaces
 // tabcorr_tpu/ops/fused.py:make_fused_bundle_predictor.  Every table runs
 // in FP32 on the CUDA cores, under both accuracy contracts: the Pallas
 // kernel drops MXU passes for rows under the 'scaled' contract, but here a
@@ -49,7 +52,7 @@ namespace {
 using namespace tabcorr;
 
 constexpr int kMaxTables = 4;
-constexpr int kPtrs = 12;        // per-table pointers passed from the host
+constexpr int kPtrs = 13;        // per-table pointers passed from the host
 constexpr int kDims = 6;         // per-table integers passed from the host
 
 struct BundleTable {
@@ -59,7 +62,7 @@ struct BundleTable {
 };
 
 struct BundleArgs {
-  const float* params;  // (B, hod.n_params)
+  const float* params;  // (B, hod.n_params); null for model code 2
   int batch;
   HodArgs hod;
   int n_tables;
@@ -84,7 +87,7 @@ bundle_kernel(const BundleArgs args) {
   const int row0 = blockIdx.x * TB;
 
   // Per-row parameter terms, shared by every table.
-  param_terms<TB>(args.params, args.batch, row0, args.hod, sPar);
+  param_terms<TB, MODEL>(args.params, args.batch, row0, args.hod, sPar);
   __syncthreads();
 
   for (int ti = 0; ti < args.n_tables; ++ti) {
@@ -138,8 +141,10 @@ int launch_rows(Kernel kernel, int batch, int tb, int threads, size_t smem,
 
 // The launch arguments from the host's per-table lists: `ptrs` holds
 // (logm, res, sec, w, b, ct_step0, ct_steps, ct_off, col_k, col_i0,
-// out_total, out_xi) and `dims` (nb, nc, ng, n_xi, n_ct, is_auto) per
-// table.  False for what the kernel does not take.
+// out_total, out_xi, dens) and `dims` (nb, nc, ng, n_xi, n_ct, is_auto)
+// per table; `dens` is the table's (nb, B) densities for model code 2,
+// else null, and `params` null for code 2.  False for what the kernel
+// does not take.
 bool make_bundle_args(const float* params, int batch, int model,
                       int modulate, double split, int n_tables,
                       void* const* ptrs, const int* dims, BundleArgs* args) {
@@ -147,7 +152,9 @@ bool make_bundle_args(const float* params, int batch, int model,
   *args = {};
   args->params = params;
   args->batch = batch;
-  if (!make_hod(model, modulate, split, &args->hod)) return false;
+  if (!make_hod(model, modulate, split, &args->hod) ||
+      (args->hod.model == kDensityIn) != (params == nullptr))
+    return false;
   args->n_tables = n_tables;
   for (int ti = 0; ti < n_tables; ++ti) {
     void* const* p = ptrs + ti * kPtrs;
@@ -165,6 +172,9 @@ bool make_bundle_args(const float* params, int batch, int model,
     t.h.col_i0 = static_cast<const int*>(p[9]);
     t.out.total = static_cast<float*>(p[10]);
     t.out.xi = static_cast<float*>(p[11]);
+    t.q.dens = static_cast<const float*>(p[12]);
+    if ((args->hod.model == kDensityIn) != (t.q.dens != nullptr))
+      return false;
     t.q.nb = t.h.nb = d[0];
     t.q.nc = d[1];
     t.q.ng = d[2];
@@ -186,7 +196,8 @@ bool make_bundle_args(const float* params, int batch, int model,
 extern "C" {
 
 // Launch the bundle kernel on `stream`.  `model`, `modulate` and `split`
-// select the occupation (zheng07.cuh); `ptrs` and `dims` hold the tables
+// select the occupation (zheng07.cuh; code 2 reads each table's densities
+// and no `params`); `ptrs` and `dims` hold the tables
 // (make_bundle_args), their matrices in the layout of
 // ops/fused.py:slab_tc_table_constants with one node.  `stage_steps` is the
 // ring stage in K steps of 8 rows (contract.cuh:fp32_stage_ok).
@@ -205,11 +216,17 @@ int tabcorr_bundle(const float* params, int batch, int model, int modulate,
   constexpr int TB = 64;
   const size_t smem = fp32_smem_floats(TB, stage_steps, args.nb8_max,
                                        args.nxi_max) * sizeof(float);
-  return args.hod.model == kZheng07
-             ? launch_rows(bundle_kernel<TB, kZheng07>, batch, TB, 2 * TB,
-                           smem, device, stream, args)
-             : launch_rows(bundle_kernel<TB, kAssembiasZheng07>, batch, TB,
-                           2 * TB, smem, device, stream, args);
+  switch (args.hod.model) {
+    case kZheng07:
+      return launch_rows(bundle_kernel<TB, kZheng07>, batch, TB, 2 * TB,
+                         smem, device, stream, args);
+    case kAssembiasZheng07:
+      return launch_rows(bundle_kernel<TB, kAssembiasZheng07>, batch, TB,
+                         2 * TB, smem, device, stream, args);
+    default:
+      return launch_rows(bundle_kernel<TB, kDensityIn>, batch, TB, 2 * TB,
+                         smem, device, stream, args);
+  }
 }
 
 // Launch the contraction kernel on `stream` for one table: `ngal` is the

@@ -8,7 +8,10 @@
 // its block structure:
 //
 //   n[b, i]   zheng07 occupation quadrature, optionally with the Heaviside
-//             assembly-bias decoration (zheng07.cuh), once per row;
+//             assembly-bias decoration (zheng07.cuh), once per row, or
+//             for any other model (code 2) read from the densities
+//             computed beforehand (occupation.cu or tensor ops;
+//             grid_kernel only);
 //   w[b, p]   = n[b, i_p] * n[b, j_p] over the packed pairs i_p <= j_p
 //               (np.triu_indices order; auto mode), or n[b, p] (cross);
 //   t[b, c]   = sum_p w[b, p] * Fp[p, c], with the columns c node-major
@@ -85,7 +88,7 @@ static_assert(kKT == tabcorr::tc::kKT && kCT == tabcorr::tc::kCT,
               "both kernels stage Fp in tf32x3.cuh's tiles");
 
 struct GridArgs {
-  const float* params;   // (B, hod.n_params)
+  const float* params;   // (B, hod.n_params); code 2: unread (q.dens)
   const float* nw;       // (B, n_nodes) node weights; null: no fold
   QuadArgs q;
   const int* pair_i;     // (npair,) auto: the pairs' first bins
@@ -175,7 +178,8 @@ grid_kernel(const GridArgs args) {
   const int row0 = blockIdx.x * TB;
   const bool fold = args.nw != nullptr;
 
-  tabcorr::param_terms<TB>(args.params, args.batch, row0, args.hod, sPar);
+  tabcorr::param_terms<TB, MODEL>(args.params, args.batch, row0, args.hod,
+                                  sPar);
   __syncthreads();
   tabcorr::occupation_phase<TB, NT, MODEL>(
       args.q, args.nb_rows, args.batch, row0, args.hod, sPar, sN);
@@ -395,11 +399,15 @@ int launch(const GridArgs& args, int device, void* stream) {
 
 template <int TB, bool AUTO>
 int launch_model(const GridArgs& args, int device, void* stream) {
-  using tabcorr::kAssembiasZheng07;
-  using tabcorr::kZheng07;
-  return args.hod.model == kZheng07
-             ? launch<TB, AUTO, kZheng07>(args, device, stream)
-             : launch<TB, AUTO, kAssembiasZheng07>(args, device, stream);
+  using namespace tabcorr;
+  switch (args.hod.model) {
+    case kZheng07:
+      return launch<TB, AUTO, kZheng07>(args, device, stream);
+    case kAssembiasZheng07:
+      return launch<TB, AUTO, kAssembiasZheng07>(args, device, stream);
+    default:
+      return launch<TB, AUTO, kDensityIn>(args, device, stream);
+  }
 }
 
 template <int TB>
@@ -492,7 +500,8 @@ grid_tc_kernel(const GridArgs args) {
   const int row0 = blockIdx.x * TB;
   const bool fold = args.nw != nullptr;
 
-  tabcorr::param_terms<TB>(args.params, args.batch, row0, args.hod, sPar);
+  tabcorr::param_terms<TB, MODEL>(args.params, args.batch, row0, args.hod,
+                                  sPar);
   __syncthreads();
   tabcorr::occupation_phase<TB, tc::kThreads, MODEL>(
       args.q, args.nb_rows, args.batch, row0, args.hod, sPar, sN);
@@ -709,10 +718,13 @@ int launch_tc(const GridArgs& args, int device, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// grid_tc is on no path and takes models 0 and 1 only (no code 2).
 template <int TB, bool PAIRS_IN_SMEM>
 int launch_tc_model(const GridArgs& args, int device, void* stream) {
   using tabcorr::kAssembiasZheng07;
   using tabcorr::kZheng07;
+  if (args.hod.model == tabcorr::kDensityIn)
+    return (int)cudaErrorInvalidValue;
   return args.hod.model == kZheng07
              ? launch_tc<TB, PAIRS_IN_SMEM, kZheng07>(args, device, stream)
              : launch_tc<TB, PAIRS_IN_SMEM, kAssembiasZheng07>(args, device,
@@ -743,6 +755,7 @@ bool make_grid_args(const float* params, const float* nw, int batch,
   args.q.res = res;
   args.q.sec = sec;
   args.q.w = w;
+  args.q.dens = model == tabcorr::kDensityIn ? params : nullptr;
   args.q.nb = nb;
   args.q.nc = nc;
   args.q.ng = ng;
@@ -766,7 +779,8 @@ bool make_grid_args(const float* params, const float* nw, int batch,
       c_pad < n_nodes * nxp || k_pad < npair ||
       (is_auto ? npair != nb * (nb + 1) / 2 : npair != nb) ||
       (!is_auto && k_pad != args.nb_rows);
-  return !bad && tabcorr::make_hod(model, modulate, split, &args.hod);
+  return !bad && params != nullptr &&
+         tabcorr::make_hod(model, modulate, split, &args.hod);
 }
 
 }  // namespace
@@ -774,10 +788,12 @@ bool make_grid_args(const float* params, const float* nw, int batch,
 extern "C" {
 
 // Launch the grid kernel (FP64 tensor cores) on `stream` with TB = `tb`
-// (64, 32 or 16) rows per block (see smem_bytes).  `model`, `modulate` and `split` select the occupation
-// (zheng07.cuh).  `nw` null writes the unfolded (B, n_nodes, n_xi)
-// output.  Returns the CUDA error code of the launch (0 on success); the
-// kernel runs asynchronously.
+// (64, 32 or 16) rows per block (see smem_bytes).  `model`, `modulate` and
+// `split` select the occupation (zheng07.cuh): `params` is the (batch,
+// n_params) parameter matrix of codes 0 and 1, or code 2's (nb, batch)
+// densities.  `nw` null writes the unfolded (B, n_nodes, n_xi) output.
+// Returns the CUDA error code of the launch (0 on success); the kernel
+// runs asynchronously.
 int tabcorr_grid(const float* params, const float* nw, int batch, int model,
                  int modulate, double split, const float* logm,
                  const float* res, const float* sec, const float* w, int nb,
@@ -799,9 +815,9 @@ int tabcorr_grid(const float* params, const float* nw, int batch, int model,
 }
 
 // Launch the grid_tc kernel (3xTF32 on the tensor cores) on `stream`,
-// with the arguments of tabcorr_grid; `tb` is 64, 32 or 16 rows per block
-// and `pairs_in_smem` keeps the auto pairs' offsets in shared memory (see
-// tc_smem_floats).
+// with the arguments of tabcorr_grid (model codes 0 and 1 only); `tb` is
+// 64, 32 or 16 rows per block and `pairs_in_smem` keeps the auto pairs'
+// offsets in shared memory (see tc_smem_floats).
 int tabcorr_grid_tc(const float* params, const float* nw, int batch,
                     int model, int modulate, double split, const float* logm,
                     const float* res, const float* sec, const float* w,

@@ -9,7 +9,9 @@
 //
 //   n[b, i]            zheng07 occupation quadrature, optionally with the
 //                      Heaviside assembly-bias decoration (zheng07.cuh),
-//                      once per row;
+//                      once per row, or for any other model (code 2)
+//                      read from densities computed beforehand
+//                      (occupation.cu or tensor ops);
 //   xi[b, node, k]   = n_b^T F_node,k n_b / (sum_i n_bi)^2   (auto)
 //                    = (F_node n_b)_k / sum_i n_bi           (cross)
 //
@@ -55,7 +57,7 @@ namespace {
 using namespace tabcorr;
 
 struct SlabArgs {
-  const float* params;   // (B, hod.n_params)
+  const float* params;   // (B, hod.n_params); code 2: unread (q.dens)
   int batch;
   HodArgs hod;
   QuadArgs q;
@@ -78,7 +80,7 @@ slab_kernel(const SlabArgs args) {
   float* sTot = sPar + kParTerms * TB;
   const int row0 = blockIdx.x * TB;
 
-  param_terms<TB>(args.params, args.batch, row0, args.hod, sPar);
+  param_terms<TB, MODEL>(args.params, args.batch, row0, args.hod, sPar);
   __syncthreads();
   occupation_phase<TB, 2 * TB, MODEL>(args.q, args.h.nb8, args.batch, row0,
                                       args.hod, sPar, sN);
@@ -104,7 +106,7 @@ slab_tc_kernel(const SlabArgs args) {
   float* sTot = sPar + kParTerms * TB;
   const int row0 = blockIdx.x * TB;
 
-  param_terms<TB>(args.params, args.batch, row0, args.hod, sPar);
+  param_terms<TB, MODEL>(args.params, args.batch, row0, args.hod, sPar);
   __syncthreads();
   occupation_phase<TB, tc::kThreads, MODEL, SN>(args.q, args.h.nb8,
                                                 args.batch, row0, args.hod,
@@ -135,11 +137,17 @@ int launch_slab_tc(const SlabArgs& args, int device, void* stream) {
   const size_t smem =
       TcBlock<TB, PRESPLIT>::smem_floats(args.h.nb8, args.h.n_xi) *
       sizeof(float);
-  return args.hod.model == kZheng07
-             ? launch_slab(slab_tc_kernel<TB, PRESPLIT, kZheng07>, args, TB,
-                           tc::kThreads, smem, device, stream)
-             : launch_slab(slab_tc_kernel<TB, PRESPLIT, kAssembiasZheng07>,
-                           args, TB, tc::kThreads, smem, device, stream);
+  switch (args.hod.model) {
+    case kZheng07:
+      return launch_slab(slab_tc_kernel<TB, PRESPLIT, kZheng07>, args, TB,
+                         tc::kThreads, smem, device, stream);
+    case kAssembiasZheng07:
+      return launch_slab(slab_tc_kernel<TB, PRESPLIT, kAssembiasZheng07>,
+                         args, TB, tc::kThreads, smem, device, stream);
+    default:
+      return launch_slab(slab_tc_kernel<TB, PRESPLIT, kDensityIn>, args, TB,
+                         tc::kThreads, smem, device, stream);
+  }
 }
 
 // The launch arguments of both kernels; false for what they do not take.
@@ -158,6 +166,7 @@ bool make_slab_args(const float* params, int batch, int model, int modulate,
   args->q.res = res;
   args->q.sec = sec;
   args->q.w = w;
+  args->q.dens = model == kDensityIn ? params : nullptr;
   args->q.nb = nb;
   args->q.nc = nc;
   args->q.ng = ng;
@@ -176,7 +185,8 @@ bool make_slab_args(const float* params, int batch, int model, int modulate,
   h.nb = nb;
   h.nb8 = (nb + 7) / 8 * 8;
   args->out = {out_total, out_xi, (size_t)n_nodes * n_xi};
-  return batch >= 0 && node_stride >= 0 && check_half_table(h, &args->q) &&
+  return batch >= 0 && node_stride >= 0 && params != nullptr &&
+         check_half_table(h, &args->q) &&
          make_hod(model, modulate, split, &args->hod);
 }
 
@@ -185,25 +195,26 @@ bool make_slab_args(const float* params, int batch, int model, int modulate,
 extern "C" {
 
 // Launch the slab kernel (FP32) on `stream`.  `model`, `modulate` and
-// `split` select the occupation (zheng07.cuh); `b` holds the n_nodes
-// nodes' column tiles in the layout of
+// `split` select the occupation (zheng07.cuh): `params` is the (batch,
+// n_params) parameter matrix of codes 0 and 1, or code 2's (nb, batch)
+// densities.
+// `b` holds the n_nodes nodes' column tiles in the layout of
 // ops/fused.py:slab_tc_table_constants, node m at b + m * node_stride.
 // `stage_steps` is the ring stage in K steps of 8 rows
 // (contract.cuh:fp32_stage_ok).  `out_xi` is (batch, n_nodes, n_xi).
-// Returns the
-// CUDA error code of the launch (0 on success); the kernel runs
-// asynchronously.
+// Returns the CUDA error code of the launch (0 on success); the kernel
+// runs asynchronously.
 int tabcorr_slab(const float* params, int batch, int model, int modulate,
-                 double split, const float* logm, const float* res,
-                 const float* sec, const float* w, int nb, int nc, int ng,
-                 const float* b, long long node_stride, const int* ct_step0,
-                 const int* ct_steps, const int* ct_off, const int* col_k,
-                 const int* col_i0, int n_ct, int n_nodes, int n_xi,
-                 int is_auto, int stage_steps, float* out_total,
+                 double split, const float* logm,
+                 const float* res, const float* sec, const float* w, int nb,
+                 int nc, int ng, const float* b, long long node_stride,
+                 const int* ct_step0, const int* ct_steps, const int* ct_off,
+                 const int* col_k, const int* col_i0, int n_ct, int n_nodes,
+                 int n_xi, int is_auto, int stage_steps, float* out_total,
                  float* out_xi, int device, void* stream) {
   SlabArgs args;
-  if (!make_slab_args(params, batch, model, modulate, split, logm, res, sec,
-                      w, nb, nc, ng, b, node_stride, ct_step0, ct_steps,
+  if (!make_slab_args(params, batch, model, modulate, split, logm, res,
+                      sec, w, nb, nc, ng, b, node_stride, ct_step0, ct_steps,
                       ct_off, col_k, col_i0, n_ct, n_nodes, n_xi, is_auto,
                       out_total, out_xi, &args) ||
       !fp32_stage_ok(stage_steps))
@@ -212,11 +223,17 @@ int tabcorr_slab(const float* params, int batch, int model, int modulate,
   constexpr int TB = 64;
   const size_t smem =
       fp32_smem_floats(TB, stage_steps, args.h.nb8, n_xi) * sizeof(float);
-  return args.hod.model == kZheng07
-             ? launch_slab(slab_kernel<TB, kZheng07>, args, TB, 2 * TB, smem,
-                           device, stream)
-             : launch_slab(slab_kernel<TB, kAssembiasZheng07>, args, TB,
-                           2 * TB, smem, device, stream);
+  switch (args.hod.model) {
+    case kZheng07:
+      return launch_slab(slab_kernel<TB, kZheng07>, args, TB, 2 * TB, smem,
+                         device, stream);
+    case kAssembiasZheng07:
+      return launch_slab(slab_kernel<TB, kAssembiasZheng07>, args, TB,
+                         2 * TB, smem, device, stream);
+    default:
+      return launch_slab(slab_kernel<TB, kDensityIn>, args, TB, 2 * TB, smem,
+                         device, stream);
+  }
 }
 
 // Launch the slab_tc kernel (3xTF32 on the tensor cores) on `stream`:
@@ -224,17 +241,18 @@ int tabcorr_slab(const float* params, int batch, int model, int modulate,
 // pick the block: 64 rows with the densities split once per block
 // (presplit = 1), or 32 rows split at each fragment load.  Returns the
 // CUDA error code of the launch.
-int tabcorr_slab_tc(const float* params, int batch, int model, int modulate,
-                    double split, const float* logm, const float* res,
-                    const float* sec, const float* w, int nb, int nc, int ng,
-                    const float* b, long long node_stride, const int* ct_step0,
+int tabcorr_slab_tc(const float* params, int batch, int model,
+                    int modulate, double split, const float* logm,
+                    const float* res, const float* sec, const float* w,
+                    int nb, int nc, int ng, const float* b,
+                    long long node_stride, const int* ct_step0,
                     const int* ct_steps, const int* ct_off, const int* col_k,
                     const int* col_i0, int n_ct, int n_nodes, int n_xi,
                     int is_auto, int tb, int presplit, float* out_total,
                     float* out_xi, int device, void* stream) {
   SlabArgs args;
-  if (!make_slab_args(params, batch, model, modulate, split, logm, res, sec,
-                      w, nb, nc, ng, b, node_stride, ct_step0, ct_steps,
+  if (!make_slab_args(params, batch, model, modulate, split, logm, res,
+                      sec, w, nb, nc, ng, b, node_stride, ct_step0, ct_steps,
                       ct_off, col_k, col_i0, n_ct, n_nodes, n_xi, is_auto,
                       out_total, out_xi, &args))
     return (int)cudaErrorInvalidValue;

@@ -26,6 +26,16 @@
 // parameter of occupation_phase(), so a zheng07 launch runs no decoration
 // code: as a run-time branch it cost the occupation-bound 'efficient'
 // Delta Sigma grid 18% (24.1 -> 28.4 ms, H100 80GB HBM3 at 700 W).
+//
+// Model code 2 (kDensityIn) is every other model: the densities n[b, i]
+// come computed, (nb, B) float32 bin-major (QuadArgs::dens), by the
+// occupation kernel of the HOD families (occupation.cu) or, for a model
+// it does not evaluate, in tensor ops (ops/fused.py:kernel_densities),
+// and occupation_phase() only loads them, consecutive threads on
+// consecutive rows of one bin, so that a warp's loads are consecutive
+// floats and its stores into the bin-major sN consecutive banks.  No
+// parameter terms are formed.  Codes 0 and 1 compile no load and code 2
+// no occupation: the branch is the same template parameter.
 
 #pragma once
 
@@ -44,6 +54,7 @@ constexpr int kOccUnroll = 4;
 // code 1) the central and satellite assembly-bias strengths.
 constexpr int kZheng07 = 0;             // model codes (HodArgs::model)
 constexpr int kAssembiasZheng07 = 1;
+constexpr int kDensityIn = 2;
 constexpr int kMaxParams = 7;
 constexpr int kParTerms = 8;     // rows of sPar
 constexpr float kLn10 = 2.302585092994046f;
@@ -51,8 +62,9 @@ constexpr float kRatioMax = 0.999999f;   // 1 - 1e-6, as in models/zheng07.py
 
 // What a launch needs of the model.
 struct HodArgs {
-  int model;          // 0: zheng07; 1: zheng07 with Heaviside assembly bias
-  int n_params;       // parameter columns: 5 or 7
+  int model;          // 0: zheng07; 1: zheng07 with Heaviside assembly
+                      // bias; 2: densities in
+  int n_params;       // parameter columns: 5, 7 or 0
   int modulate;       // zheng07 modulate_with_cenocc
   float split;        // the percentile split, and the three float32
   float frac_above;   // constants the tensor version derives from it in
@@ -62,11 +74,11 @@ struct HodArgs {
 
 // HodArgs of a launch, or false for an unknown model code or split.
 inline bool make_hod(int model, int modulate, double split, HodArgs* h) {
-  if (model < kZheng07 || model > kAssembiasZheng07 ||
+  if (model < kZheng07 || model > kDensityIn ||
       !(split > 0.0 && split < 1.0))
     return false;
   h->model = model;
-  h->n_params = model ? 7 : 5;
+  h->n_params = model == kZheng07 ? 5 : model == kAssembiasZheng07 ? 7 : 0;
   h->modulate = modulate;
   h->split = static_cast<float>(split);
   h->frac_above = static_cast<float>(1.0 - split);
@@ -82,16 +94,18 @@ struct QuadArgs {
   const float* sec;     // (nb, ng) secondary percentile, the bin's midpoint
                         // at every node (read once per bin, model code 1)
   const float* w;       // (nb, ng) quad_weight * n_h
+  const float* dens;    // (nb, B) densities (model code 2), else null
   int nb, nc, ng;
 };
 
 // Per-row parameter terms, sPar[kParTerms][TB]: logMmin, 1/sigma_logM,
 // logM0, 10^logM0, logM1, ln10 * alpha, and the strengths A_c and A_s
 // clipped to [-1, 1] (0 for zheng07).  Rows past the batch end get
-// harmless values and are never stored.
-template <int TB>
+// harmless values and are never stored.  Model code 2 has none.
+template <int TB, int MODEL>
 __device__ void param_terms(const float* params, int batch, int row0,
                             const HodArgs& h, float* sPar) {
+  if constexpr (MODEL == kDensityIn) return;
   const int tid = threadIdx.x;
   if (tid < TB) {
     float p[kMaxParams] = {0.f, 1.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -132,11 +146,23 @@ __device__ __forceinline__ float decorate(float base, float strength,
 }
 
 // sN[i * STRIDE + b] = n[b, i] for i < n_rows (bins past q.nb and rows past
-// the batch end get 0), for the model code MODEL (== h.model).
+// the batch end get 0), for the model code MODEL (== h.model): computed
+// (codes 0 and 1) or loaded (code 2).
 template <int TB, int NT, int MODEL, int STRIDE = TB>
 __device__ void occupation_phase(const QuadArgs& q, int n_rows, int batch,
                                  int row0, const HodArgs& h,
                                  const float* sPar, float* sN) {
+  if constexpr (MODEL == kDensityIn) {
+    for (int item = threadIdx.x; item < n_rows * TB; item += NT) {
+      const int i = item / TB;
+      const int b = item % TB;
+      sN[i * STRIDE + b] =
+          (i < q.nb && row0 + b < batch)
+              ? __ldg(q.dens + (size_t)i * batch + row0 + b)
+              : 0.f;
+    }
+    return;
+  }
   for (int item = threadIdx.x; item < n_rows * TB; item += NT) {
     const int i = item / TB;
     const int b = item % TB;

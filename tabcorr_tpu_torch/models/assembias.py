@@ -16,15 +16,20 @@ which keeps both populations inside [lower_bound, upper_bound] for
 
 Every expression and its order follow ``tabcorr_tpu/models/assembias.py``;
 the CUDA kernels (``csrc/zheng07.cuh``, model code 1) evaluate the same
-float32 expressions in the same order.  Only the zheng07 decoration is
-ported: the other ``Assembias*`` families wait for their base models.
+float32 expressions in the same order for zheng07.  The other decorated
+families reach the kernels through their densities (model code 2), which
+the occupation kernel (``csrc/occupation.cu``) decorates in float64.
 """
 
 from __future__ import annotations
 
 from ..utils.backend import get_namespace
+from .cacciato09 import Cacciato09Model
+from .leauthaud11 import Leauthaud11Model
 from .protocol import CENTRALS
+from .tinker13 import QUIESCENT, Tinker13Model, tinker13_quiescent_fraction
 from .zheng07 import Zheng07Model
+from .zu_mandelbaum15 import ZuMandelbaum15Model
 
 ASSEMBIAS_PARAMS = ("mean_occupation_centrals_assembias_param1",
                     "mean_occupation_satellites_assembias_param1")
@@ -86,8 +91,8 @@ class HeavisideAssembiasMixin:
     ``mean_occupation_satellites_assembias_param1`` (halotools' names).
     ``occupation_residual`` is not overridden here: the protocol's
     forward-mode fallback differentiates the decorated occupation, which
-    is correct; a base model with an exact residual absorption overrides
-    it in the composed class (see :class:`AssembiasZheng07Model`).
+    is correct; a base model with an exact residual absorption composes it
+    through ``_ExactResidualMixin``.
     """
 
     def __init__(self, split=0.5, sec_haloprop_key="halo_nfw_conc", **kwargs):
@@ -113,7 +118,22 @@ class HeavisideAssembiasMixin:
             split=self.split, lower_bound=0.0, upper_bound=None)
 
 
-class AssembiasZheng07Model(HeavisideAssembiasMixin, Zheng07Model):
+class _ExactResidualMixin:
+    """``occupation_residual`` for a decorated model whose base absorbs
+    the node residual exactly: the decoration depends on log10(M) only
+    through the base occupation, so the absorption composes."""
+
+    def occupation_residual(self, params, gal_type, log_prim_haloprop,
+                            log_prim_res, sec_haloprop_percentile):
+        base = super().occupation_residual(params, gal_type,
+                                           log_prim_haloprop, log_prim_res,
+                                           sec_haloprop_percentile)
+        return self._decorate(params, gal_type, base,
+                              sec_haloprop_percentile)
+
+
+class AssembiasZheng07Model(_ExactResidualMixin, HeavisideAssembiasMixin,
+                            Zheng07Model):
     """Zheng07 with Heaviside assembly bias on centrals and satellites.
 
     The CUDA kernels evaluate it as model code 1 with the parameter
@@ -122,12 +142,66 @@ class AssembiasZheng07Model(HeavisideAssembiasMixin, Zheng07Model):
 
     kernel_param_names = Zheng07Model.param_names + ASSEMBIAS_PARAMS
 
+
+class AssembiasLeauthaud11Model(_ExactResidualMixin, HeavisideAssembiasMixin,
+                                Leauthaud11Model):
+    """Leauthaud11 with Heaviside assembly bias on both galaxy types."""
+
+
+class AssembiasZuMandelbaum15Model(_ExactResidualMixin,
+                                   HeavisideAssembiasMixin,
+                                   ZuMandelbaum15Model):
+    """Zu & Mandelbaum (2015) with Heaviside assembly bias (halotools'
+    generic decoration; it ships no prebuilt decorated variant)."""
+
+
+class AssembiasCacciato09Model(HeavisideAssembiasMixin, Cacciato09Model):
+    """Cacciato09 CLF with Heaviside assembly bias on both types; the
+    residual goes through the protocol's forward-mode derivative."""
+
+
+class AssembiasTinker13Model(HeavisideAssembiasMixin, Tinker13Model):
+    """Tinker13 with Heaviside assembly bias on the instance's
+    ``sfr_designation`` occupation as a whole.
+
+    For a single population ('quiescent' / 'active') the centrals are
+    bounded by the population's own ceiling, f_q(Mh) resp. 1 - f_q(Mh),
+    not 1, so the decorated occupation stays physical for |A| <= 1 and two
+    instances sharing a ``param_dict`` sum to at most one central per
+    halo.
+    """
+
+    def _central_ceiling(self, params, log_prim_haloprop,
+                         log_prim_res=None):
+        fq = tinker13_quiescent_fraction(
+            params, log_prim_haloprop,
+            abscissa=self.quiescent_fraction_abscissa,
+            log_prim_res=log_prim_res)
+        return fq if self.sfr_designation == QUIESCENT else 1.0 - fq
+
+    def _decorate_centrals(self, params, base, sec_haloprop_percentile,
+                           log_prim_haloprop, log_prim_res=None):
+        strength = params[ASSEMBIAS_PARAMS[0]]
+        upper = self._central_ceiling(params, log_prim_haloprop,
+                                      log_prim_res=log_prim_res)
+        return heaviside_assembias(
+            base, strength, sec_haloprop_percentile, split=self.split,
+            lower_bound=0.0, upper_bound=upper)
+
+    def occupation(self, params, gal_type, log_prim_haloprop,
+                   sec_haloprop_percentile):
+        return self.occupation_residual(params, gal_type, log_prim_haloprop,
+                                        None, sec_haloprop_percentile)
+
     def occupation_residual(self, params, gal_type, log_prim_haloprop,
                             log_prim_res, sec_haloprop_percentile):
-        # The decoration depends on log10(M) only through the baseline
-        # occupation, so zheng07's exact residual absorption composes.
-        base = super().occupation_residual(params, gal_type,
-                                           log_prim_haloprop, log_prim_res,
-                                           sec_haloprop_percentile)
+        base = Tinker13Model.occupation_residual(
+            self, params, gal_type, log_prim_haloprop, log_prim_res,
+            sec_haloprop_percentile)
+        if gal_type == CENTRALS and self.sfr_designation != "all":
+            return self._decorate_centrals(params, base,
+                                           sec_haloprop_percentile,
+                                           log_prim_haloprop,
+                                           log_prim_res=log_prim_res)
         return self._decorate(params, gal_type, base,
                               sec_haloprop_percentile)

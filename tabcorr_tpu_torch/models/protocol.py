@@ -32,6 +32,14 @@ class HodModel:
 
     gal_types = (CENTRALS, SATELLITES)
     param_defaults: dict = {}
+    # Whether the fused engines take the model (tabcorr_tpu's flag of the
+    # same name: there, whether its occupation lowers inside a Pallas
+    # kernel).  The CUDA kernels that evaluate the occupation take zheng07
+    # and its decoration in-kernel and every other model with this flag
+    # through its densities, from the occupation kernel (the families of
+    # ops.fused.OccupationFamily) or tensor ops (ops.fused.KernelModel); a
+    # model that sets it False runs the plain engine only.
+    supports_fused_engine = True
 
     def __init__(self, prim_haloprop_key="halo_mvir",
                  sec_haloprop_key=None, redshift=0.0, **params):

@@ -7,11 +7,28 @@ CUDA tensors.  B1 and B3 compute in full float32 and B2 contracts in
 float64 on the tensor cores, under both accuracy contracts ('elementwise',
 'scaled'); B4 takes the tensor cores under 'scaled' (below).
 
-The kernels that evaluate the occupation themselves (B1, B2, B4) take two
-models, chosen by :func:`kernel_model` on the model's exact type: zheng07
-(code 0) and zheng07 with the Heaviside assembly-bias decoration (code 1,
-:class:`~..models.assembias.AssembiasZheng07Model`).  Any other model,
-subclasses included, raises on CUDA; the plain versions take any model.
+The kernels that evaluate the occupation themselves (B1, B2, B4) take
+every model whose ``supports_fused_engine`` is true, by the model code of
+:func:`kernel_model`: zheng07 (code 0) and zheng07 with the Heaviside
+assembly-bias decoration (code 1,
+:class:`~..models.assembias.AssembiasZheng07Model`) are evaluated in the
+kernel, chosen on the model's exact type; every other model, subclasses of
+those two included, is code 2 (densities in): the kernel reads its
+densities, (n_bins, B) bin-major (``csrc/zheng07.cuh``), from the
+occupation kernel below where that evaluates the model, else from
+:func:`occupation_density` in tensor ops (:func:`kernel_densities`).  The
+plain version of a code-2 launch is the plain contraction of the same
+densities.  A model whose flag is false (the non-parametric HOD) takes
+none of these kernels.
+
+* **Occupation**, the occupation phase the Pallas kernels B1, B2 and B4
+  trace in their bodies for the SHMR, CLF and quiescent/active families
+  (Leauthaud11, ZuMandelbaum15, Tinker13, Cacciato09 and their Heaviside
+  decorations; :class:`OccupationFamily`, on the exact type), as a launch
+  of its own ahead of theirs: the per-bin densities, each node at its
+  float64 abscissa.  :func:`occupation_launch` (``csrc/occupation.cu``)
+  and :func:`occupation_density`.  The contraction route takes its
+  densities too.
 
 * **Bundle (B1)**, port of ``make_fused_bundle_predictor``: for a batch of
   parameter vectors and a list of tabulations, the per-bin galaxy density
@@ -28,8 +45,8 @@ subclasses included, raises on CUDA; the plain versions take any model.
   :func:`bundle_predict_plain` (any model).
 * **Contraction (B3)**, port of ``make_fused_contraction`` and
   ``make_fused_predictor``: the same contraction for one table from a
-  given density ``n`` -- the occupation runs before it in tensor ops, so
-  any model takes this route.  :func:`contraction_launch`
+  given density ``n`` -- the occupation runs before it (the occupation
+  kernel, or tensor ops), so any model takes this route.  :func:`contraction_launch`
   (``csrc/bundle.cu``) and :func:`contraction_plain`.
 * **Grid (B2)**, port of ``_make_grid_packed_predictor`` behind
   ``make_fused_grid_predictor``: an Interpolator grid of one halo binning,
@@ -63,13 +80,24 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
 
-from ..models.assembias import AssembiasZheng07Model
+from ..models.assembias import (ASSEMBIAS_PARAMS, AssembiasCacciato09Model,
+                                AssembiasLeauthaud11Model,
+                                AssembiasTinker13Model,
+                                AssembiasZheng07Model,
+                                AssembiasZuMandelbaum15Model)
+from ..models.cacciato09 import CACCIATO09_PARAMS, Cacciato09Model
+from ..models.leauthaud11 import LEAUTHAUD11_PARAMS, Leauthaud11Model
 from ..models.protocol import occupation_functions
+from ..models.tinker13 import (QUIESCENT, Tinker13Model,
+                               tinker13_fq_spline_map)
 from ..models.zheng07 import Zheng07Model
+from ..models.zu_mandelbaum15 import (ZU_MANDELBAUM15_PARAMS,
+                                      ZuMandelbaum15Model)
 from ..utils.build import build_libraries, load_library
 from .predict import AUTO, TableData, mean_occupation, occupation_with_residual
 
@@ -80,16 +108,29 @@ GRID_LAUNCHES = 0
 SLAB_LAUNCHES = 0
 GRID_TC_LAUNCHES = 0
 SLAB_TC_LAUNCHES = 0
+OCCUPATION_LAUNCHES = 0
 
 ACCURACY_CONTRACTS = ("elementwise", "scaled")
 
 # The CUDA sources of each library (one nvcc each); grid.cu and slab.cu
 # hold their _tc kernels too.
 KERNEL_SOURCES = {"bundle": ("bundle.cu",), "grid": ("grid.cu",),
-                  "slab": ("slab.cu",)}
+                  "slab": ("slab.cu",), "occupation": ("occupation.cu",)}
 
-# The models the kernels evaluate, by model code (csrc/zheng07.cuh).
+# The models the kernels evaluate in-kernel, by model code
+# (csrc/zheng07.cuh); every other fused-engine model is DENSITY_IN.
 KERNEL_MODELS = (Zheng07Model, AssembiasZheng07Model)
+DENSITY_IN = 2
+# The models the occupation kernel evaluates (csrc/occupation.cu), by exact
+# type: (family code, decorated).
+OCCUPATION_FAMILIES = {
+    Leauthaud11Model: (0, False), AssembiasLeauthaud11Model: (0, True),
+    ZuMandelbaum15Model: (1, False), AssembiasZuMandelbaum15Model: (1, True),
+    Tinker13Model: (2, False), AssembiasTinker13Model: (2, True),
+    Cacciato09Model: (3, False), AssembiasCacciato09Model: (3, True)}
+_SFR_CODES = {"all": 0, QUIESCENT: 1, "active": 2}
+# Tinker13's quiescent-fraction control masses the kernel takes at most.
+_MAX_SPLINE_POINTS = 8
 
 # Tile geometry of csrc/grid.cu and of the dense layouts: the matrix is
 # staged in chunks of _KT rows and _CT columns, and each thread owns 4
@@ -102,9 +143,12 @@ _PLAIN_CHUNK = 4096
 # Rows of per-row parameter terms in a block's shared memory, plus the
 # row totals (csrc/zheng07.cuh kParTerms + 1).
 _ROW_TERMS = 9
-# Rows per tensor-op occupation pass ahead of the contraction kernel: it
-# bounds the (chunk, n_bins, n_gauss) intermediates.
+# Rows per tensor-op occupation pass (the plain version of the occupation
+# kernel, and the densities of a model it does not evaluate): it bounds
+# the (chunk, n_bins, n_gauss) intermediates.
 _OCC_CHUNK = 32768
+# Bins per block of the occupation kernel.
+_OCC_BINS_PER_BLOCK = 4
 # Batch rows per block the grid kernel may take, largest first, and the
 # stages of its cp.async ring.
 _GRID_BLOCK_ROWS = (64, 32, 16)
@@ -163,55 +207,133 @@ def _check_tensor(a, device, dtype, what):
 
 def kernel_model(model):
     """The kernels' code for ``model``'s occupation: 0 for zheng07, 1 for
-    zheng07 with the Heaviside assembly-bias decoration, None for any
-    other model.  The test is on the exact type: a subclass may change the
-    occupation, and the kernels would silently ignore the change."""
+    zheng07 with the Heaviside assembly-bias decoration (both on the exact
+    type: a subclass may change the occupation, which the in-kernel code
+    would silently ignore), 2 (:data:`DENSITY_IN`) for every other model
+    whose ``supports_fused_engine`` is true, None for a model whose flag is
+    false."""
     for code, kind in enumerate(KERNEL_MODELS):
         if type(model) is kind:
             return code
-    return None
+    return DENSITY_IN if getattr(model, "supports_fused_engine",
+                                 True) else None
+
+
+@dataclasses.dataclass(frozen=True)
+class OccupationFamily:
+    """What a launch of the occupation kernel needs of the model
+    (csrc/occupation.cu): its family code, whether it is decorated, its
+    parameter columns in the kernel's order, and its constants."""
+
+    family: int
+    decorated: bool
+    param_names: tuple
+    threshold: float
+    a: float = 1.0
+    log_h: float = 0.0
+    modulate: bool = False
+    sfr: int = 0
+    split: float = 0.5
+    abscissa: tuple = ()
+
+    @classmethod
+    def of(cls, model):
+        """The family of ``model``, on its exact type (a subclass may
+        change the occupation), or None for a model the kernel does not
+        evaluate: its densities come from tensor ops."""
+        code = OCCUPATION_FAMILIES.get(type(model))
+        if code is None:
+            return None
+        family, decorated = code
+        extra = dict(split=float(model.split)) if decorated else {}
+        if family == 0:
+            names = tuple(LEAUTHAUD11_PARAMS)
+            extra.update(a=model._a, log_h=math.log10(model.littleh),
+                         modulate=bool(model.modulate_with_cenocc))
+        elif family == 1:
+            names = tuple(ZU_MANDELBAUM15_PARAMS)
+            extra.update(modulate=bool(model.modulate_with_cenocc))
+        elif family == 2:
+            abscissa = tuple(model.quiescent_fraction_abscissa)
+            if len(abscissa) > _MAX_SPLINE_POINTS:
+                return None
+            names = tuple(f"{k}_{sfr}" for sfr in (QUIESCENT, "active")
+                          for k in LEAUTHAUD11_PARAMS) + tuple(
+                f"quiescent_fraction_ordinates_param{i + 1}"
+                for i in range(len(abscissa)))
+            extra.update(a=model._a, log_h=math.log10(model.littleh),
+                         sfr=_SFR_CODES[model.sfr_designation],
+                         abscissa=abscissa)
+        else:
+            names = tuple(CACCIATO09_PARAMS)
+        if decorated:
+            names += ASSEMBIAS_PARAMS
+        return cls(family=family, decorated=decorated, param_names=names,
+                   threshold=float(model.threshold), **extra)
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelModel:
     """What a kernel launch needs of the model: its code, zheng07's
-    central modulation and the assembly-bias split (zheng07.cuh)."""
+    central modulation and the assembly-bias split (zheng07.cuh), and for
+    densities in the occupation kernel's family, where it evaluates the
+    model (None: the densities come from tensor ops)."""
 
     code: int = 0
     modulate: bool = False
     split: float = 0.5
+    family: OccupationFamily | None = None
 
     @classmethod
     def of(cls, model):
         code = kernel_model(model)
         if code is None:
-            raise ValueError(f"the CUDA kernels evaluate "
-                             f"{', '.join(k.__name__ for k in KERNEL_MODELS)}"
-                             f" occupations only, not {type(model).__name__}.")
+            raise ValueError(f"{type(model).__name__} takes no fused engine "
+                             "(its supports_fused_engine is False); use the "
+                             "plain engine.")
+        if code == DENSITY_IN:
+            return cls(code=code, family=OccupationFamily.of(model))
         return cls(code=code, modulate=bool(model.modulate_with_cenocc),
                    split=float(getattr(model, "split", 0.5)))
 
     @property
+    def density_in(self):
+        return self.code == DENSITY_IN
+
+    @property
     def param_names(self):
-        """The parameter matrix's columns, in the kernels' order."""
+        """The parameter matrix's columns, in the kernels' order (none for
+        densities in)."""
+        if self.density_in:
+            return ()
         return KERNEL_MODELS[self.code].kernel_param_names
 
     def launch_args(self):
         return self.code, int(self.modulate), self.split
 
 
-def _check_params(pmat, hod: KernelModel):
+def _check_params(pmat, hod: KernelModel, n_bins):
+    """Raise unless ``pmat`` is what a launch of ``hod`` reads: the
+    (B, n_params) float32 parameter matrix, or for densities in the
+    (n_bins, B) float32 densities, bin-major.  Returns the batch size."""
     if not pmat.is_cuda:
         raise ValueError("the kernels need CUDA tensors.")
-    n_cols = len(hod.param_names)
-    if pmat.dtype != torch.float32 or pmat.dim() != 2 or \
-            pmat.shape[1] != n_cols:
-        raise ValueError(f"params must be (B, {n_cols}) float32, got "
+    if hod.density_in:
+        what, want = "densities", f"({n_bins}, B)"
+        ok = pmat.dim() == 2 and pmat.shape[0] == n_bins
+    else:
+        n_cols = len(hod.param_names)
+        what, want = "params", f"(B, {n_cols})"
+        ok = pmat.dim() == 2 and pmat.shape[1] == n_cols
+    if pmat.dtype != torch.float32 or not ok:
+        raise ValueError(f"{what} must be {want} float32, got "
                          f"{tuple(pmat.shape)} {pmat.dtype}.")
     if not pmat.is_contiguous():
-        raise ValueError("params must be contiguous.")
-    if pmat.shape[0] >= 2 ** 31:
+        raise ValueError(f"{what} must be contiguous.")
+    batch = pmat.shape[1] if hod.density_in else pmat.shape[0]
+    if batch >= 2 ** 31:
         raise ValueError("batch too large.")
+    return batch
 
 
 def _raise_on_error(code, what, err_str):
@@ -246,6 +368,7 @@ def load_kernels():
     _bundle_lib()
     _grid_lib()
     _slab_lib()
+    _occupation_lib()
 
 
 def check_accuracy(accuracy, n_tables):
@@ -459,24 +582,42 @@ def bundle_launch(consts, pmat, hod=KernelModel()):
 
     ``pmat`` is the float32 parameter matrix of the model ``hod`` (zheng07
     by default), one column per name of ``hod.param_names``, on the
-    tables' CUDA device.  Returns ``[(total (B,), xi (B, n_xi)), ...]``.
-    Raises on any input the kernel does not take and on any launch error.
+    tables' CUDA device; for densities in (``hod.code`` 2) it is the list
+    of each table's (n_bins, B) float32 densities instead
+    (:func:`kernel_densities`).  Returns ``[(total (B,), xi (B,
+    n_xi)), ...]``.  Raises on any input the kernel does not take and on
+    any launch error.
     """
     global BUNDLE_LAUNCHES
     if not 1 <= len(consts) <= _MAX_TABLES:
         raise ValueError(f"the kernel takes 1 to {_MAX_TABLES} tables.")
-    _check_params(pmat, hod)
-    batch = pmat.shape[0]
-    device = pmat.device
+    if hod.density_in:
+        dens = list(pmat)
+        if len(dens) != len(consts):
+            raise ValueError("densities in: one (n_bins, B) tensor per "
+                             "table.")
+        batches = {_check_params(d, hod, h.n_bins)
+                   for d, h in zip(dens, consts)}
+        if len(batches) != 1 or len({d.device for d in dens}) != 1:
+            raise ValueError("the tables' densities differ in batch or "
+                             "device.")
+        params_ptr, first = None, dens[0]
+        batch = batches.pop()
+    else:
+        batch = _check_params(pmat, hod, None)
+        dens = [None] * len(consts)
+        params_ptr, first = pmat.data_ptr(), pmat
+    device = first.device
     for h in consts:
         _check_half(h, device, "bundle", n_nodes=1)
     ptrs, dims, outs = [], [], []
-    for h in consts:
+    for h, d in zip(consts, dens):
         total = torch.empty(batch, device=device, dtype=torch.float32)
         xi = torch.empty((batch, h.n_xi), device=device, dtype=torch.float32)
         outs.append((total, xi))
         ptrs += [a.data_ptr() for a in (h.logm, h.logm_res, h.sec, h.weight,
                                         *_half_arrays(h), total, xi)]
+        ptrs.append(None if d is None else d.data_ptr())
         dims += [h.n_bins, h.n_centrals, h.n_gauss, h.n_xi, h.n_ct,
                  int(h.auto)]
     stage_steps = _check_smem(
@@ -484,7 +625,7 @@ def bundle_launch(consts, pmat, hod=KernelModel()):
                          max(h.n_xi for h in consts)), "bundle")
     lib = _bundle_lib()
     code = lib.tabcorr_bundle(
-        pmat.data_ptr(), batch, *hod.launch_args(), len(consts),
+        params_ptr, batch, *hod.launch_args(), len(consts),
         (ctypes.c_void_p * len(ptrs))(*ptrs),
         (ctypes.c_int * len(dims))(*dims), stage_steps,
         *_stream_args(device))
@@ -539,9 +680,10 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
         float32 tabulations (auto or cross mode) on one device, sharing the
         model's parameters (their halo binnings may differ).
     model : HodModel
-        On a CUDA device a model the kernel evaluates (:func:`kernel_model`:
-        zheng07, with or without assembly bias); on the CPU any model runs
-        (plain version).
+        Any model whose ``supports_fused_engine`` is true
+        (:func:`kernel_model`): zheng07 with or without assembly bias is
+        evaluated in the kernel, any other model's densities are computed
+        in tensor ops and read by it (densities in).
     accuracy : sequence of str, optional
         One contract per table, 'elementwise' (default) or 'scaled'.  Both
         run at full float32 precision, which meets the stricter of the two:
@@ -559,7 +701,7 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
     device = tables[0].n_h.device
     if any(t.n_h.device != device for t in tables):
         raise ValueError("all tables must be on one device.")
-    hod = _kernel_model_on(device, model)
+    hod = KernelModel.of(model)
     occ_cen, occ_sat = occupation_functions(model)
     if device.type == "cuda":
         _check_smem(fp32_stage_steps(
@@ -571,19 +713,21 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
 
     def predict_batch(params):
         _check_params_device(params, device)
-        if device.type == "cpu":
+        if hod.density_in and device.type == "cpu":
+            results = [contraction_plain(c, occupation_density(t, model,
+                                                               params))
+                       for c, t in zip(consts, tables)]
+        elif hod.density_in:
+            results = bundle_launch(consts, [
+                kernel_densities(c, t, model, hod, params)
+                for c, t in zip(consts, tables)], hod)
+        elif device.type == "cpu":
             results = bundle_predict_plain(consts, params, occ_cen, occ_sat)
         else:
             results = bundle_launch(consts, _param_matrix(params, hod), hod)
         return shaped(tables, results)
 
     return predict_batch
-
-
-def _kernel_model_on(device, model):
-    """The launch arguments of ``model`` where a kernel will run it (raises
-    for a model the kernels do not evaluate); None on the CPU."""
-    return KernelModel.of(model) if device.type == "cuda" else None
 
 
 def _check_params_device(params, device):
@@ -610,8 +754,9 @@ def make_fused_contraction(table: TableData, accuracy="elementwise"):
 
 def occupation_density(table: TableData, model, params):
     """The per-bin density n[b, i] = <N>(params_b) n_h[i] (B, n_bins) in
-    tensor ops, ``_OCC_CHUNK`` rows at a time: the contraction kernel's
-    input."""
+    tensor ops, ``_OCC_CHUNK`` rows at a time: the plain version of the
+    occupation kernel (:func:`occupation_launch`), and the densities of a
+    model it does not evaluate."""
     occ_cen, occ_sat = occupation_functions(model)
     batch = next(iter(params.values())).shape[0]
     return torch.cat([
@@ -620,15 +765,122 @@ def occupation_density(table: TableData, model, params):
         * table.n_h for lo in range(0, batch, _OCC_CHUNK)])
 
 
+@functools.cache
+def _occupation_lib():
+    """Build (first call only) and bind the entry point of occupation.cu."""
+    lib = load_library("occupation", KERNEL_SOURCES["occupation"])
+    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.tabcorr_occupation.argtypes = ([vp] + [i] * 6 + [d] * 4 + [vp] +
+                                       [i] * 3 + [vp] * 4 + [i] * 5 +
+                                       [vp, i, vp])
+    lib.tabcorr_occupation.restype = i
+    lib.tabcorr_cuda_error_string.argtypes = [i]
+    lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _spline_on(abscissa, device):
+    """Tinker13's quiescent-fraction map on ``device`` as the occupation
+    kernel reads it: float64, the breaks and then the coefficients; and
+    the coefficients' shape (n_seg, n_coef, n_pts)."""
+    breaks, coeffs = tinker13_fq_spline_map(abscissa)
+    flat = np.concatenate([breaks, coeffs.ravel()])
+    return (torch.tensor(flat, dtype=torch.float64, device=device),
+            coeffs.shape)
+
+
+def family_columns(params, fam: OccupationFamily):
+    """The occupation kernel's (n_params, B) float32 parameter matrix."""
+    return torch.stack([params[k] for k in fam.param_names])
+
+
+def occupation_launch(c, fam: OccupationFamily, pcols, bin_major=True):
+    """Launch the CUDA occupation kernel once (``csrc/occupation.cu``).
+
+    ``c`` holds the table's quadrature (``logm``, ``logm_res``, ``sec``,
+    ``weight``, (n_bins, n_gauss) float32 on the card, and ``n_bins``,
+    ``n_centrals``): the constants of any kernel (:class:`SlabTcTable`,
+    :class:`GridTable`).  ``pcols`` is the (n_params, B) float32 parameter
+    matrix of ``fam`` (:func:`family_columns`).  Returns the float32
+    densities n[b, i], (n_bins, B) bin-major (what model code 2 reads) or
+    (B, n_bins) (the contraction kernel's input).  Raises on any input the
+    kernel does not take and on any launch error.  The plain version is
+    :func:`occupation_density`.
+    """
+    global OCCUPATION_LAUNCHES
+    if not pcols.is_cuda:
+        raise ValueError("the kernels need CUDA tensors.")
+    n_params = len(fam.param_names)
+    if pcols.dtype != torch.float32 or pcols.dim() != 2 or \
+            pcols.shape[0] != n_params:
+        raise ValueError(f"params must be ({n_params}, B) float32, got "
+                         f"{tuple(pcols.shape)} {pcols.dtype}.")
+    if not pcols.is_contiguous():
+        raise ValueError("params must be contiguous.")
+    batch = pcols.shape[1]
+    if batch >= 2 ** 31:
+        raise ValueError("batch too large.")
+    device = pcols.device
+    for a in (c.logm, c.logm_res, c.sec, c.weight):
+        _check_tensor(a, device, torch.float32, "occupation constants")
+    spline, (n_seg, n_coef, n_pts) = None, (0, 0, 0)
+    if fam.abscissa:
+        spline, (n_seg, n_coef, n_pts) = _spline_on(fam.abscissa, device)
+    shape = (c.n_bins, batch) if bin_major else (batch, c.n_bins)
+    dens = torch.empty(shape, device=device, dtype=torch.float32)
+    lib = _occupation_lib()
+    code = lib.tabcorr_occupation(
+        pcols.data_ptr(), batch, n_params, fam.family, int(fam.decorated),
+        int(fam.modulate), fam.sfr, fam.threshold, fam.a, fam.log_h,
+        fam.split, None if spline is None else spline.data_ptr(), n_seg,
+        n_coef, n_pts, c.logm.data_ptr(), c.logm_res.data_ptr(),
+        c.sec.data_ptr(), c.weight.data_ptr(), c.n_bins, c.n_centrals,
+        c.n_gauss, _OCC_BINS_PER_BLOCK, int(bin_major), dens.data_ptr(),
+        *_stream_args(device))
+    _raise_on_error(code, "occupation", lib.tabcorr_cuda_error_string)
+    OCCUPATION_LAUNCHES += 1
+    return dens
+
+
+def kernel_densities(c, table: TableData, model, hod: KernelModel, params,
+                     bin_major=True):
+    """The densities of a densities-in launch on the card, (n_bins, B)
+    float32 (``bin_major``; else (B, n_bins)): the occupation kernel where
+    it evaluates the model (``hod.family``, on the constants ``c``), else
+    the model's occupation in tensor ops (:func:`occupation_density`)."""
+    if hod.family is not None:
+        return occupation_launch(c, hod.family,
+                                 family_columns(params, hod.family),
+                                 bin_major)
+    dens = occupation_density(table, model, params)
+    return dens.t().contiguous() if bin_major else dens
+
+
 def make_fused_predictor(table: TableData, model, accuracy="elementwise"):
     """Batched predictor ``f(params dict of (B,)) -> (ngal, xi (B,
-    *tpcf_shape))`` for one float32 table and any model: the occupation
-    quadrature in tensor ops (:func:`occupation_density`), then the
-    contraction kernel (:func:`make_fused_contraction`)."""
-    contract = make_fused_contraction(table, accuracy)
+    *tpcf_shape))`` for one float32 table and any model: the densities
+    (on the card the occupation kernel's where it evaluates the model,
+    else :func:`occupation_density` in tensor ops), then the contraction
+    kernel."""
+    check_accuracy([accuracy], 1)
+    device = table.n_h.device
+    if device.type == "cuda":
+        half = slab_tc_table_constants(table, 1)
+        hod = KernelModel(code=DENSITY_IN, family=OccupationFamily.of(model))
+
+        def contract(params):
+            return contraction_launch(half, kernel_densities(
+                half, table, model, hod, params, bin_major=False))
+    else:
+        dense = bundle_table_constants(table)
+
+        def contract(params):
+            return contraction_plain(dense,
+                                     occupation_density(table, model, params))
 
     def predict_batch(params):
-        total, xi = contract(occupation_density(table, model, params))
+        total, xi = contract(params)
         return total, xi.reshape((xi.shape[0],) + tuple(table.tpcf_shape))
 
     return predict_batch
@@ -748,25 +1000,44 @@ def grid_predict_plain(g: GridTable, params, node_weights, occupation_cen,
     folded (B, n_xi), else the per-node (B, n_nodes, n_xi).
     """
     batch = next(iter(params.values())).shape[0]
-    pair_i, pair_j = g.pair_i.long(), g.pair_j.long()
     fp = g.fp[:g.npair, :g.n_nodes * g.nxp].double()
-    totals, xis = [], []
+    outs = []
     for lo in range(0, batch, _PLAIN_CHUNK):
         p = {k: v[lo:lo + _PLAIN_CHUNK, None, None] for k, v in params.items()}
         ngal = _plain_ngal(g, p, occupation_cen, occupation_sat)
-        total = _total(ngal)
-        w = ngal[:, pair_i] * ngal[:, pair_j] if g.auto else ngal
-        t = (w.double() @ fp).reshape(-1, g.n_nodes, g.nxp)[:, :, :g.n_xi]
-        den = total * total if g.auto else total
-        if node_weights is None:
-            xi = t.float() / den[:, None, None]
-        else:
-            # Elementwise, so a NaN weight reaches every xi of its row.
-            nw = node_weights[lo:lo + _PLAIN_CHUNK].double()
-            xi = torch.sum(nw[:, :, None] * t, dim=1).float() / den[:, None]
-        totals.append(total)
-        xis.append(xi)
-    return torch.cat(totals), torch.cat(xis)
+        outs.append(_grid_chunk(g, fp, ngal, None if node_weights is None
+                                else node_weights[lo:lo + _PLAIN_CHUNK]))
+    return torch.cat([t for t, _ in outs]), torch.cat([x for _, x in outs])
+
+
+def grid_contract_plain(g: GridTable, ngal, node_weights=None):
+    """The plain version of a densities-in grid launch: the contraction of
+    :func:`grid_predict_plain` on given float32 densities ngal (B,
+    n_bins), ``_PLAIN_CHUNK`` rows at a time."""
+    fp = g.fp[:g.npair, :g.n_nodes * g.nxp].double()
+    outs = [_grid_chunk(g, fp, ngal[lo:lo + _PLAIN_CHUNK],
+                        None if node_weights is None else
+                        node_weights[lo:lo + _PLAIN_CHUNK])
+            for lo in range(0, ngal.shape[0], _PLAIN_CHUNK)]
+    return torch.cat([t for t, _ in outs]), torch.cat([x for _, x in outs])
+
+
+def _grid_chunk(g: GridTable, fp, ngal, node_weights):
+    """(total, xi) of one chunk of float32 densities: float32 pair weights,
+    the contraction with ``fp`` (the packed matrix in float64) and the
+    fold in float64, rounded to float32 at the end."""
+    total = _total(ngal)
+    if g.auto:
+        w = ngal[:, g.pair_i.long()] * ngal[:, g.pair_j.long()]
+    else:
+        w = ngal
+    t = (w.double() @ fp).reshape(-1, g.n_nodes, g.nxp)[:, :, :g.n_xi]
+    den = total * total if g.auto else total
+    if node_weights is None:
+        return total, t.float() / den[:, None, None]
+    # Elementwise, so a NaN weight reaches every xi of its row.
+    nw = node_weights.double()
+    return total, torch.sum(nw[:, :, None] * t, dim=1).float() / den[:, None]
 
 
 @functools.cache
@@ -774,9 +1045,9 @@ def _grid_lib():
     """Build (first call only) and bind the entry point of grid.cu."""
     lib = load_library("grid", KERNEL_SOURCES["grid"])
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.tabcorr_grid.argtypes = ([vp, vp, i, i, i, ctypes.c_double, vp, vp,
-                                  vp, vp, i, i, i, vp, vp, i, vp] + [i] * 7 +
-                                 [vp, vp, i, vp])
+    lib.tabcorr_grid.argtypes = ([vp, vp, i, i, i, ctypes.c_double, vp,
+                                  vp, vp, vp, i, i, i, vp, vp, i, vp] +
+                                 [i] * 7 + [vp, vp, i, vp])
     lib.tabcorr_grid_tc.argtypes = (lib.tabcorr_grid.argtypes[:-4] + [i] +
                                     lib.tabcorr_grid.argtypes[-4:])
     lib.tabcorr_grid.restype = lib.tabcorr_grid_tc.restype = i
@@ -810,10 +1081,12 @@ def grid_launch(g: GridTable, pmat, node_weights=None, hod=KernelModel()):
     """Launch the CUDA grid kernel once.
 
     ``pmat`` is the float32 parameter matrix of the model ``hod`` (zheng07
-    by default; see :func:`bundle_launch`) on the grid's CUDA device;
-    ``node_weights`` (B, n_nodes) float32 folds the nodes (returns xi (B,
-    n_xi)), None returns the per-node xi (B, n_nodes, n_xi).  Raises on
-    any input the kernel does not take and on any launch error.
+    by default; see :func:`bundle_launch`) on the grid's CUDA device, or
+    for densities in (``hod.code`` 2) the (n_bins, B) float32 densities
+    (:func:`kernel_densities`); ``node_weights`` (B, n_nodes) float32
+    folds the nodes (returns xi (B, n_xi)), None returns the per-node xi
+    (B, n_nodes, n_xi).  Raises on any input the kernel does not take and
+    on any launch error.
     """
     global GRID_LAUNCHES
     total, xi = _check_grid_launch(g, pmat, node_weights, hod)
@@ -855,13 +1128,12 @@ def grid_tc_config(n_bins, n_xi, auto=True):
 def _check_grid_launch(g: GridTable, pmat, node_weights, hod):
     """Raise on inputs the grid kernels do not take; else the launch's
     outputs (total (B,), xi), allocated."""
-    _check_params(pmat, hod)
+    batch = _check_params(pmat, hod, g.n_bins)
     device = pmat.device
     for a in (g.logm, g.logm_res, g.sec, g.weight, g.fp):
         _check_tensor(a, device, torch.float32, "grid constants")
     for a in (g.pair_i, g.pair_j):
         _check_tensor(a, device, torch.int32, "pair indices")
-    batch = pmat.shape[0]
     if node_weights is not None:
         _check_tensor(node_weights, device, torch.float32, "node weights")
         if tuple(node_weights.shape) != (batch, g.n_nodes):
@@ -880,7 +1152,7 @@ def _grid_entry_args(g: GridTable, pmat, node_weights, hod, block, total,
     device = pmat.device
     return (pmat.data_ptr(),
             None if node_weights is None else node_weights.data_ptr(),
-            pmat.shape[0], *hod.launch_args(), g.logm.data_ptr(),
+            total.shape[0], *hod.launch_args(), g.logm.data_ptr(),
             g.logm_res.data_ptr(), g.sec.data_ptr(), g.weight.data_ptr(),
             g.n_bins, g.n_centrals, g.n_gauss, g.pair_i.data_ptr(),
             g.pair_j.data_ptr(), g.npair, g.fp.data_ptr(), g.k_pad, g.c_pad,
@@ -894,8 +1166,12 @@ def grid_tc_launch(g: GridTable, pmat, node_weights=None,
     """Launch the grid_tc kernel once: :func:`grid_launch`'s function, in
     3xTF32 on the tensor cores, from the same constants (no contract routes
     to it: :func:`grid_kernel_for`).  Raises on any input the kernel does
-    not take and on any launch error."""
+    not take (densities in among them: grid_tc, on no path, has only
+    codes 0 and 1) and on any launch error."""
     global GRID_TC_LAUNCHES
+    if hod.density_in:
+        raise ValueError("grid_tc evaluates zheng07 and its decoration "
+                         "only; densities in run the grid kernel.")
     total, xi = _check_grid_launch(g, pmat, node_weights, hod)
     block = grid_tc_config(g.n_bins, g.n_xi, g.auto)
     if block is None:
@@ -976,25 +1252,39 @@ def slab_predict_plain(s: SlabTable, params, occupation_cen, occupation_sat):
     the plain version is the more accurate side of the comparison.
     """
     batch = next(iter(params.values())).shape[0]
-    nb, nbp, n_xi = s.n_bins, s.nbp, s.n_xi
-    totals, xis = [], []
+    outs = []
     for lo in range(0, batch, _PLAIN_CHUNK):
         p = {k: v[lo:lo + _PLAIN_CHUNK, None, None] for k, v in params.items()}
-        ngal = _plain_ngal(s, p, occupation_cen, occupation_sat)
-        total = _total(ngal)
-        n = torch.nn.functional.pad(ngal, (0, s.k_pad - nb)).double()
-        nodes = []
-        for node in range(s.n_nodes):
-            t = n @ s.f_t[node].double()
-            if s.auto:
-                t = t[:, :n_xi * nbp].reshape(-1, n_xi, nbp)
-                nodes.append(torch.sum(t * n[:, None, :nbp], dim=-1))
-            else:
-                nodes.append(t[:, :n_xi])
-        den = total * total if s.auto else total
-        totals.append(total)
-        xis.append(torch.stack(nodes, dim=1).float() / den[:, None, None])
-    return torch.cat(totals), torch.cat(xis)
+        outs.append(_slab_chunk(
+            s, _plain_ngal(s, p, occupation_cen, occupation_sat)))
+    return torch.cat([t for t, _ in outs]), torch.cat([x for _, x in outs])
+
+
+def slab_contract_plain(s: SlabTable, ngal):
+    """The plain version of a densities-in slab launch: the contraction of
+    :func:`slab_predict_plain` on given float32 densities ngal (B,
+    n_bins), ``_PLAIN_CHUNK`` rows at a time."""
+    outs = [_slab_chunk(s, ngal[lo:lo + _PLAIN_CHUNK])
+            for lo in range(0, ngal.shape[0], _PLAIN_CHUNK)]
+    return torch.cat([t for t, _ in outs]), torch.cat([x for _, x in outs])
+
+
+def _slab_chunk(s: SlabTable, ngal):
+    """(total, xi (chunk, n_nodes, n_xi)) of one chunk of densities, each
+    node's contraction in float64."""
+    nb, nbp, n_xi = s.n_bins, s.nbp, s.n_xi
+    total = _total(ngal)
+    n = torch.nn.functional.pad(ngal, (0, s.k_pad - nb)).double()
+    nodes = []
+    for node in range(s.n_nodes):
+        t = n @ s.f_t[node].double()
+        if s.auto:
+            t = t[:, :n_xi * nbp].reshape(-1, n_xi, nbp)
+            nodes.append(torch.sum(t * n[:, None, :nbp], dim=-1))
+        else:
+            nodes.append(t[:, :n_xi])
+    den = total * total if s.auto else total
+    return total, torch.stack(nodes, dim=1).float() / den[:, None, None]
 
 
 @functools.cache
@@ -1016,14 +1306,14 @@ def _slab_entry_args(s: SlabTcTable, pmat, hod, block, what):
     """The arguments of slab.cu's entry points (``block``: the ring stage
     of slab, the rows and the split of slab_tc) and the allocated outputs
     (total (B,), xi (B, n_nodes, n_xi))."""
-    _check_params(pmat, hod)
+    batch = _check_params(pmat, hod, s.n_bins)
     device = pmat.device
     _check_half(s, device, what)
-    batch = pmat.shape[0]
     total = torch.empty(batch, device=device, dtype=torch.float32)
     xi = torch.empty((batch, s.n_nodes, s.n_xi), device=device,
                      dtype=torch.float32)
-    args = (pmat.data_ptr(), batch, *hod.launch_args(), s.logm.data_ptr(),
+    args = (pmat.data_ptr(), batch, *hod.launch_args(),
+            s.logm.data_ptr(),
             s.logm_res.data_ptr(), s.sec.data_ptr(), s.weight.data_ptr(),
             s.n_bins, s.n_centrals, s.n_gauss, s.b.data_ptr(), s.node_stride,
             *(a.data_ptr() for a in _half_arrays(s)[1:]), s.n_ct, s.n_nodes,
@@ -1037,8 +1327,9 @@ def slab_launch(s: SlabTcTable, pmat, hod=KernelModel()):
     half of each node matrix (the constants of slab_tc).
 
     ``pmat`` is the float32 parameter matrix of the model ``hod`` (zheng07
-    by default; see :func:`bundle_launch`) on the grid's CUDA device.
-    Returns (total (B,), xi (B, n_nodes, n_xi)).  Raises on any input the
+    by default; see :func:`bundle_launch`) on the grid's CUDA device, or
+    for densities in the (n_bins, B) float32 densities.  Returns (total
+    (B,), xi (B, n_nodes, n_xi)).  Raises on any input the
     kernel does not take and on any launch error.
     """
     global SLAB_LAUNCHES
@@ -1297,8 +1588,9 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
         statistic axis ((n_nodes * n_xi, ...)), sharing one quadrature.
     n_nodes : int
     model : HodModel
-        On a CUDA device a model the kernels evaluate (:func:`kernel_model`);
-        on the CPU any model (plain versions).
+        Any model whose ``supports_fused_engine`` is true
+        (:func:`kernel_model`; densities in for all but zheng07 and its
+        decoration).
     accuracy : str
         'elementwise' or 'scaled' (within 1e-6 of each row's largest
         statistic): the grid kernel under both, the FP32 or the 3xTF32
@@ -1323,28 +1615,41 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
         raise ValueError("fold_spline requires the 'packed' layout "
                          "(check grid_layout_for(table) first).")
     device = table.n_h.device
-    hod = _kernel_model_on(device, model)
+    hod = KernelModel.of(model)
     occ_cen, occ_sat = occupation_functions(model)
     consts = grid_constants(table, n_nodes, layout, accuracy, device.type)
     launch = {"grid": grid_launch, "grid_tc": grid_tc_launch,
               "slab": slab_launch, "slab_tc": slab_tc_launch}[
                   grid_kernel_for(layout, accuracy)]
 
+    def inputs(params):
+        """The launch's parameter matrix, or its densities."""
+        if hod.density_in:
+            return kernel_densities(consts, table, model, hod, params)
+        return _param_matrix(params, hod)
+
     if layout == "slab":
         def run_slab(params):
             _check_params_device(params, device)
-            if device.type == "cpu":
-                return slab_predict_plain(consts, params, occ_cen, occ_sat)
-            return launch(consts, _param_matrix(params, hod), hod)
+            if device.type == "cuda":
+                return launch(consts, inputs(params), hod)
+            if hod.density_in:
+                return slab_contract_plain(
+                    consts, occupation_density(table, model, params))
+            return slab_predict_plain(consts, params, occ_cen, occ_sat)
 
         return run_slab
 
     def run(params, node_weights):
         _check_params_device(params, device)
-        if device.type == "cpu":
-            return grid_predict_plain(consts, params, node_weights, occ_cen,
-                                      occ_sat)
-        return launch(consts, _param_matrix(params, hod), node_weights, hod)
+        if device.type == "cuda":
+            return launch(consts, inputs(params), node_weights, hod)
+        if hod.density_in:
+            return grid_contract_plain(
+                consts, occupation_density(table, model, params),
+                node_weights)
+        return grid_predict_plain(consts, params, node_weights, occ_cen,
+                                  occ_sat)
 
     if fold_spline:
         return run

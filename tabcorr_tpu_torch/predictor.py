@@ -8,7 +8,8 @@
 that evaluates a whole parameter batch.  Its engines:
 
 * 'fused' -- on a CUDA device a hand-written kernel per call (``ops.fused``):
-  for a TabCorr the occupation in tensor ops, then the contraction kernel;
+  for a TabCorr the densities (the occupation kernel of the HOD families,
+  else tensor ops), then the contraction kernel;
   for an Interpolator the grid kernel with the grid spline folded in, or,
   for auto tables too wide for its packed layout (more than 127 bins), the
   slab kernel and then the grid spline in tensor ops.  On the CPU the same
@@ -18,6 +19,15 @@ that evaluates a whole parameter batch.  Its engines:
   binnings included; reference: tabcorr/interpolator.py:124-216).
 * 'auto' (default) -- 'fused' on CUDA where the object, model and dtype
   allow it, 'plain' otherwise.
+
+The fused engines take every model whose ``supports_fused_engine`` is true,
+as tabcorr_tpu's do (``tabcorr_tpu/predictor.py:474-498``): zheng07 and its
+decoration are evaluated inside the kernels, every other model's densities
+ahead of them: by the occupation kernel for the SHMR, CLF and
+quiescent/active families and their decorations, in tensor ops for any
+other model (``ops.fused.kernel_model``, ``ops.fused.OccupationFamily``).
+A model whose flag is false (the non-parametric HOD) runs the plain engine
+under 'auto' and raises under 'fused' and 'bundle'.
 
 Every entry point runs on the CUDA device unless ``device="cpu"`` is
 passed; without a card it raises (``utils.device.resolve_device``).
@@ -271,15 +281,28 @@ def _interpolator_fused_predict_fn(interp, model, n_gauss, extrapolate,
     return predict_batch
 
 
-def _fused_kernel_takes(obj, model):
-    """Whether a CUDA kernel takes ``obj``'s shapes (and, for the grid and
-    slab kernels, which evaluate the occupation themselves, the model)."""
+def _fused_kernel_takes(obj):
+    """Whether a CUDA kernel takes ``obj``'s shapes."""
     tab = obj if isinstance(obj, TabCorr) else obj.tabcorr_list[0]
     n_xi = int(np.prod(tab.tpcf_shape))
     if isinstance(obj, TabCorr):
         return fused.contraction_fits(tab.n_bins, n_xi)
-    return (fused.kernel_model(model) is not None and
-            fused.grid_kernel_takes(tab.n_bins, tab.mode, n_xi))
+    return fused.grid_kernel_takes(tab.n_bins, tab.mode, n_xi)
+
+
+def _fused_eligible(obj, model, dtype, separate_gal_type):
+    return (not separate_gal_type and dtype == torch.float32 and
+            getattr(model, "supports_fused_engine", True) and
+            (isinstance(obj, TabCorr) or
+             len(obj.unique_gal_type_index) == 1))
+
+
+def _auto_engine(obj, model, dtype, separate_gal_type, device):
+    """The engine 'auto' picks: 'fused' on CUDA where the object, model
+    and dtype allow it and a kernel takes the shapes, else 'plain'."""
+    return ("fused" if device.type == "cuda" and
+            _fused_eligible(obj, model, dtype, separate_gal_type) and
+            _fused_kernel_takes(obj) else "plain")
 
 
 def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
@@ -302,8 +325,9 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
         Per-galaxy-type dicts (plain engine).
     engine : str, optional
         'fused', 'plain' or 'auto' (default; see the module docstring).
-        'fused' takes float32, no ``separate_gal_type``, and an
-        Interpolator only if its nodes share one halo binning.
+        'fused' takes float32, no ``separate_gal_type``, a model whose
+        ``supports_fused_engine`` is true, and an Interpolator only if its
+        nodes share one halo binning.
     extrapolate : bool, optional
         Interpolators only.  False (default) gives NaN for parameters
         outside the grid -- pair it with a log posterior that maps
@@ -332,18 +356,15 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
         raise NotImplementedError(
             "the bfloat16 fused route (tabcorr_tpu's XLA occupation plus "
             "bf16 contraction) is not ported; ROADMAP.md lists it.")
-    fused_eligible = (not separate_gal_type and dtype == torch.float32 and
-                      (isinstance(obj, TabCorr) or
-                       len(obj.unique_gal_type_index) == 1))
+    fused_eligible = _fused_eligible(obj, model, dtype, separate_gal_type)
     if engine == "auto":
-        engine = ("fused" if fused_eligible and device.type == "cuda" and
-                  _fused_kernel_takes(obj, model) else "plain")
+        engine = _auto_engine(obj, model, dtype, separate_gal_type, device)
     if engine == "fused":
         if not fused_eligible:
             raise ValueError(
-                "engine='fused' requires float32, separate_gal_type=False "
-                "and a TabCorr or an Interpolator whose nodes share one "
-                "halo binning.")
+                "engine='fused' requires float32, separate_gal_type=False, "
+                "a model whose supports_fused_engine is true, and a TabCorr "
+                "or an Interpolator whose nodes share one halo binning.")
         if isinstance(obj, Interpolator):
             return _interpolator_fused_predict_fn(obj, model, n_gauss,
                                                   extrapolate, accuracy,
@@ -366,8 +387,11 @@ def make_multi_predictor(objs, model, n_gauss=10, *, device="cuda",
     ----------
     objs : sequence of TabCorr
     model : HodModel
-        A model the CUDA kernel evaluates (``ops.fused.kernel_model``:
-        zheng07, with or without assembly bias); any model on the CPU.
+        Under 'bundle' a model whose ``supports_fused_engine`` is true
+        (``ops.fused.kernel_model``: zheng07 and its decoration in the
+        kernel, any other model's densities ahead of it, from the
+        occupation kernel or tensor ops);
+        any model under 'plain'.
     n_gauss : int, optional
         Gauss-Legendre nodes per halo bin. Default 10.
     device : str or torch.device, optional

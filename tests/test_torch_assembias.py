@@ -370,29 +370,25 @@ class _DecoratedSubclass(ttt.AssembiasZheng07Model):
 def test_kernel_model_dispatches_on_the_exact_type(tabs):
     assert fused.kernel_model(ttt.Zheng07Model()) == 0
     assert fused.kernel_model(ttt.AssembiasZheng07Model()) == 1
+    # Any other fused-engine model, subclasses of the two included, reaches
+    # the kernels through its densities (code 2), never through code 0 or
+    # 1, which would ignore what the subclass changed.
     for other in (_Subclassed(), _DecoratedSubclass(), ttt.HodModel(),
                   tt.Zheng07Model()):
-        assert fused.kernel_model(other) is None
+        assert fused.kernel_model(other) == fused.DENSITY_IN
+        assert fused.KernelModel.of(other) == fused.KernelModel(code=2)
+        assert fused.KernelModel.of(other).param_names == ()
     decorated = ttt.AssembiasZheng07Model(split=0.4,
                                           modulate_with_cenocc=True)
     hod = fused.KernelModel.of(decorated)
     assert (hod.code, hod.modulate, hod.split) == (1, True, 0.4)
     assert hod.param_names == NAMES
     assert fused.KernelModel.of(ttt.Zheng07Model()).param_names == NAMES[:5]
-    # On a CUDA device every kernel that evaluates the occupation refuses
-    # a model it does not know; the CPU runs the plain versions.
-    cuda = torch.device("cuda")
-    for other in (_Subclassed(), _DecoratedSubclass()):
-        with pytest.raises(ValueError, match="occupations only"):
-            fused._kernel_model_on(cuda, other)
-        assert fused._kernel_model_on(torch.device("cpu"), other) is None
-    assert fused._kernel_model_on(cuda, decorated) == hod
-    # 'auto' never routes an unknown model to the grid or slab kernels.
+    # 'auto' routes every fused-engine model to the grid or slab kernels.
     interp = ttt.Interpolator.read(FIXTURES["ds"])
-    assert predictor._fused_kernel_takes(interp, decorated)
-    assert not predictor._fused_kernel_takes(interp, _Subclassed())
-    # A plain version takes any model: the subclass's doubled occupation
-    # shows in ngal.
+    assert predictor._fused_kernel_takes(interp)
+    # The plain version of a code-2 launch: the subclass's doubled
+    # occupation shows in ngal.
     table = tabs["wp"][1].table_data(device="cpu")
     params = {k: torch.tensor(v[:3]) for k, v in _params(3, 1).items()
               if k in NAMES[:5]}

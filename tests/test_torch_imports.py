@@ -42,7 +42,10 @@ def test_scan_sees_the_whole_package():
     names = {p.name for p in PORT_FILES}
     assert {"fused.py", "predict.py", "table.py", "mcmc.py", "zheng07.py",
             "interpolator.py", "predictor.py", "synthetic.py",
-            "assembias.py", "chip_smoke.py"} <= names
+            "assembias.py", "chip_smoke.py", "leauthaud11.py",
+            "zu_mandelbaum15.py", "cacciato09.py", "tinker13.py",
+            "functional.py", "nonparametric.py", "inversion.py",
+            "special.py", "backend.py"} <= names
 
 
 def test_port_imports_with_jax_blocked():
@@ -54,6 +57,14 @@ def test_port_imports_with_jax_blocked():
             "import tabcorr_tpu_torch.interpolator\n"
             "import tabcorr_tpu_torch.utils.synthetic\n"
             "import tabcorr_tpu_torch.models.assembias\n"
+            "import tabcorr_tpu_torch.models.leauthaud11\n"
+            "import tabcorr_tpu_torch.models.zu_mandelbaum15\n"
+            "import tabcorr_tpu_torch.models.cacciato09\n"
+            "import tabcorr_tpu_torch.models.tinker13\n"
+            "import tabcorr_tpu_torch.models.functional\n"
+            "import tabcorr_tpu_torch.models.nonparametric\n"
+            "import tabcorr_tpu_torch.utils.inversion\n"
+            "import tabcorr_tpu_torch.utils.special\n"
             "from tabcorr_tpu_torch.utils.build import load_library\n"
             "assert load_library.cache_info().currsize == 0\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -1,5 +1,7 @@
-"""The CUDA kernels (bundle, contraction, grid, grid_tc, slab, slab_tc) against their plain PyTorch versions, for zheng07 and the
-assembly-bias decorated model.
+"""The CUDA kernels (bundle, contraction, grid, grid_tc, slab, slab_tc)
+against their plain PyTorch versions, for zheng07, the assembly-bias
+decorated model, and every other model through its densities (model code
+2).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a GPU machine without JAX it runs on its own:
@@ -14,8 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from tabcorr_tpu_torch import (AssembiasZheng07Model, Interpolator, TabCorr,
-                               Zheng07Model, make_multi_predictor,
+from tabcorr_tpu_torch import (AssembiasLeauthaud11Model,
+                               AssembiasZheng07Model,
+                               AssembiasZuMandelbaum15Model, Interpolator,
+                               Leauthaud11Model, TabCorr, Zheng07Model,
+                               ZuMandelbaum15Model, make_multi_predictor,
                                make_predictor, occupation_functions,
                                params_batch)
 from tabcorr_tpu_torch.io import ColumnTable
@@ -520,13 +525,16 @@ def test_slab_wrapper_rejects_bad_inputs(cuda):
         fused.slab_launch(s, pmat.cpu())
     with pytest.raises(ValueError):
         fused.slab_launch(s, pmat, fused.KernelModel(code=1))
-    with pytest.raises(ValueError, match="occupations only"):
+    with pytest.raises(ValueError, match="takes no fused engine"):
         fused.make_fused_grid_predictor(table, 3, HodModelStandIn(),
                                         layout="slab")
 
 
 class HodModelStandIn(Zheng07Model):
-    """A zheng07 subclass: the kernels do not evaluate it."""
+    """A zheng07 subclass that takes no fused engine: no kernel runs it,
+    not even from its densities."""
+
+    supports_fused_engine = False
 
 
 # ----------------------------------------------------------------------
@@ -975,3 +983,415 @@ def test_bundle_wrapper_raises_on_what_it_does_not_take(cuda):
         with pytest.raises(RuntimeError, match="bundle kernel launch failed"):
             fused.bundle_launch(consts, pmat)
     assert fused.BUNDLE_LAUNCHES == before
+
+
+# ----------------------------------------------------------------------
+# Densities in (model code 2): the kernels contract the occupation
+# kernel's densities, or for a model it does not evaluate densities
+# computed in tensor ops
+# ----------------------------------------------------------------------
+class _Zheng07Subclass(Zheng07Model):
+    """A zheng07 subclass: code 2, never code 0."""
+
+
+def _family(kind):
+    return {"leauthaud11": Leauthaud11Model(threshold=10.5),
+            "zu15": ZuMandelbaum15Model(threshold=10.5,
+                                        prim_haloprop_key="halo_mvir"),
+            "assembias_leauthaud11": AssembiasLeauthaud11Model(
+                threshold=10.5),
+            "assembias_zu15": AssembiasZuMandelbaum15Model(threshold=10.5),
+            "zheng07_subclass": _Zheng07Subclass(threshold=-18)}[kind]
+
+
+def _family_params(model, batch, seed, device):
+    """Every parameter within ~1% of the model's value, assembly-bias
+    strengths uniform in [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    overrides = {k: (rng.uniform(-1.0, 1.0, batch) if "assembias" in k else
+                     v + 0.01 * abs(v) * rng.normal(size=batch))
+                 for k, v in model.param_dict.items()}
+    return params_batch(model, overrides, (batch,), device=device)
+
+
+def _assert_close_strict(got, want, per_element=()):
+    """The kernels' limits against their plain versions on the same
+    densities: ngal 1e-6 relative; xi 1e-6 of each row's largest element,
+    or 2e-6 relative per element for the tables in ``per_element`` (wp)."""
+    for t, ((ng, xi), (ng_p, xi_p)) in enumerate(zip(got, want)):
+        ng, ng_p = ng.double().cpu(), ng_p.double().cpu()
+        assert float(((ng - ng_p).abs() / ng_p.abs()).max()) <= 1e-6, t
+        xi = xi.double().cpu().reshape(xi.shape[0], -1)
+        xi_p = xi_p.double().cpu().reshape(xi.shape[0], -1)
+        if t in per_element:
+            assert float(((xi - xi_p).abs() / xi_p.abs()).max()) <= 2e-6, t
+        else:
+            scaled = (xi - xi_p).abs().amax(1) / xi_p.abs().amax(1)
+            assert float(scaled.max()) <= 1e-6, t
+
+
+def _bench_tables(device):
+    wp = TabCorr.read(DATA / "bolplanck_wp.npz")
+    xi = TabCorr.read(DATA / "synthetic_xi_ell.npz")
+    return [wp, xi], [t.table_data(device=device) for t in (wp, xi)]
+
+
+@pytest.mark.parametrize("kind", ["leauthaud11", "zu15",
+                                  "assembias_leauthaud11",
+                                  "zheng07_subclass"])
+def test_bundle_density_in_matches_plain(cuda, kind):
+    objs, tables = _bench_tables(cuda)
+    model = _family(kind)
+    assert fused.KernelModel.of(model).code == fused.DENSITY_IN
+    predict = make_multi_predictor(objs, model, device=cuda)
+    params = _family_params(model, 4096 + 37, 3, cuda)
+    before = fused.BUNDLE_LAUNCHES
+    got = predict(params)
+    torch.cuda.synchronize()
+    assert fused.BUNDLE_LAUNCHES == before + 1
+    # The plain contraction of the densities the kernel read (the
+    # occupation kernel's, or the subclass's tensor-op ones).
+    hod = fused.KernelModel.of(model)
+    assert (hod.family is None) == (kind == "zheng07_subclass")
+    want = [fused.contraction_plain(
+        fused.bundle_table_constants(t), fused.kernel_densities(
+            fused.slab_tc_table_constants(t, 1), t, model, hod, params).t())
+        for t in tables]
+    _assert_close_strict(got, fused.shaped(tables, want), per_element=(0,))
+
+
+def _zheng07_inputs(table, kind, batch, device):
+    """Code 0/1's parameter matrix, and the same rows' tensor-op densities
+    in code 2's (n_bins, B) layout."""
+    model = _model(kind)
+    params = _params(model, batch, 12, device)
+    hod = fused.KernelModel.of(model)
+    return (fused._param_matrix(params, hod), hod,
+            fused.occupation_density(table, model, params).t().contiguous())
+
+
+@pytest.mark.parametrize("kind", ["zheng07", "assembias"])
+def test_bundle_density_in_equals_the_in_kernel_occupation(cuda, kind):
+    _, tables = _bench_tables(cuda)
+    consts = [fused.slab_tc_table_constants(t, 1) for t in tables]
+    model = _model(kind)
+    params = _params(model, 4096 + 37, 12, cuda)
+    hod = fused.KernelModel.of(model)
+    dens = [fused.occupation_density(t, model, params).t().contiguous()
+            for t in tables]
+    before = fused.BUNDLE_LAUNCHES
+    code0 = fused.bundle_launch(consts, fused._param_matrix(params, hod),
+                                hod)
+    code2 = fused.bundle_launch(consts, dens, fused.KernelModel(code=2))
+    torch.cuda.synchronize()
+    assert fused.BUNDLE_LAUNCHES == before + 2
+    _assert_close_strict(code2, code0, per_element=(0,))
+
+
+@pytest.mark.parametrize("shape", ["auto 48 bins", "cross 1104 bins",
+                                   "cross 1400 bins"])
+@pytest.mark.parametrize("kind", ["zheng07", "assembias"])
+def test_grid_density_in_equals_the_in_kernel_occupation(cuda, shape, kind):
+    """At 64-, 32- and 16-row blocks, folded, a NaN row."""
+    if shape == "cross 1104 bins":
+        table, _ = _ds_efficient_grid(kind, cuda)
+        n_nodes = 4
+    else:
+        n_nodes = 6 if shape.startswith("auto") else 3
+        table = (_grid_table(n_nodes, 12, 2, 7, "auto", 13, cuda)
+                 if shape.startswith("auto") else
+                 _grid_table(n_nodes, 350, 2, 5, "cross", 17, cuda))
+    g = fused.grid_table_constants(table, n_nodes)
+    assert fused.grid_block_rows(g.n_bins, g.n_xi) == {
+        "auto 48 bins": 64, "cross 1104 bins": 32, "cross 1400 bins": 16}[
+            shape]
+    pmat, hod, dens = _zheng07_inputs(table, kind, 131, cuda)
+    nw = torch.tensor(np.random.default_rng(4).dirichlet(np.ones(n_nodes),
+                                                         131),
+                      dtype=torch.float32, device=cuda)
+    nw[5] = torch.nan
+    before = fused.GRID_LAUNCHES
+    code0 = fused.grid_launch(g, pmat, nw, hod)
+    code2 = fused.grid_launch(g, dens, nw, fused.KernelModel(code=2))
+    torch.cuda.synchronize()
+    assert fused.GRID_LAUNCHES == before + 2
+    assert bool(torch.isnan(code2[1][5]).all())
+    keep = torch.arange(131, device=cuda) != 5
+    _assert_close_strict([[a[keep] for a in code2]],
+                         [[a[keep] for a in code0]])
+
+
+@pytest.mark.parametrize("shape", ["auto 48 bins", "cross 1104 bins",
+                                   "cross 1400 bins"])
+@pytest.mark.parametrize("fold", [False, True])
+def test_grid_density_in_matches_plain(cuda, shape, fold):
+    if shape == "cross 1104 bins":
+        table, _ = _ds_efficient_grid("zheng07", cuda)
+        n_nodes = 4
+    else:
+        n_nodes = 6 if shape.startswith("auto") else 3
+        table = (_grid_table(n_nodes, 12, 2, 7, "auto", 13, cuda)
+                 if shape.startswith("auto") else
+                 _grid_table(n_nodes, 350, 2, 5, "cross", 17, cuda))
+    model = _family("assembias_leauthaud11")
+    predict = fused.make_fused_grid_predictor(table, n_nodes, model,
+                                              fold_spline=fold)
+    g = fused.grid_table_constants(table, n_nodes)
+    params = _family_params(model, 131, 5, cuda)
+    nw = None
+    if fold:
+        nw = torch.tensor(np.random.default_rng(3).normal(
+            size=(131, n_nodes)), dtype=torch.float32, device=cuda)
+        nw[3] = torch.nan
+    before = fused.GRID_LAUNCHES
+    got = predict(params, nw) if fold else predict(params)
+    torch.cuda.synchronize()
+    assert fused.GRID_LAUNCHES == before + 1
+    dens = fused.kernel_densities(g, table, model,
+                                  fused.KernelModel.of(model), params).t()
+    want = fused.grid_contract_plain(g, dens, nw)
+    scale = None
+    if fold:
+        nodes = fused.grid_contract_plain(g, dens)[1]
+        scale = (nw.abs()[:, :, None] * nodes.abs()).sum(1).amax(1)
+    _assert_grid_close(got, want, nan_rows=(3,) if fold else (), scale=scale)
+
+
+@pytest.mark.parametrize("accuracy", ["elementwise", "scaled"])
+@pytest.mark.parametrize("kind", ["zheng07", "assembias"])
+def test_slab_density_in_equals_the_in_kernel_occupation(cuda, accuracy,
+                                                         kind):
+    table = _grid_table(3, 40, 2, 6, "auto", 5, cuda)
+    s = fused.slab_tc_table_constants(table, 3)
+    launch = {"elementwise": fused.slab_launch,
+              "scaled": fused.slab_tc_launch}[accuracy]
+    pmat, hod, dens = _zheng07_inputs(table, kind, 4096 + 37, cuda)
+    code0 = launch(s, pmat, hod)
+    code2 = launch(s, dens, fused.KernelModel(code=2))
+    _assert_close_strict([code2], [code0])
+
+
+@pytest.mark.parametrize("accuracy", ["elementwise", "scaled"])
+@pytest.mark.parametrize("mode,n_prim,n_xi,batch", [
+    ("auto", 40, 6, 4096 + 37), ("cross", 11, 5, 8)])
+def test_slab_density_in_matches_plain(cuda, accuracy, mode, n_prim, n_xi,
+                                       batch):
+    n_nodes = 3
+    table = _grid_table(n_nodes, n_prim, 2, n_xi, mode, 5, cuda)
+    model = _family("assembias_zu15")
+    predict = fused.make_fused_grid_predictor(table, n_nodes, model,
+                                              accuracy=accuracy,
+                                              layout="slab")
+    counter = {"elementwise": "SLAB_LAUNCHES",
+               "scaled": "SLAB_TC_LAUNCHES"}[accuracy]
+    params = _family_params(model, batch, 6, cuda)
+    before = getattr(fused, counter)
+    got = predict(params)
+    torch.cuda.synchronize()
+    assert getattr(fused, counter) == before + 1
+    dens = fused.kernel_densities(
+        fused.slab_tc_table_constants(table, n_nodes), table, model,
+        fused.KernelModel.of(model), params).t()
+    want = fused.slab_contract_plain(
+        fused.slab_table_constants(table, n_nodes), dens)
+    _assert_grid_close(got, want)
+
+
+def test_fused_interpolator_density_in_nan_outside_the_grid(cuda):
+    tabs = []
+    for j in range(4):
+        t = synthetic_tabcorr(np.random.default_rng(21), 12, 2, 7, "auto")
+        t.tpcf_matrix = t.tpcf_matrix * (1.0 + 0.1 * np.random.default_rng(
+            50 + j).normal(size=t.tpcf_matrix.shape))
+        tabs.append(t)
+    interp = Interpolator(tabs, ColumnTable(
+        {"log_eta": [-0.4, -0.1, 0.2, 0.4]}))
+    model = _family("leauthaud11")
+    model.param_dict["log_eta"] = 0.0
+    predict = make_predictor(interp, model, device=cuda)
+    plain = make_predictor(interp, model, engine="plain", device=cuda)
+    params = _family_params(model, 300, 8, cuda)
+    eta = np.random.default_rng(7).uniform(-0.35, 0.35, 300)
+    eta[[3, 200]] = [0.5, -0.6]
+    params["log_eta"] = torch.tensor(eta, dtype=torch.float32, device=cuda)
+    before = fused.GRID_LAUNCHES
+    got = predict(params)
+    torch.cuda.synchronize()
+    assert fused.GRID_LAUNCHES == before + 1
+    out = torch.zeros(300, dtype=torch.bool)
+    out[[3, 200]] = True
+    for ngal, xi in (got, plain(params)):
+        ngal, xi = ngal.cpu(), xi.cpu().reshape(300, -1)
+        assert bool(torch.isnan(ngal[out]).all() and
+                    torch.isnan(xi[out]).all())
+        assert bool(torch.isfinite(ngal[~out]).all() and
+                    torch.isfinite(xi[~out]).all())
+
+
+def test_density_in_wrappers_reject_bad_inputs(cuda):
+    _, tables = _bench_tables(cuda)
+    consts = [fused.slab_tc_table_constants(t, 1) for t in tables]
+    code2 = fused.KernelModel(code=2)
+    dens = [torch.ones((t.n_bins, 8), device=cuda) for t in tables]
+    with pytest.raises(ValueError, match="one .* per table"):
+        fused.bundle_launch(consts, dens[:1], code2)
+    with pytest.raises(ValueError, match="densities must be"):
+        fused.bundle_launch(consts, [dens[1], dens[0]], code2)
+    with pytest.raises(ValueError, match="densities must be"):
+        fused.bundle_launch(consts, [d.t().contiguous() for d in dens],
+                            code2)
+    with pytest.raises(ValueError, match="differ in batch"):
+        fused.bundle_launch(consts, [dens[0], dens[1][:, :7].contiguous()],
+                            code2)
+    with pytest.raises(ValueError, match="densities must be"):
+        fused.bundle_launch(consts, [dens[0].double(), dens[1]], code2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.bundle_launch(consts, [dens[0], dens[1].t().contiguous().t()],
+                            code2)
+    table = _grid_table(3, 8, 1, 3, "auto", 1, cuda)
+    g = fused.grid_table_constants(table, 3)
+    s = fused.slab_tc_table_constants(table, 3)
+    bad = torch.ones((table.n_bins + 1, 8), device=cuda)
+    with pytest.raises(ValueError, match="densities must be"):
+        fused.grid_launch(g, bad, None, code2)
+    for launch in (fused.slab_launch, fused.slab_tc_launch):
+        with pytest.raises(ValueError, match="densities must be"):
+            launch(s, bad, code2)
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(s, bad[1:].cpu(), code2)
+    good = torch.ones((table.n_bins, 8), device=cuda)
+    with pytest.raises(ValueError, match="grid_tc"):
+        fused.grid_tc_launch(g, good, None, code2)
+
+
+# ----------------------------------------------------------------------
+# The occupation kernel of the HOD families (csrc/occupation.cu)
+# ----------------------------------------------------------------------
+OCCUPATION_KINDS = ("leauthaud11", "leauthaud11 z=0.5 unmodulated", "zu15",
+                    "tinker13 all", "tinker13 quiescent", "tinker13 active",
+                    "tinker13 5 control masses", "cacciato09",
+                    "assembias_leauthaud11", "assembias_zu15",
+                    "assembias_tinker13 quiescent",
+                    "assembias_tinker13 active", "assembias_cacciato09")
+
+
+def _occupation_model(kind):
+    decorated = kind.startswith("assembias_")
+    name = kind.removeprefix("assembias_")
+    pre = "Assembias" if decorated else ""
+    import tabcorr_tpu_torch as ttt
+    if name.startswith("leauthaud11"):
+        kw = (dict(redshift=0.5, modulate_with_cenocc=False)
+              if "z=0.5" in name else {})
+        return getattr(ttt, pre + "Leauthaud11Model")(threshold=10.5, **kw)
+    if name == "zu15":
+        return getattr(ttt, pre + "ZuMandelbaum15Model")(
+            threshold=10.5, prim_haloprop_key="halo_mvir")
+    if name.startswith("tinker13"):
+        sfr = name.split()[1] if name.split()[1] in (
+            "all", "quiescent", "active") else "active"
+        kw = (dict(quiescent_fraction_abscissa=(11.5, 12.5, 13.5, 14.5,
+                                                15.5))
+              if "control" in name else {})
+        return getattr(ttt, pre + "Tinker13Model")(
+            threshold=10.5, sfr_designation=sfr, redshift=0.3, **kw)
+    return getattr(ttt, pre + "Cacciato09Model")(
+        threshold=10.0, prim_haloprop_key="halo_mvir")
+
+
+def _occupation_params(model, batch, seed, device):
+    """Every parameter within ~2% of the model's value (ordinates within
+    0.05), strengths uniform in [-1, 1]; row 0 at the model's values."""
+    rng = np.random.default_rng(seed)
+    overrides = {}
+    for k, v in model.param_dict.items():
+        if "assembias" in k:
+            o = rng.uniform(-1.0, 1.0, batch)
+        elif "ordinates" in k:
+            o = v + 0.05 * rng.uniform(-1.0, 1.0, batch)
+        else:
+            o = v + 0.02 * abs(v) * rng.uniform(-1.0, 1.0, batch)
+        o[0] = v
+        overrides[k] = o
+    return params_batch(model, overrides, (batch,), device=device)
+
+
+def _density_errors(got, want):
+    """Per element |got - want| / (|want| + 1e-6 * the row's largest
+    |want|): relative, floored at 1e-6 of the row."""
+    got, want = got.double(), want.double()
+    floor = 1e-6 * want.abs().amax(1, keepdim=True)
+    return float(((got - want).abs() / (want.abs() + floor)).max())
+
+
+@pytest.mark.parametrize("kind", OCCUPATION_KINDS)
+def test_occupation_kernel_matches_plain_and_float64(cuda, kind):
+    """The densities against the plain version (float32 tensor ops) at
+    tabcorr_tpu's fused-against-XLA bar (1e-4 relative + 2e-6 of the
+    row's largest), and against the float64 tensor path at 1e-6 (the
+    kernel evaluates the nodes in float64 and rounds once); both layouts
+    hold the same bits."""
+    tab = TabCorr.read(DATA / "bolplanck_wp.npz")
+    table = tab.table_data(device=cuda)
+    model = _occupation_model(kind)
+    fam = fused.OccupationFamily.of(model)
+    assert fam is not None and fused.KernelModel.of(model).family == fam
+    params = _occupation_params(model, 4096 + 37, 11, cuda)
+    c = fused.slab_tc_table_constants(table, 1)
+    cols = fused.family_columns(params, fam)
+    before = fused.OCCUPATION_LAUNCHES
+    got = fused.occupation_launch(c, fam, cols)
+    rows = fused.occupation_launch(c, fam, cols, bin_major=False)
+    torch.cuda.synchronize()
+    assert fused.OCCUPATION_LAUNCHES == before + 2
+    assert got.shape == (table.n_bins, 4096 + 37)
+    assert torch.equal(got.t(), rows)
+    plain = fused.occupation_density(table, model, params)
+    want64 = fused.occupation_density(
+        tab.table_data(device=cuda, dtype=torch.float64), model,
+        {k: v.double() for k, v in params.items()})
+    assert bool(torch.isfinite(rows).all())
+    d = (rows.double() - plain.double()).abs()
+    bar = 1e-4 * plain.double().abs() + 2e-6 * plain.double().abs().amax(
+        1, keepdim=True)
+    assert bool((d <= bar).all()), float((d / bar).max())
+    assert _density_errors(rows, want64) <= 1e-6
+    # The kernel is the more exact side of the comparison with plain.
+    assert _density_errors(rows, want64) <= max(
+        2e-7, _density_errors(plain, want64))
+
+
+def test_occupation_kernel_on_a_wide_cross_table(cuda):
+    """1104 bins (a table of the 'efficient' Delta Sigma grid), decorated,
+    on the grid kernel's constants, against float64."""
+    tab = Interpolator.read(DATA / "ds_efficient.npz").tabcorr_list[0]
+    table = tab.table_data(device=cuda)
+    model = AssembiasLeauthaud11Model(threshold=10.5, redshift=0.5)
+    fam = fused.OccupationFamily.of(model)
+    params = _occupation_params(model, 300, 12, cuda)
+    g = fused.grid_table_constants(table, 1)
+    got = fused.occupation_launch(g, fam, fused.family_columns(params, fam))
+    want64 = fused.occupation_density(
+        tab.table_data(device=cuda, dtype=torch.float64), model,
+        {k: v.double() for k, v in params.items()})
+    assert got.shape == (1104, 300)
+    assert _density_errors(got.t(), want64) <= 1e-6
+
+
+def test_occupation_wrapper_rejects_bad_inputs(cuda):
+    tab = TabCorr.read(DATA / "bolplanck_wp.npz")
+    c = fused.slab_tc_table_constants(tab.table_data(device=cuda), 1)
+    fam = fused.OccupationFamily.of(Leauthaud11Model())
+    good = torch.ones((16, 8), device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.occupation_launch(c, fam, good.cpu())
+    with pytest.raises(ValueError, match=r"\(16, B\)"):
+        fused.occupation_launch(c, fam, good[:15])
+    with pytest.raises(ValueError, match=r"\(16, B\)"):
+        fused.occupation_launch(c, fam, good.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.occupation_launch(c, fam, good.t().contiguous().t())
+    before = fused.OCCUPATION_LAUNCHES
+    assert fused.occupation_launch(c, fam, good[:, :0]).shape == (
+        c.n_bins, 0)
+    assert fused.OCCUPATION_LAUNCHES == before + 1
