@@ -52,9 +52,14 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    'efficient' Delta Sigma grid for AssembiasLeauthaud11 at z = 0.5 under
    both contracts; the contraction kernel for Cacciato09 on wp and
    Tinker13 (quiescent) on xi_ell; slab_tc and slab on the wide grid for
-   AssembiasZuMandelbaum15 at 32,768 rows (two sampler steps).  Each
-   prints the occupation kernel and the kernel it feeds separately, beside
-   the occupation's plain version (tensor ops); the occupation kernel
+   AssembiasZuMandelbaum15 at 32,768 rows (two sampler steps).  The
+   bundle's densities come from one occupation launch per call over both
+   tables' node plan.  Each path prints the occupation kernel and the
+   kernel it feeds separately, beside the occupation's plain version
+   (tensor ops), and the occupation kernel's bound on its inputs
+   (``occupation_bound``: its pieces at their SASS instruction counts, at
+   the distinct nodes of the node plan) with its share and the plan's
+   distinct and evaluated (bin, node) abscissae; the occupation kernel
    against its plain version (tabcorr_tpu's fused-against-XLA bar) and
    against float64 (1e-6), the kernel against the plain contraction of
    the same densities, and the path and the port's plain float32 engine
@@ -195,7 +200,8 @@ def make_context():
     for name in fused.KERNEL_SOURCES:
         log = library_path(name).with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else ():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or (
+                    name == "occupation" and "entry function" in line):
                 print(f"ptxas ({name}): {line.strip()}")
 
     def reset():
@@ -1220,38 +1226,198 @@ def kernel_vs_plain(label, got, want, per_element):
                      for k in (0, 1)])
 
 
-# Operations of the occupation kernel of an SHMR family, read off
-# csrc/occupation.cu with each libm call counted as one operation (a lower
-# bound): per inversion chain and bin the bisection seed (15 steps of 13),
-# per inversion and node three float32 Newton steps of 22 and the float64
-# Newton step with the erfc (16); per satellite node the power law (7);
-# per node the decoration (8) and the quadrature FMA (2).
-BISECTION_F32_OPS = 15 * 13
-NEWTON_F32_OPS = 3 * 22
-SHMR_F64_OPS = 16
-SAT_F64_OPS = 7
-DECORATION_F64_OPS = 8
+# Instructions of the occupation kernel's pieces as (FP64 pipe, FP32),
+# counted in their SASS by scripts/torch_occupation_sass.py (one probe per
+# piece including csrc/occupation.cu, the port's nvcc flags, sm_90a; the
+# common line from the entry to the EXIT, less a probe that only loads and
+# stores; CUDA 12.8 on the card): the libm calls at their instruction
+# counts, not as one operation each.  A float32 Newton step (two exp10f,
+# three divisions), the float64 Newton step (two exp10, a division), the
+# centrals' erfc, the satellites' power law (exp, exp10), Cacciato09's
+# median luminosity (exp10, log1p) and satellite terms (atan, two exp10),
+# Gamma(a, x)'s entry, ends and terms (series: a division; continued
+# fraction: a division and a reciprocal), the decoration and the
+# quadrature FMA.  Tinker13's quiescent fraction is counted from its loops:
+# a compare per segment break, an FMA per ordinate and coefficient, the
+# Horner FMA, the clip.
+OCC_SASS = {
+    "node_abscissa": (3, 0), "bisection_step": (0, 21),
+    "newton_f32_step": (0, 50), "newton_f64_step": (71, 10),
+    "leauthaud11_erfc": (68, 0), "zu15_erfc": (83, 3),
+    "satellite_power": (42, 4), "multiply": (1, 0), "tinker13_mix": (3, 0),
+    "decorate_bounded": (9, 0), "decorate_unbounded": (5, 0),
+    "quadrature_fma": (2, 0), "cacciato09_luminosity": (91, 11),
+    "cacciato09_central_erfc": (68, 0),
+    "cacciato09_satellite_terms": (86, 4), "gamma_entry": (2, 0),
+    "gamma_series_term": (14, 3), "gamma_series_ends": (312, 26),
+    "gamma_fraction_term": (28, 4), "gamma_fraction_ends": (61, 4),
+    "gamma_negative_a": (62, 6)}
+# One H100 SXM at 1.98 GHz: the FP64 pipe, 132 SMs x 64 lanes (34 TFLOP/s
+# with an FMA as two operations), and the issue of one warp instruction
+# per sub-partition per clock (132 x 4 x 32 lanes), which FP32 and FP64
+# instructions share.
+PEAK_FP64_INSTR = 17e12
+PEAK_ISSUE_INSTR = 33.5e12
+BISECT_STEPS = 15
+NEWTON_F32_STEPS = 3
+GAMMA_TOL = 1e-5          # csrc/occupation.cu kGammaTol
 
 
-def occupation_bound(fam, n_bins, n_centrals, n_gauss, batch):
-    """The least time of the occupation kernel for an SHMR family
-    (Leauthaud11 and ZuMandelbaum15 forms): its operations, float32 at the
-    FP32 peak and float64 at the FP64 peak, against its bytes (the
-    parameters and the quadrature read once, the densities written
-    once)."""
-    n_sat = n_bins - n_centrals
-    inversions = n_centrals + (n_sat if fam.modulate else 0)   # bins
-    f32 = inversions * (BISECTION_F32_OPS + n_gauss * NEWTON_F32_OPS)
-    f64 = n_gauss * (inversions * SHMR_F64_OPS + n_sat * SAT_F64_OPS +
-                     n_bins * (2 + (DECORATION_F64_OPS if fam.decorated
-                                    else 0)))
-    ops_ms = (f32 * batch / PEAK_FP32_FLOPS +
-              f64 * batch / PEAK_FP64_FLOPS) * 1e3
-    n_bytes = 4 * (len(fam.param_names) * batch + 4 * n_bins * n_gauss +
-                   n_bins * batch)
+def gamma_instructions(ctx, pcols, y, threshold, chunk=8192):
+    """(FP64, FP32) instructions of Gamma(a, x) at the satellites' nodes
+    ``y`` (float64, on the card) for every row of the Cacciato09 parameter
+    columns ``pcols``: a and x as the kernel forms them, then each call of
+    gamma_upper_positive's series or continued fraction run to the
+    kernel's stopping rule in float64 tensor ops, its terms counted."""
+    torch, np = ctx["torch"], ctx["np"]
+    c = {k: np.array(v, np.float64) for k, v in OCC_SASS.items()}
+    total = np.zeros(2)
+    for lo in range(0, pcols.shape[1], chunk):
+        p = pcols[:13, lo:lo + chunk].double()[..., None]
+        (log_l0, log_m1, g1, g2, _, a1, a2, log_m2, _, _, _, d1, d2) = p
+        t = y - log_m1
+        log_lc = log_l0 + g1 * t - (g1 - g2) * (
+            t.clamp(min=0.0) + torch.log1p(10.0 ** -t.abs()) / np.log(10.0))
+        alpha = -2.0 + a1 * (1.0 - (2.0 / np.pi) * torch.atan(
+            a2 * (y - log_m2)))
+        log_delta = d1 + d2 * (y - 12.0)
+        a = 0.5 * (alpha + 1.0)
+        x = (10.0 ** (log_delta + 2.0 * (threshold - (
+            log_lc + np.log10(0.562))))).clamp(min=1e-35)
+        positive = a >= GAMMA_TOL
+        below = ~positive
+        blend = below & (a > -GAMMA_TOL)
+        calls = [torch.where(positive, a, torch.clamp(a, max=-GAMMA_TOL) +
+                             1.0)]
+        total += a.numel() * c["gamma_entry"]
+        total += int(below.sum()) * c["gamma_negative_a"]
+        if bool(blend.any()):
+            calls.append(torch.full_like(a[blend], GAMMA_TOL))
+        xs = [x, x[blend]]
+        for s, xx in zip(calls, xs):
+            series = xx < s + 1.0
+            total += int(series.sum()) * c["gamma_series_ends"]
+            total += int((~series).sum()) * c["gamma_fraction_ends"]
+            total += gamma_terms(ctx, s, xx, series)
+    return total
+
+
+def gamma_terms(ctx, s, x, series):
+    """(FP64, FP32) instructions of the series' and the continued
+    fraction's terms (csrc/occupation.cu gamma_upper_positive) until each
+    stops."""
+    torch, np = ctx["torch"], ctx["np"]
+    c_series = np.array(OCC_SASS["gamma_series_term"], np.float64)
+    c_frac = np.array(OCC_SASS["gamma_fraction_term"], np.float64)
+    total = np.zeros(2)
+    # The series below x = s + 1.
+    ap, term = s.clone(), 1.0 / s
+    acc, live = term.clone(), series.clone()
+    for _ in range(300):
+        if not bool(live.any()):
+            break
+        total += int(live.sum()) * c_series
+        ap = ap + 1.0
+        term = term * (x / ap)
+        acc = acc + term
+        live &= ~(term.abs() < acc.abs() * 1e-17)
+    # The modified-Lentz continued fraction above it.
+    tiny = 1e-300
+    bn = x + 1.0 - s
+    cc, d = torch.full_like(x, 1.0 / tiny), 1.0 / bn
+    live = ~series
+    for n in range(1, 300):
+        if not bool(live.any()):
+            break
+        total += int(live.sum()) * c_frac
+        an = -n * (n - s)
+        bn = bn + 2.0
+        d = an * d + bn
+        d = torch.where(d.abs() < tiny, torch.full_like(d, tiny), d)
+        cc = bn + an / cc
+        cc = torch.where(cc.abs() < tiny, torch.full_like(cc, tiny), cc)
+        d = 1.0 / d
+        live &= ~((d * cc - 1.0).abs() < 1e-16)
+    return total
+
+
+def occupation_bound(ctx, fam, plan, pcols):
+    """The least time of the occupation kernel on these inputs: the work
+    the node plan needs (each distinct node evaluated once, then per
+    output bin and node the decoration and the quadrature FMA; a bisection
+    per row, population and block of units), each piece at its SASS count
+    (OCC_SASS), the FP64 instructions against the FP64 pipe and the FP64
+    and FP32 ones against the issue rate, against the bytes (the
+    parameters read once, the densities written once).  Returns the bound
+    and the instruction counts."""
+    np, fused = ctx["np"], ctx["fused"]
+    batch = pcols.shape[1]
+    c = {k: np.array(v, np.float64) for k, v in OCC_SASS.items()}
+    ng = plan.n_gauss
+    first = plan.first_out.cpu().numpy()
+    out_table = plan.out_table.cpu().numpy()
+    central = plan.out_bin.cpu().numpy() < np.array(plan.n_centrals)[
+        out_table]
+    unit = np.repeat(np.arange(plan.n_units), np.diff(first))
+    cen_u = np.bincount(unit, central, plan.n_units) > 0
+    sat_u = np.bincount(unit, ~central, plan.n_units) > 0
+    n_cen, n_sat = ng * int(cen_u.sum()), ng * int(sat_u.sum())
+    per_row = plan.n_distinct * c["node_abscissa"]
+    per_row += ng * (central.sum() * (c["quadrature_fma"] + (
+        c["decorate_bounded"] if fam.decorated else 0)) + (~central).sum() * (
+        c["quadrature_fma"] + (c["decorate_unbounded"] if fam.decorated
+                               else 0)))
+    blocks = -(-plan.n_units // fused.occupation_units_per_block(
+        plan.n_units, batch))
+    inversion = NEWTON_F32_STEPS * c["newton_f32_step"] + c["newton_f64_step"]
+    seeds = blocks * BISECT_STEPS * c["bisection_step"]
+    extra = np.zeros(2)
+    if fam.family in (0, 1):
+        erfc = c["leauthaud11_erfc" if fam.family == 0 else "zu15_erfc"]
+        n_inv = ng * int((cen_u | (sat_u & fam.modulate)).sum())
+        per_row += n_inv * (inversion + erfc) + seeds
+        per_row += n_sat * (c["satellite_power"] + (
+            c["multiply"] if fam.modulate else 0))
+    elif fam.family == 2:
+        pops = 1 if fam.sfr else 2
+        _, (n_seg, n_coef, n_pts) = fused._spline_on(fam.abscissa,
+                                                      pcols.device)
+        fq = np.array([n_seg + 2 + n_coef * (n_pts + 1), 0.0])
+        per_row += n_cen * (fq + pops * (inversion + c["leauthaud11_erfc"])
+                            + c["tinker13_mix" if pops == 2 else "multiply"])
+        per_row += pops * seeds
+        per_row += n_sat * (pops * c["satellite_power"] +
+                            np.array([pops - 1, 0.0]))
+    else:
+        per_row += plan.n_distinct * c["cacciato09_luminosity"]
+        per_row += n_cen * c["cacciato09_central_erfc"]
+        per_row += n_sat * c["cacciato09_satellite_terms"]
+        y = (plan.node.double() + plan.res.double())[
+            ctx["torch"].from_numpy(sat_u).to(plan.node.device)].reshape(-1)
+        extra = gamma_instructions(ctx, pcols, y, fam.threshold)
+    fp64 = float(per_row[0]) * batch + float(extra[0])
+    fp32 = float(per_row[1]) * batch + float(extra[1])
+    ops_ms = max(fp64 / PEAK_FP64_INSTR,
+                 (fp64 + fp32) / PEAK_ISSUE_INSTR) * 1e3
+    n_bytes = 4 * batch * (pcols.shape[0] + sum(plan.n_bins))
     bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "fp64_instr": fp64, "fp32_instr": fp32}
+
+
+def occupation_report(ctx, label, fam, plan, pcols, occ_ms):
+    """Print the occupation kernel's bound on this path, its share, and
+    the plan's distinct and evaluated nodes; returns the bound."""
+    b = occupation_bound(ctx, fam, plan, pcols)
+    print(f"bound ({label} occupation kernel): {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}; {b['fp64_instr'] / 1e9:.4g} G FP64 and "
+          f"{b['fp32_instr'] / 1e9:.4g} G FP32 instructions); kernel "
+          f"{occ_ms:.4f} ms at {b['bound_ms'] / occ_ms:.3f} of it; "
+          f"{plan.n_distinct} distinct of {plan.n_evaluated} (bin, node) "
+          f"abscissae evaluated per row, {plan.n_units} units; "
+          f"{pcols.shape[1]} rows on {ctx['card']}")
+    return b
 
 
 def density_errors(got, want):
@@ -1262,36 +1428,45 @@ def density_errors(got, want):
     return float(((got - want).abs() / (want.abs() + floor)).max())
 
 
-def occupation_check(ctx, label, c, table, table64, model, params,
-                     n_f64=4096):
-    """The occupation kernel against its plain version (the model's
-    occupation in tensor ops) over the batch, at tabcorr_tpu's
+def occupation_check(ctx, label, plan, consts, tables, tables64, model,
+                     params, n_f64=4096):
+    """One launch of the occupation kernel over ``plan`` (built from
+    ``consts``), each table's densities against its plain version (the
+    model's occupation in tensor ops) over the batch, at tabcorr_tpu's
     fused-against-XLA bar (1e-4 relative + 2e-6 of the row's largest
     density), and with the plain version against the float64 tensor path
     on the first ``n_f64`` rows (kernel within 1e-6 there).  Returns the
-    kernel's (n_bins, B) densities and max |kernel - plain|."""
+    kernel's (n_bins, B) densities per table and max |kernel - plain|."""
     torch, fused = ctx["torch"], ctx["fused"]
     fam = fused.OccupationFamily.of(model)
     check(fam is not None, f"{label}: the occupation kernel does not "
           "evaluate the model")
-    dens = fused.occupation_launch(c, fam, fused.family_columns(params, fam))
-    plain = fused.occupation_density(table, model, params)
-    k_rows = dens.t()
-    check(bool(torch.isfinite(dens).all()), f"{label}: non-finite densities")
-    d = (k_rows.double() - plain.double()).abs()
-    ratio = float((d / (1e-4 * plain.double().abs() + 2e-6 * plain.double(
-    ).abs().amax(1, keepdim=True))).max())
+    dens = fused.occupation_launch(plan, fam, fused.family_columns(
+        params, fam), consts=consts)
     p64 = {k: v[:n_f64].double() for k, v in params.items()}
-    want64 = fused.occupation_density(table64, model, p64)
-    k_err = density_errors(k_rows[:n_f64], want64)
-    p_err = density_errors(plain[:n_f64], want64)
-    print(f"{label} occupation kernel: against plain {ratio:.3e} of the "
-          f"bar (<= 1); against float64 ({n_f64} rows) kernel {k_err:.3e} "
-          f"(<= 1e-6), plain float32 {p_err:.3e} (relative, floored at "
-          f"1e-6 of the row's largest)")
-    check(ratio <= 1.0, f"{label}: occupation kernel vs plain {ratio}")
-    check(k_err <= 1e-6, f"{label}: occupation kernel vs float64 {k_err}")
-    return dens, float(d.max())
+    err = 0.0
+    for t, (d, table, table64) in enumerate(zip(dens, tables, tables64)):
+        plain = fused.occupation_density(table, model, params)
+        k_rows = d.t()
+        check(bool(torch.isfinite(d).all()),
+              f"{label}: non-finite densities")
+        diff = (k_rows.double() - plain.double()).abs()
+        ratio = float((diff / (1e-4 * plain.double().abs() + 2e-6 *
+                               plain.double().abs().amax(1, keepdim=True))
+                       ).max())
+        want64 = fused.occupation_density(table64, model, p64)
+        k_err = density_errors(k_rows[:n_f64], want64)
+        p_err = density_errors(plain[:n_f64], want64)
+        name = f"{label} table {t}" if len(dens) > 1 else label
+        print(f"{name} occupation kernel: against plain {ratio:.3e} of the "
+              f"bar (<= 1); against float64 ({n_f64} rows) kernel "
+              f"{k_err:.3e} (<= 1e-6), plain float32 {p_err:.3e} (relative, "
+              f"floored at 1e-6 of the row's largest)")
+        check(ratio <= 1.0, f"{name}: occupation kernel vs plain {ratio}")
+        check(k_err <= 1e-6, f"{name}: occupation kernel vs float64 {k_err}")
+        err = max(err, float(diff.max()))
+        del plain, diff
+    return dens, err
 
 
 def family_phases(ctx, kernels):
@@ -1336,9 +1511,9 @@ def bundle_family_phase(ctx, kernels):
         ctx["reset"]()
         outs = predict(params)
         torch.cuda.synchronize()
-        check(fused.BUNDLE_LAUNCHES == 1 and fused.OCCUPATION_LAUNCHES == 2,
-              f"{label}: predict did not launch the occupation (once per "
-              "table) and the bundle kernel")
+        check(fused.BUNDLE_LAUNCHES == 1 and fused.OCCUPATION_LAUNCHES == 1,
+              f"{label}: predict did not launch the occupation kernel (once "
+              "for both tables) and the bundle kernel")
         for ng, xi in outs:
             check(bool(torch.isfinite(ng).all() and torch.isfinite(xi).all()),
                   f"{label}: non-finite output")
@@ -1355,7 +1530,7 @@ def bundle_family_phase(ctx, kernels):
                                          N_GRID_STEPS, "BUNDLE_LAUNCHES",
                                          SEED + 20 + j)
         got = ctx["expect"](label, bundle=2 + 2 * N_GRID_STEPS,
-                            occupation=2 * (2 + 2 * N_GRID_STEPS))
+                            occupation=2 + 2 * N_GRID_STEPS)
         launches += got["bundle"]
         occ_launches += got["occupation"]
         print(f"{label} path: {got['bundle']} bundle kernel launches (model "
@@ -1365,11 +1540,11 @@ def bundle_family_phase(ctx, kernels):
               f"{BATCH / float(np.median(step_s)):.6g} walker-steps/s "
               f"(median of per-step host-clock times {step_s} s) on "
               f"{ctx['card']}")
-        # ---- the occupation kernel against its plain version ------------
-        dens = [occupation_check(ctx, f"{label} {name}", c, d, d64, model,
-                                 params)[0]
-                for name, c, d, d64 in zip(("wp", "xi_ell"), consts, tables,
-                                           tables64)]
+        # ---- the occupation kernel against its plain version: one launch
+        # over both tables' node plan (table 0 wp, 1 xi_ell) ---------------
+        plan = fused.occupation_plan(consts)
+        dens = occupation_check(ctx, label, plan, consts, tables, tables64,
+                                model, params)[0]
         # ---- the bundle kernel against its plain version, same densities -
         got_k = fused.bundle_launch(consts, dens, code2)
         want = [fused.contraction_plain(c, d.t())
@@ -1386,10 +1561,10 @@ def bundle_family_phase(ctx, kernels):
                                for t in tabs], (True, False))
         # ---- timing: the occupation kernel and its plain version, then
         # the bundle kernel ------------------------------------------------
-        hod = fused.KernelModel.of(model)
-        occ_ms, plain_occ_ms, _, _ = ctx["alternate"](
-            lambda: [fused.kernel_densities(c, t, model, hod, params)
-                     for c, t in zip(consts, tables)],
+        fam = fused.OccupationFamily.of(model)
+        pcols = fused.family_columns(params, fam)
+        occ_ms, plain_occ_ms, occ_w, _ = ctx["alternate"](
+            lambda: fused.occupation_launch(plan, fam, pcols),
             lambda: [fused.occupation_density(t, model, params)
                      for t in tables], 3, 1, rounds=2)
         k_ms, p_ms, k_w, p_w = ctx["alternate"](
@@ -1397,13 +1572,14 @@ def bundle_family_phase(ctx, kernels):
             lambda: [fused.contraction_plain(c, d.t())
                      for c, d in zip(plain_consts, dens)], 10, 2)
         e2e_ms = median_ms(ctx, lambda: predict(params))
-        print(f"timing ({label}): occupation kernel (both tables) "
-              f"{occ_ms:.4f} ms, its plain version (tensor ops) "
-              f"{plain_occ_ms:.4f} ms; bundle kernel (code 2) {k_ms:.4f} ms "
-              f"(windows {k_w}), plain contraction {p_ms:.4f} ms (windows "
-              f"{p_w}); whole predictor {e2e_ms:.4f} ms "
-              f"({BATCH / e2e_ms * 1e3:.6g} predictions/s) per "
-              f"{BATCH}-vector batch on {ctx['card']}")
+        print(f"timing ({label}): occupation kernel (both tables, one "
+              f"launch) {occ_ms:.4f} ms (windows {occ_w}), its plain version "
+              f"(tensor ops) {plain_occ_ms:.4f} ms; bundle kernel (code 2) "
+              f"{k_ms:.4f} ms (windows {k_w}), plain contraction "
+              f"{p_ms:.4f} ms (windows {p_w}); whole predictor "
+              f"{e2e_ms:.4f} ms ({BATCH / e2e_ms * 1e3:.6g} predictions/s) "
+              f"per {BATCH}-vector batch on {ctx['card']}")
+        occupation_report(ctx, label, fam, plan, pcols, occ_ms)
         del dens, outs
     record(kernels, "bundle", launches)
     record(kernels, "occupation", occ_launches)
@@ -1474,8 +1650,9 @@ def grid_family_phase(ctx, kernels):
         nw = grid_node_weights(interp, params)
         table64 = interp.tabcorr_list[0].table_data(device="cuda",
                                                     dtype=torch.float64)
-        dens, occ_err = occupation_check(ctx, name, g, stacked, table64,
-                                         model, params)
+        (dens,), occ_err = occupation_check(
+            ctx, name, g.occupation_plan, [g], [stacked], [table64], model,
+            params)
         # ---- the grid kernel against its plain version, same densities --
         total_k, xi_k = fused.grid_launch(g, dens, nw, code2)
         total_p, xi_p = fused.grid_contract_plain(g, dens.t(), nw)
@@ -1505,16 +1682,14 @@ def grid_family_phase(ctx, kernels):
               f"{plain_occ_ms:.4f} ms; grid kernel (code 2) {k_ms:.4f} ms, "
               f"whole predictor {e2e_ms:.4f} ms "
               f"({BATCH / e2e_ms * 1e3:.6g} predictions/s) on {ctx['card']}")
+        occ_bound = occupation_report(
+            ctx, name, hod.family, g.occupation_plan,
+            fused.family_columns(params, hod.family), occ_ms)
         if interp is interp_ds:
-            fam = hod.family
             occ_numbers = dict(
                 max_abs_err=occ_err, ms=occ_ms, plain_ms=plain_occ_ms,
-                **occupation_bound(fam, g.n_bins, g.n_centrals, g.n_gauss,
-                                   BATCH), library_ms=None)
-            print(f"bound ({name} occupation kernel): "
-                  f"{occ_numbers['bound_ms']:.4f} ms "
-                  f"({occ_numbers['bound_by']}); kernel at "
-                  f"{occ_numbers['bound_ms'] / occ_ms:.3f} of it")
+                bound_ms=occ_bound["bound_ms"],
+                bound_by=occ_bound["bound_by"], library_ms=None)
             # ---- the decoration moves Delta Sigma -----------------------
             p = {k: v[:4096].clone() for k, v in params.items()}
             p["log_eta"].fill_(0.0)
@@ -1604,8 +1779,9 @@ def contraction_family_phase(ctx, kernels):
         c = fused.slab_tc_table_constants(table, 1)
         c_plain = fused.bundle_table_constants(table)
         table64 = tab.table_data(device="cuda", dtype=torch.float64)
-        dens = occupation_check(ctx, name, c, table, table64, model,
-                                params)[0].t().contiguous()
+        dens = occupation_check(ctx, name, c.occupation_plan, [c], [table],
+                                [table64], model, params)[0][0].t(
+                                ).contiguous()
         kernel_vs_plain(f"{name} kernel vs plain (same densities)",
                         [fused.contraction_launch(c, dens)],
                         [fused.contraction_plain(c_plain, dens)], (is_wp,))
@@ -1628,6 +1804,8 @@ def contraction_family_phase(ctx, kernels):
               f"plain version (tensor ops) {plain_occ_ms:.4f} ms, "
               f"contraction kernel {k_ms:.4f} ms per {BATCH}-vector batch "
               f"on {ctx['card']}")
+        occupation_report(ctx, name, hod.family, c.occupation_plan,
+                          fused.family_columns(params, hod.family), occ_ms)
         del dens
     record(kernels, "contraction", launched)
     record(kernels, "occupation", got["occupation"])
@@ -1710,8 +1888,8 @@ def slab_family_phase(ctx, kernels):
     s = fused.slab_table_constants(stacked, n_nodes)
     table64 = interp.tabcorr_list[0].table_data(device="cuda",
                                                 dtype=torch.float64)
-    dens = occupation_check(ctx, label, s_tc, stacked, table64, model,
-                            params)[0]
+    (dens,), _ = occupation_check(ctx, label, s_tc.occupation_plan, [s_tc],
+                                  [stacked], [table64], model, params)
     want = fused.slab_contract_plain(s, dens.t())
     for tier, launch in (("slab_tc", fused.slab_tc_launch),
                          ("slab", fused.slab_launch)):
@@ -1735,10 +1913,13 @@ def slab_family_phase(ctx, kernels):
     fp32_ms = median_ms(ctx, lambda: fused.slab_launch(s_tc, dens, code2))
     e2e_ms = median_ms(ctx, lambda: predict(params))
     print(f"timing ({label}): occupation kernel {occ_ms:.4f} ms, its plain "
-          f"version (tensor ops) {plain_occ_ms:.4f} ms, slab_tc (code 2) {tc_ms:.4f} ms, slab (code 2) {fp32_ms:.4f} ms, "
-          f"whole 'scaled' predictor {e2e_ms:.4f} ms "
+          f"version (tensor ops) {plain_occ_ms:.4f} ms, slab_tc (code 2) "
+          f"{tc_ms:.4f} ms, slab (code 2) {fp32_ms:.4f} ms, whole 'scaled' "
+          f"predictor {e2e_ms:.4f} ms "
           f"({SLAB_BATCH / e2e_ms * 1e3:.6g} predictions/s) per "
           f"{SLAB_BATCH}-vector batch on {ctx['card']}")
+    occupation_report(ctx, label, hod.family, s_tc.occupation_plan,
+                      fused.family_columns(params, hod.family), occ_ms)
     record(kernels, "slab_tc", launches)
     record(kernels, "slab", slab_launches)
     record(kernels, "occupation", occ_launches)

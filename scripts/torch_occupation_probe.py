@@ -12,8 +12,8 @@ fraction of tabcorr_tpu's fused-against-XLA bar, 1e-4 relative + 2e-6 of
 the row's largest density) and, with the plain float32 version beside
 it, against the float64 tensor path (relative, floored at 1e-6 of the
 row's largest); then the kernel's and the plain version's times at
-262,144 rows on wp, and the kernel's on one table of the 'efficient'
-Delta Sigma grid (1104 bins), CUDA events.
+262,144 rows on wp, and the kernel's on the 'efficient' Delta Sigma grid
+(1104 bins, 2,800 distinct of 11,040 (bin, node) abscissae), CUDA events.
 """
 
 import subprocess
@@ -28,6 +28,7 @@ import torch  # noqa: E402
 import test_torch_kernel as cases  # noqa: E402
 from tabcorr_tpu_torch import Interpolator, TabCorr  # noqa: E402
 from tabcorr_tpu_torch.ops import fused  # noqa: E402
+from tabcorr_tpu_torch.predictor import stacked_grid  # noqa: E402
 
 BATCH = 262144
 
@@ -62,9 +63,9 @@ def main():
         model = cases._occupation_model(kind)
         fam = fused.OccupationFamily.of(model)
         params = cases._occupation_params(model, 4096 + 37, 11, cuda)
-        rows = fused.occupation_launch(c, fam,
-                                       fused.family_columns(params, fam),
-                                       bin_major=False)
+        rows, = fused.occupation_launch(c.occupation_plan, fam,
+                                        fused.family_columns(params, fam),
+                                        bin_major=False)
         plain = fused.occupation_density(table, model, params)
         want64 = fused.occupation_density(
             table64, model, {k: v.double() for k, v in params.items()})
@@ -81,19 +82,22 @@ def main():
         fam = fused.OccupationFamily.of(model)
         params = cases._occupation_params(model, BATCH, 3, cuda)
         cols = fused.family_columns(params, fam)
-        k_ms = ms(lambda: fused.occupation_launch(c, fam, cols))
+        k_ms = ms(lambda: fused.occupation_launch(c.occupation_plan, fam,
+                                                  cols))
         p_ms = ms(lambda: fused.occupation_density(table, model, params), 1)
         print(f"timing wp {kind}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} "
               f"ms ({BATCH} rows)")
-    ds = Interpolator.read(cases.DATA / "ds_efficient.npz").tabcorr_list[0]
-    g = fused.grid_table_constants(ds.table_data(device=cuda), 1)
+    stacked, n_nodes, _ = stacked_grid(
+        Interpolator.read(cases.DATA / "ds_efficient.npz"), device=cuda)
+    plan = fused.grid_table_constants(stacked, n_nodes).occupation_plan
     model = cases.AssembiasLeauthaud11Model(threshold=10.5, redshift=0.5)
     fam = fused.OccupationFamily.of(model)
     cols = fused.family_columns(
         cases._occupation_params(model, BATCH, 3, cuda), fam)
-    print(f"timing ds_efficient assembias_leauthaud11: kernel "
-          f"{ms(lambda: fused.occupation_launch(g, fam, cols)):.3f} ms "
-          f"({BATCH} rows)")
+    k_ms = ms(lambda: fused.occupation_launch(plan, fam, cols))
+    print(f"timing ds_efficient assembias_leauthaud11: kernel {k_ms:.3f} ms "
+          f"({BATCH} rows, {plan.n_distinct} of {plan.n_evaluated} (bin, "
+          f"node) abscissae distinct)")
     return 0
 
 

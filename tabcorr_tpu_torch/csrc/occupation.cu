@@ -7,12 +7,14 @@
 //
 // of the SHMR, CLF and quiescent/active families -- Leauthaud11,
 // ZuMandelbaum15, Tinker13 and Cacciato09, each optionally with the
-// Heaviside assembly-bias decoration -- for a batch of parameter vectors.
-// It is the occupation phase the Pallas kernels B1, B2 and B4 trace in
-// their bodies for these models (tabcorr_tpu/ops/fused.py:985, 1373, 1941,
-// under pallas_lowering); here it is its own launch, and the bundle, grid
-// and slab kernels read its densities as model code 2 (zheng07.cuh).  The
-// contraction route (B3) reads them too, row-major.
+// Heaviside assembly-bias decoration -- for a batch of parameter vectors,
+// for every table one launch serves (one table, a grid's stacked table, or
+// every table of a bundle).  It is the occupation phase the Pallas kernels
+// B1, B2 and B4 trace in their bodies for these models
+// (tabcorr_tpu/ops/fused.py:985, 1373, 1941, under pallas_lowering); here
+// it is its own launch, and the bundle, grid and slab kernels read its
+// densities as model code 2 (zheng07.cuh).  The contraction route (B3)
+// reads them too, row-major.
 //
 // The expressions follow tabcorr_tpu_torch/models/*.py.  The precision
 // does not: each node is evaluated at its float64 abscissa, the float32
@@ -22,28 +24,41 @@
 //   * The SHMR inversion log10 M*(log10 Mh) runs as tabcorr_tpu's
 //     in-kernel inversion does -- 15 bisection halvings of [5, 13] and
 //     three Newton steps, in float32 at the float32 node (the bisection
-//     with the fast intrinsics: it only seeds), except that a bin's later
-//     nodes start their Newton steps from the node before -- and then
-//     one Newton step in float64 at the float64 node, which takes the
-//     float32 root (a few ulp off) to float64 precision.
+//     with the fast intrinsics: it only seeds), except that a node starts
+//     its Newton steps from the root at the node evaluated before it --
+//     and then one Newton step in float64 at the float64 node, which takes
+//     the float32 root (a few ulp off) to float64 precision.
 //   * Everything after it (erfc, the satellites' power laws, Tinker13's
 //     quiescent-fraction spline, the decoration), and the whole Cacciato09
 //     CLF with its Gamma(a, x) for a in (-1, 1.5], is float64, and so is
 //     the quadrature sum; the density is rounded to float32 once.
 //
-// What bounds it on an H100: the operations.  Per (row, node) the
-// inversion costs 6 accurate float32 exp10 (and per bin the bisection's
-// 30 fast ones) and two float64 exp10, the erfc and the satellites'
-// power law are float64, and
-// Cacciato09's Gamma(a, x) is a float64 series or continued fraction of
-// ~20-40 terms; the bytes are 4 per density written and the parameters
-// read.
+// What bounds it on an H100: the FP64 pipe.  Per (row, node) the
+// inversion's float64 step, the erfc and the satellites' power law are
+// libdevice sequences of tens of FP64 instructions each, and Cacciato09's
+// Gamma(a, x) a float64 series or continued fraction of ~20-40 terms; the
+// float32 Newton steps run on the FP32 pipe beside them.  The bytes are 4
+// per density written.
 //
-// What the design does about it: one thread per batch row, 128 rows a
-// block, each block a few consecutive bins (gridDim.y), so that a row's
-// parameter terms are formed once per block and every thread of a warp
-// reads the same nodes (broadcast loads) and writes consecutive rows of
-// one bin (coalesced, in the bin-major layout).  The family is a template
+// What the design does about it: the work is laid out by the node plan
+// (ops/fused.py: OccupationPlan), built once per predictor on the host.
+// The tables repeat each mass bin 2-4 times -- central and satellite, and
+// for the secondary-percentile split above and below -- so the plan
+// groups the distinct (float32 node, float32 residual) abscissae into
+// units, one mass bin's n_gauss nodes each, sorted by mass, and lists for
+// each unit the output bins that read it (at most kMaxOuts).  One thread
+// per batch row, kRows rows a block, each block a run of consecutive units
+// (gridDim.y): per unit each node is evaluated once -- the central
+// occupation with its inversion and erfc where any output or the
+// satellites' modulation reads it, the satellites' where any output reads
+// them, reusing that central value -- and then every output bin of the
+// unit is decorated and summed in float64, in node order, in registers,
+// rounded once and stored (coalesced, in the bin-major layout).  The
+// float32 Newton warm start carries from node to node and unit to unit in
+// ascending mass, so the bisection seeds only a block's first node (and a
+// node more than kReseedGap dex from the last one inverted).  A row's
+// parameter terms are formed once per block; every thread of a warp reads
+// the same plan entries (broadcast loads).  The family is a template
 // parameter: a launch compiles no other family's code.
 
 #include <cuda_runtime.h>
@@ -60,6 +75,8 @@ constexpr int kSfrQuiescent = 1;
 constexpr int kSfrActive = 2;
 
 constexpr int kRows = 128;        // threads (batch rows) per block
+constexpr int kMaxTables = 4;     // tables one launch serves
+constexpr int kMaxOuts = 4;       // output bins of one unit of the plan
 constexpr int kShmrCols = 16;     // one Leauthaud11-layout SHMR population
 constexpr int kMaxSplinePoints = 8;
 constexpr int kMaxSplineCoeffs = 6;
@@ -76,9 +93,13 @@ constexpr float kBracketLo = 5.0f;       // the inversion's log10 M* range
 constexpr float kBracketHi = 13.0f;
 constexpr int kBisectSteps = 15;
 constexpr int kNewtonSteps = 3;
+// A warm start further than this (dex of halo mass) from the node is
+// reseeded by the bisection: three float32 Newton steps from 0.1 dex away
+// reach the float32 root as from the bisection, from 0.3 dex they do not.
+constexpr float kReseedGap = 0.15f;
 
-// What a launch needs of the model and the table.  Parameter columns, in
-// order (ops/fused.py:OccupationFamily):
+// What a launch needs of the model and the node plan.  Parameter columns,
+// in order (ops/fused.py:OccupationFamily):
 //   Leauthaud11     one SHMR population: smhm_{m0,m1,beta,delta,gamma}_{0,a},
 //                   scatter_model_param1, alphasat, betasat, bsat,
 //                   betacut, bcut (16);
@@ -103,18 +124,36 @@ struct OccArgs {
   const double* spline;  // Tinker13: breaks (n_seg + 1), then the
                          // coefficients (n_seg, n_coef, n_pts)
   int n_seg, n_coef, n_pts;
-  const float* logm;     // (nb, ng) float32 node log10 mass
-  const float* res;      // (nb, ng) its float64 residual, in float32
-  const float* sec;      // (nb, ng) secondary percentile
-  const float* w;        // (nb, ng) quad_weight * n_h
-  int nb, nc, ng;
-  int bins_per_block;
-  int bin_major;         // dens is (nb, batch); else (batch, nb)
-  float* dens;
+  // The node plan: per unit its float32 nodes and their float64
+  // residuals (n_units, ng) and its outputs [first_out[u],
+  // first_out[u + 1]); per output its bin, table, secondary percentile
+  // and weights (n_out, ng).
+  const float* node;
+  const float* res;
+  const int* first_out;
+  const int* out_bin;
+  const int* out_table;
+  const float* out_sec;
+  const float* w;
+  int n_units, ng, units_per_block;
+  int nb[kMaxTables], nc[kMaxTables];
+  float* dens[kMaxTables];   // (nb, batch) if bin_major; else (batch, nb)
+  int bin_major;
 };
 
 __device__ __forceinline__ double par(const OccArgs& A, int col, int b) {
   return static_cast<double>(__ldg(A.params + (size_t)col * A.batch + b));
+}
+
+// a[t] of a by-value kernel argument, by selects (an indexed load would
+// copy the array to local memory).
+template <typename T>
+__device__ __forceinline__ T pick(const T (&a)[kMaxTables], int t) {
+  T v = a[0];
+#pragma unroll
+  for (int k = 1; k < kMaxTables; ++k)
+    if (t == k) v = a[k];
+  return v;
 }
 
 // ---------------------------------------------------------------------
@@ -174,18 +213,25 @@ __device__ __forceinline__ float newton_f(const Shmr& s, float ls, float y,
   return ls - (f - y) / *df;
 }
 
-// log10 M* at the node (lm: float32, y: float64), see the header.
-// `seed` is the float32 root at the bin's previous node, NaN at its first
-// node: the bisection seeds the first node of a bin, and every later node
-// starts its Newton steps from the node before (the nodes of a bin lie
-// within a few hundredths of a dex of each other; warp-uniform, as every
-// thread of a warp is at the same node).  The float64 step takes the
-// float32 derivative: the root is a few ulp off, so the derivative's own
-// float32 error moves the result by ~1e-13.
-__device__ double shmr_log_mstar(const Shmr& s, float lm, double y,
-                                 float* seed) {
-  float ls = *seed;
-  if (isnan(ls)) {
+// The float32 root of the node inverted before (NaN: none yet in this
+// block) and the float32 node it was found at.
+struct WarmStart {
+  float root, at;
+};
+
+// log10 M* at the node (lm: float32, y: float64), see the header.  The
+// Newton steps start from the root at the node inverted before (every
+// thread of a warp is at the same node, so the branch is warp-uniform);
+// the bisection seeds a block's first node and a node more than
+// kReseedGap from that one.  The float64 step takes the float32
+// derivative: the root is a few ulp off, so the derivative's own float32
+// error moves the result by ~1e-13.  Inlined at every call, so that a
+// population's terms and warm start stay in registers (Tinker13 calls it
+// for two).
+__device__ __forceinline__ double shmr_log_mstar(const Shmr& s, float lm,
+                                                 double y, WarmStart* warm) {
+  float ls = warm->root;
+  if (isnan(ls) || fabsf(lm - warm->at) > kReseedGap) {
     float lo = kBracketLo, hi = kBracketHi;
     for (int k = 0; k < kBisectSteps; ++k) {
       const float mid = 0.5f * (lo + hi);
@@ -198,7 +244,8 @@ __device__ double shmr_log_mstar(const Shmr& s, float lm, double y,
   }
   float df = 1.0f;
   for (int k = 0; k < kNewtonSteps; ++k) ls = newton_f(s, ls, lm, &df);
-  *seed = ls;
+  warm->root = ls;
+  warm->at = lm;
   const double x0 = static_cast<double>(ls);
   return x0 - (shmr_log_mh(s, x0) - y) / static_cast<double>(df);
 }
@@ -208,7 +255,7 @@ struct Population {
   Shmr s;
   double inv_scatter;   // 1 / (sqrt(2) scatter) (Leauthaud11 form)
   double log_msat, log_mcut, ln10_alpha;
-  float seed;           // the inversion's root at the previous node
+  WarmStart warm;
 };
 
 __device__ void satellite_terms(double threshold, double alphasat,
@@ -218,6 +265,7 @@ __device__ void satellite_terms(double threshold, double alphasat,
   p->log_msat = 12.0 + log10(bsat) + betasat * (log_mh_t - 12.0);
   p->log_mcut = 12.0 + log10(bcut) + betacut * (log_mh_t - 12.0);
   p->ln10_alpha = kLn10 * alphasat;
+  p->warm = {NAN, 0.0f};
 }
 
 // A Leauthaud11-layout population at columns [c, c + 16) of row b.
@@ -240,7 +288,7 @@ __device__ __forceinline__ double leauthaud11_centrals(Population& p,
                                                        double threshold,
                                                        float lm, double y) {
   return 0.5 *
-         erfc((threshold - shmr_log_mstar(p.s, lm, y, &p.seed)) *
+         erfc((threshold - shmr_log_mstar(p.s, lm, y, &p.warm)) *
               p.inv_scatter);
 }
 
@@ -298,26 +346,34 @@ __device__ double gamma_upper(double a, double x) {
 }
 
 // ---------------------------------------------------------------------
-// The families: per-row terms, then the occupation at a node.  centrals()
-// also sets the decoration's ceiling of the centrals.
+// The families: per-row terms, then the occupations at one node.
 // ---------------------------------------------------------------------
+// The base (undecorated) occupations at a node, and the decoration's
+// ceiling of the centrals (1, or Tinker13's population fraction).
+struct NodeOcc {
+  double cen, sat, ceiling;
+};
+
 template <int FAMILY>
 struct Row;
 
+// Leauthaud11 and ZuMandelbaum15: the satellites modulated by the
+// node's centrals (the same value) where the model says so.
 template <>
 struct Row<kLeauthaud11> {
   Population p;
   __device__ Row(const OccArgs& A, int b)
       : p(leauthaud11_population(A, 0, b)) {}
-  __device__ void new_bin() { p.seed = NAN; }
-  __device__ double centrals(const OccArgs& A, float lm, double y,
-                             double* ceiling) {
-    return leauthaud11_centrals(p, A.threshold, lm, y);
-  }
-  __device__ double satellites(const OccArgs& A, float lm, double y) {
-    const double nsat = satellite_power(p, y);
-    return A.modulate ? nsat * leauthaud11_centrals(p, A.threshold, lm, y)
-                      : nsat;
+  __device__ NodeOcc node(const OccArgs& A, float lm, double y, bool cen,
+                          bool sat) {
+    NodeOcc v = {0.0, 0.0, 1.0};
+    if (cen || (sat && A.modulate))
+      v.cen = leauthaud11_centrals(p, A.threshold, lm, y);
+    if (sat) {
+      v.sat = satellite_power(p, y);
+      if (A.modulate) v.sat *= v.cen;
+    }
+    return v;
   }
 };
 
@@ -335,19 +391,23 @@ struct Row<kZuMandelbaum15> {
     satellite_terms(A.threshold, par(A, 7, b), par(A, 8, b), par(A, 9, b),
                     par(A, 10, b), par(A, 11, b), &p);
   }
-  __device__ void new_bin() { p.seed = NAN; }
-  __device__ double centrals(const OccArgs& A, float lm, double y,
-                             double* ceiling) {
+  __device__ double centrals(const OccArgs& A, float lm, double y) {
     const double centered =
-        A.threshold - shmr_log_mstar(p.s, lm, y, &p.seed);
+        A.threshold - shmr_log_mstar(p.s, lm, y, &p.warm);
     const double dln_mh = kLn10 * (y - log_m1);
     double s = sigma + slope * (dln_mh > 0.0 ? dln_mh : 0.0);
     s = s > kSigmaFloor ? s : kSigmaFloor;
     return 0.5 * erfc(kLn10 * centered / (kSqrt2 * s));
   }
-  __device__ double satellites(const OccArgs& A, float lm, double y) {
-    const double nsat = satellite_power(p, y);
-    return A.modulate ? nsat * centrals(A, lm, y, nullptr) : nsat;
+  __device__ NodeOcc node(const OccArgs& A, float lm, double y, bool cen,
+                          bool sat) {
+    NodeOcc v = {0.0, 0.0, 1.0};
+    if (cen || (sat && A.modulate)) v.cen = centrals(A, lm, y);
+    if (sat) {
+      v.sat = satellite_power(p, y);
+      if (A.modulate) v.sat *= v.cen;
+    }
+    return v;
   }
 };
 
@@ -362,7 +422,9 @@ struct Row<kTinker13> {
       ords[i] = i < A.n_pts ? par(A, 2 * kShmrCols + i, b) : 0.0;
   }
   // f_q at the node: the segment of y, Horner in s = y - its left break,
-  // clipped to [0, 1] (models/tinker13.py).
+  // clipped to [0, 1] (models/tinker13.py).  The ordinates' loop runs to
+  // kMaxSplinePoints so that `ords` stays in registers (an index known
+  // only at run time would put it in local memory).
   __device__ double quiescent_fraction(const OccArgs& A, double y) const {
     const double* breaks = A.spline;
     const double* coeffs = A.spline + A.n_seg + 1;
@@ -374,30 +436,39 @@ struct Row<kTinker13> {
     for (int d = 0; d < A.n_coef; ++d) {
       const double* c = coeffs + (size_t)(j * A.n_coef + d) * A.n_pts;
       double cd = 0.0;
-      for (int i = 0; i < A.n_pts; ++i) cd += c[i] * ords[i];
+#pragma unroll
+      for (int i = 0; i < kMaxSplinePoints; ++i)
+        if (i < A.n_pts) cd += __ldg(c + i) * ords[i];
       f = f * s + cd;
     }
     return fmin(fmax(f, 0.0), 1.0);
   }
-  __device__ void new_bin() { q.seed = act.seed = NAN; }
-  __device__ double centrals(const OccArgs& A, float lm, double y,
-                             double* ceiling) {
-    const double fq = quiescent_fraction(A, y);
-    if (A.sfr == kSfrQuiescent) {
-      *ceiling = fq;
-      return fq * leauthaud11_centrals(q, A.threshold, lm, y);
+  // The satellites are not modulated (models/tinker13.py).
+  __device__ NodeOcc node(const OccArgs& A, float lm, double y, bool cen,
+                          bool sat) {
+    NodeOcc v = {0.0, 0.0, 1.0};
+    if (cen) {
+      const double fq = quiescent_fraction(A, y);
+      if (A.sfr == kSfrQuiescent) {
+        v.ceiling = fq;
+        v.cen = fq * leauthaud11_centrals(q, A.threshold, lm, y);
+      } else if (A.sfr == kSfrActive) {
+        v.ceiling = 1.0 - fq;
+        v.cen = (1.0 - fq) * leauthaud11_centrals(act, A.threshold, lm, y);
+      } else {
+        v.cen = fq * leauthaud11_centrals(q, A.threshold, lm, y) +
+                (1.0 - fq) * leauthaud11_centrals(act, A.threshold, lm, y);
+      }
     }
-    if (A.sfr == kSfrActive) {
-      *ceiling = 1.0 - fq;
-      return (1.0 - fq) * leauthaud11_centrals(act, A.threshold, lm, y);
+    if (sat) {
+      if (A.sfr == kSfrQuiescent)
+        v.sat = satellite_power(q, y);
+      else if (A.sfr == kSfrActive)
+        v.sat = satellite_power(act, y);
+      else
+        v.sat = satellite_power(q, y) + satellite_power(act, y);
     }
-    return fq * leauthaud11_centrals(q, A.threshold, lm, y) +
-           (1.0 - fq) * leauthaud11_centrals(act, A.threshold, lm, y);
-  }
-  __device__ double satellites(const OccArgs& A, float lm, double y) {
-    if (A.sfr == kSfrQuiescent) return satellite_power(q, y);
-    if (A.sfr == kSfrActive) return satellite_power(act, y);
-    return satellite_power(q, y) + satellite_power(act, y);
+    return v;
   }
 };
 
@@ -420,20 +491,18 @@ struct Row<kCacciato09> {
     delta_1 = par(A, 11, b);
     delta_2 = par(A, 12, b);
   }
-  __device__ void new_bin() {}
   // log10 L_c(M), with log10(1 + 10^x) free of cancellation.
   __device__ double median_log_luminosity(double y) const {
     const double x = y - log_m1;
     const double log1p10 = fmax(x, 0.0) + log1p(exp10(-fabs(x))) / kLn10;
     return log_l0 + gamma_1 * x - (gamma_1 - gamma_2) * log1p10;
   }
-  __device__ double centrals(const OccArgs& A, float lm, double y,
-                             double* ceiling) const {
-    return 0.5 * erfc((A.threshold - median_log_luminosity(y)) * inv_sigma);
-  }
-  __device__ double satellites(const OccArgs& A, float lm, double y) const {
+  // The satellites' Schechter-like CLF above the threshold at a node
+  // whose central median is log_lc.
+  __device__ double satellites(const OccArgs& A, double y,
+                               double log_lc) const {
     const double m12 = y - 12.0;
-    const double log_ls = median_log_luminosity(y) + kLog10_0562;
+    const double log_ls = log_lc + kLog10_0562;
     const double alpha_sat =
         -2.0 + a_1 * (1.0 - (2.0 / kPi) * atan(a_2 * (y - log_m2)));
     const double log_phi = b_0 + b_1 * m12 + b_2 * m12 * m12;
@@ -442,15 +511,22 @@ struct Row<kCacciato09> {
     const double x = exp10(log_delta + 2.0 * (A.threshold - log_ls));
     return 0.5 * exp10(log_phi - a * log_delta) * gamma_upper(a, x);
   }
+  __device__ NodeOcc node(const OccArgs& A, float lm, double y, bool cen,
+                          bool sat) const {
+    NodeOcc v = {0.0, 0.0, 1.0};
+    const double log_lc = median_log_luminosity(y);
+    if (cen) v.cen = 0.5 * erfc((A.threshold - log_lc) * inv_sigma);
+    if (sat) v.sat = satellites(A, y, log_lc);
+    return v;
+  }
 };
 
-// heaviside_assembias of models/assembias.py in float64: `ceiling` bounds
-// the centrals (1, or Tinker13's population fraction); satellites have no
-// upper bound.
+// heaviside_assembias of models/assembias.py in float64, for a strength
+// already clipped to [-1, 1]: `ceiling` bounds the centrals (1, or
+// Tinker13's population fraction); satellites have no upper bound.
 __device__ __forceinline__ double decorate(double base, double strength,
                                           bool above, bool bounded,
                                           double ceiling, const OccArgs& A) {
-  strength = fmin(fmax(strength, -1.0), 1.0);
   double room_up, room_down;
   if (bounded) {
     room_up = fmin(ceiling - base, A.ratio * base);
@@ -464,46 +540,79 @@ __device__ __forceinline__ double decorate(double base, double strength,
   return above ? base + delta : base - delta * A.below_scale;
 }
 
+// Blocks per SM each family's registers must allow (0: no minimum, ptxas
+// chooses).  Tinker13 and Cacciato09 take 128 registers unbounded and run
+// faster held to 80 (six blocks of 128 rows); Leauthaud11 and
+// ZuMandelbaum15 run fastest left to ptxas (64-70 registers; a minimum of
+// one block already takes them to 90).
 template <int FAMILY>
-__global__ void __launch_bounds__(kRows)
+constexpr int kMinBlocks =
+    FAMILY == kTinker13 || FAMILY == kCacciato09 ? 6 : 0;
+
+template <int FAMILY>
+__global__ void __launch_bounds__(kRows, kMinBlocks<FAMILY>)
 occupation_kernel(const OccArgs A) {
   const int b = blockIdx.x * kRows + threadIdx.x;
   if (b >= A.batch) return;
   Row<FAMILY> row(A, b);
   double strength_c = 0.0, strength_s = 0.0;
   if (A.decorated) {
-    strength_c = par(A, A.n_params - 2, b);
-    strength_s = par(A, A.n_params - 1, b);
+    strength_c = fmin(fmax(par(A, A.n_params - 2, b), -1.0), 1.0);
+    strength_s = fmin(fmax(par(A, A.n_params - 1, b), -1.0), 1.0);
   }
-  const int i0 = blockIdx.y * A.bins_per_block;
-  const int i1 = min(i0 + A.bins_per_block, A.nb);
-  for (int i = i0; i < i1; ++i) {
-    const bool central = i < A.nc;
-    const float* lm = A.logm + (size_t)i * A.ng;
-    const float* rs = A.res + (size_t)i * A.ng;
-    const float* w = A.w + (size_t)i * A.ng;
-    const bool above = A.sec[(size_t)i * A.ng] >= A.edge;
-    row.new_bin();
-    double acc = 0.0;
-    for (int g = 0; g < A.ng; ++g) {
-      const float lmg = lm[g];
-      const double y = static_cast<double>(lmg) + static_cast<double>(rs[g]);
-      double occ;
-      if (central) {
-        double ceiling = 1.0;
-        occ = row.centrals(A, lmg, y, &ceiling);
-        if (A.decorated)
-          occ = decorate(occ, strength_c, above, true, ceiling, A);
-      } else {
-        occ = row.satellites(A, lmg, y);
-        if (A.decorated)
-          occ = decorate(occ, strength_s, above, false, 0.0, A);
+  const int u0 = blockIdx.y * A.units_per_block;
+  const int u1 = min(u0 + A.units_per_block, A.n_units);
+  for (int u = u0; u < u1; ++u) {
+    // The unit's outputs (warp-uniform): bit o of `central` and of
+    // `above` flags output o.
+    const int o0 = __ldg(A.first_out + u);
+    const int n_out = __ldg(A.first_out + u + 1) - o0;
+    unsigned central = 0, above = 0;
+#pragma unroll
+    for (int o = 0; o < kMaxOuts; ++o) {
+      if (o < n_out) {
+        const int t = __ldg(A.out_table + o0 + o);
+        if (__ldg(A.out_bin + o0 + o) < pick(A.nc, t)) central |= 1u << o;
+        if (__ldg(A.out_sec + o0 + o) >= A.edge) above |= 1u << o;
       }
-      acc = fma(occ, static_cast<double>(w[g]), acc);
     }
-    const size_t at = A.bin_major ? (size_t)i * A.batch + b
-                                  : (size_t)b * A.nb + i;
-    A.dens[at] = static_cast<float>(acc);
+    const unsigned all = (1u << n_out) - 1u;
+    const bool need_cen = central != 0, need_sat = central != all;
+    double acc[kMaxOuts];
+#pragma unroll
+    for (int o = 0; o < kMaxOuts; ++o) acc[o] = 0.0;
+    const float* lm = A.node + (size_t)u * A.ng;
+    const float* rs = A.res + (size_t)u * A.ng;
+    for (int g = 0; g < A.ng; ++g) {
+      const float lmg = __ldg(lm + g);
+      const double y =
+          static_cast<double>(lmg) + static_cast<double>(__ldg(rs + g));
+      const NodeOcc v = row.node(A, lmg, y, need_cen, need_sat);
+#pragma unroll
+      for (int o = 0; o < kMaxOuts; ++o) {
+        if (o < n_out) {
+          const bool is_cen = (central >> o) & 1u;
+          double occ = is_cen ? v.cen : v.sat;
+          if (A.decorated)
+            occ = decorate(occ, is_cen ? strength_c : strength_s,
+                           (above >> o) & 1u, is_cen, v.ceiling, A);
+          acc[o] = fma(occ,
+                       static_cast<double>(
+                           __ldg(A.w + (size_t)(o0 + o) * A.ng + g)),
+                       acc[o]);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < kMaxOuts; ++o) {
+      if (o < n_out) {
+        const int t = __ldg(A.out_table + o0 + o);
+        const int i = __ldg(A.out_bin + o0 + o);
+        const size_t at = A.bin_major ? (size_t)i * A.batch + b
+                                      : (size_t)b * pick(A.nb, t) + i;
+        pick(A.dens, t)[at] = static_cast<float>(acc[o]);
+      }
+    }
   }
 }
 
@@ -529,7 +638,7 @@ int launch(const OccArgs& A, int device, void* stream) {
   if (err != cudaSuccess) return (int)err;
   if (A.batch == 0) return 0;
   const dim3 grid((A.batch + kRows - 1) / kRows,
-                  (A.nb + A.bins_per_block - 1) / A.bins_per_block);
+                  (A.n_units + A.units_per_block - 1) / A.units_per_block);
   occupation_kernel<FAMILY>
       <<<grid, kRows, 0, static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
@@ -542,33 +651,45 @@ extern "C" {
 // Launch the occupation kernel on `stream`: the densities of `family`
 // (0 Leauthaud11, 1 ZuMandelbaum15, 2 Tinker13, 3 Cacciato09; `decorated`
 // adds the two strength columns) for `batch` rows of `params` ((n_params,
-// batch) float32, the columns of OccArgs) over the table's quadrature
-// (nb, ng) arrays, nc central bins first, `bins_per_block` bins a block,
-// into `dens` ((nb, batch) if `bin_major`, else (batch, nb)).  `sfr` is
-// Tinker13's designation (0 all, 1 quiescent, 2 active) and `spline` its
-// quiescent-fraction map (float64, on the device).  Returns the CUDA error
-// code of the launch (0 on success); the kernel runs asynchronously.
+// batch) float32, the columns of OccArgs) over the node plan of n_units
+// units of ng nodes (`node`, `res`, `first_out`, n_out outputs `out_bin`,
+// `out_table`, `out_sec`, `w`, at most max_outs <= 4 a unit;
+// ops/fused.py: OccupationPlan),
+// `units_per_block` units a block, into the n_tables tables' `dens[t]`
+// ((nb[t], batch) if `bin_major`, else (batch, nb[t])), whose first nc[t]
+// bins are centrals.  Every output bin of every table must appear in the
+// plan once.  `sfr` is Tinker13's designation (0 all, 1 quiescent, 2
+// active) and `spline` its quiescent-fraction map (float64, on the
+// device).  Returns the CUDA error code of the launch (0 on success); the
+// kernel runs asynchronously.
 int tabcorr_occupation(const float* params, int batch, int n_params,
                        int family, int decorated, int modulate, int sfr,
                        double threshold, double a, double log_h,
                        double split, const double* spline, int n_seg,
-                       int n_coef, int n_pts, const float* logm,
-                       const float* res, const float* sec, const float* w,
-                       int nb, int nc, int ng, int bins_per_block,
-                       int bin_major, float* dens, int device,
-                       void* stream) {
+                       int n_coef, int n_pts, const float* node,
+                       const float* res, const int* first_out,
+                       const int* out_bin, const int* out_table,
+                       const float* out_sec, const float* w, int n_units,
+                       int n_out, int max_outs, int ng, int units_per_block,
+                       int n_tables,
+                       const int* nb, const int* nc, float* const* dens,
+                       int bin_major, int device, void* stream) {
   const int cols = family_columns(family, n_pts);
   const bool tinker = family == kTinker13;
-  const bool bad =
+  bool bad =
       cols < 0 || n_params != cols + (decorated ? 2 : 0) || batch < 0 ||
-      nb <= 0 || ng <= 0 || nc < 0 || nc > nb || bins_per_block <= 0 ||
-      (nb + bins_per_block - 1) / bins_per_block > 65535 ||
-      !(split > 0.0 && split < 1.0) || (batch > 0 && (!params || !dens)) ||
-      !logm || !res || !sec || !w ||
+      n_units <= 0 || n_out < n_units || max_outs < 1 ||
+      max_outs > kMaxOuts || ng <= 0 || units_per_block <= 0 ||
+      (n_units + units_per_block - 1) / units_per_block > 65535 ||
+      n_tables < 1 || n_tables > kMaxTables || !nb || !nc || !dens ||
+      !(split > 0.0 && split < 1.0) || (batch > 0 && !params) || !node ||
+      !res || !first_out || !out_bin || !out_table || !out_sec || !w ||
       (tinker && (!spline || n_seg < 1 || n_coef < 1 ||
                   n_coef > kMaxSplineCoeffs || n_pts < 2 ||
                   n_pts > kMaxSplinePoints || sfr < kSfrAll ||
                   sfr > kSfrActive));
+  for (int t = 0; !bad && t < n_tables; ++t)
+    bad = nb[t] <= 0 || nc[t] < 0 || nc[t] > nb[t] || (batch > 0 && !dens[t]);
   if (bad) return (int)cudaErrorInvalidValue;
   OccArgs A = {};
   A.params = params;
@@ -587,16 +708,22 @@ int tabcorr_occupation(const float* params, int batch, int n_params,
   A.n_seg = n_seg;
   A.n_coef = n_coef;
   A.n_pts = n_pts;
-  A.logm = logm;
+  A.node = node;
   A.res = res;
-  A.sec = sec;
+  A.first_out = first_out;
+  A.out_bin = out_bin;
+  A.out_table = out_table;
+  A.out_sec = out_sec;
   A.w = w;
-  A.nb = nb;
-  A.nc = nc;
+  A.n_units = n_units;
   A.ng = ng;
-  A.bins_per_block = bins_per_block;
+  A.units_per_block = units_per_block;
+  for (int t = 0; t < n_tables; ++t) {
+    A.nb[t] = nb[t];
+    A.nc[t] = nc[t];
+    A.dens[t] = dens[t];
+  }
   A.bin_major = bin_major;
-  A.dens = dens;
   switch (family) {
     case kLeauthaud11:
       return launch<kLeauthaud11>(A, device, stream);

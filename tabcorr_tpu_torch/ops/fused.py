@@ -26,9 +26,13 @@ none of these kernels.
   (Leauthaud11, ZuMandelbaum15, Tinker13, Cacciato09 and their Heaviside
   decorations; :class:`OccupationFamily`, on the exact type), as a launch
   of its own ahead of theirs: the per-bin densities, each node at its
-  float64 abscissa.  :func:`occupation_launch` (``csrc/occupation.cu``)
-  and :func:`occupation_density`.  The contraction route takes its
-  densities too.
+  float64 abscissa, every table of one predictor (a bundle's too) in one
+  launch.  Its node plan (:func:`occupation_plan`, built once per
+  predictor) lists the distinct mass bins of those tables and the output
+  bins each serves, so each distinct node is evaluated once per row.
+  :func:`occupation_launch` (``csrc/occupation.cu``) and
+  :func:`occupation_density`.  The contraction route takes its densities
+  too.
 
 * **Bundle (B1)**, port of ``make_fused_bundle_predictor``: for a batch of
   parameter vectors and a list of tabulations, the per-bin galaxy density
@@ -147,8 +151,15 @@ _ROW_TERMS = 9
 # kernel, and the densities of a model it does not evaluate): it bounds
 # the (chunk, n_bins, n_gauss) intermediates.
 _OCC_CHUNK = 32768
-# Bins per block of the occupation kernel.
-_OCC_BINS_PER_BLOCK = 4
+# The occupation kernel (csrc/occupation.cu): rows per block, output bins
+# one unit of its node plan serves at most (a mass bin more bins read is
+# split into units of at most this many; csrc/occupation.cu kMaxOuts), and
+# the blocks a launch aims at (8-10 waves of the 6-8 blocks of 128 rows an
+# SM holds at the families' registers): a block takes as many consecutive
+# units as keep that many blocks.
+_OCC_ROWS = 128
+_OCC_MAX_OUTS = 4
+_OCC_TARGET_BLOCKS = 8192
 # Batch rows per block the grid kernel may take, largest first, and the
 # stages of its cp.async ring.
 _GRID_BLOCK_ROWS = (64, 32, 16)
@@ -682,8 +693,9 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
     model : HodModel
         Any model whose ``supports_fused_engine`` is true
         (:func:`kernel_model`): zheng07 with or without assembly bias is
-        evaluated in the kernel, any other model's densities are computed
-        in tensor ops and read by it (densities in).
+        evaluated in the kernel; any other model's densities are read by it
+        (densities in), every table's from one launch of the occupation
+        kernel for the families it evaluates, else from tensor ops.
     accuracy : sequence of str, optional
         One contract per table, 'elementwise' (default) or 'scaled'.  Both
         run at full float32 precision, which meets the stricter of the two:
@@ -708,8 +720,20 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
             max(t.n_bins for t in tables),
             max(t.tpcf_dense.shape[0] for t in tables)), "bundle")
         consts = [slab_tc_table_constants(t, 1) for t in tables]
+        if hod.family is not None:
+            plan = occupation_plan(consts)
     else:
         consts = [bundle_table_constants(t) for t in tables]
+
+    def densities(params):
+        """Every table's (n_bins, B) densities on the card: one launch of
+        the occupation kernel over the tables' node plan, or tensor ops."""
+        if hod.family is not None:
+            return occupation_launch(plan, hod.family,
+                                     family_columns(params, hod.family),
+                                     consts=consts)
+        return [kernel_densities(c, t, model, hod, params)
+                for c, t in zip(consts, tables)]
 
     def predict_batch(params):
         _check_params_device(params, device)
@@ -718,9 +742,7 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
                                                                params))
                        for c, t in zip(consts, tables)]
         elif hod.density_in:
-            results = bundle_launch(consts, [
-                kernel_densities(c, t, model, hod, params)
-                for c, t in zip(consts, tables)], hod)
+            results = bundle_launch(consts, densities(params), hod)
         elif device.type == "cpu":
             results = bundle_predict_plain(consts, params, occ_cen, occ_sat)
         else:
@@ -770,9 +792,9 @@ def _occupation_lib():
     """Build (first call only) and bind the entry point of occupation.cu."""
     lib = load_library("occupation", KERNEL_SOURCES["occupation"])
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.tabcorr_occupation.argtypes = ([vp] + [i] * 6 + [d] * 4 + [vp] +
-                                       [i] * 3 + [vp] * 4 + [i] * 5 +
-                                       [vp, i, vp])
+    lib.tabcorr_occupation.argtypes = (
+        [vp] + [i] * 6 + [d] * 4 + [vp] + [i] * 3 + [vp] * 7 + [i] * 6 +
+        [ctypes.POINTER(i)] * 2 + [ctypes.POINTER(vp), i, i, vp])
     lib.tabcorr_occupation.restype = i
     lib.tabcorr_cuda_error_string.argtypes = [i]
     lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
@@ -795,20 +817,163 @@ def family_columns(params, fam: OccupationFamily):
     return torch.stack([params[k] for k in fam.param_names])
 
 
-def occupation_launch(c, fam: OccupationFamily, pcols, bin_major=True):
-    """Launch the CUDA occupation kernel once (``csrc/occupation.cu``).
+@dataclasses.dataclass(frozen=True, eq=False)
+class OccupationPlan:
+    """The node plan of the occupation kernel: the work of one launch for
+    the tables it serves (one table, a grid's stacked table, or every
+    table of a bundle), built once on the host (:func:`occupation_plan`),
+    as tensors on the tables' device.
 
-    ``c`` holds the table's quadrature (``logm``, ``logm_res``, ``sec``,
-    ``weight``, (n_bins, n_gauss) float32 on the card, and ``n_bins``,
-    ``n_centrals``): the constants of any kernel (:class:`SlabTcTable`,
-    :class:`GridTable`).  ``pcols`` is the (n_params, B) float32 parameter
-    matrix of ``fam`` (:func:`family_columns`).  Returns the float32
-    densities n[b, i], (n_bins, B) bin-major (what model code 2 reads) or
-    (B, n_bins) (the contraction kernel's input).  Raises on any input the
-    kernel does not take and on any launch error.  The plain version is
+    A *unit* is one mass bin's n_gauss quadrature nodes, each the exact
+    (float32 node, float32 residual) pair of the tables.  Bins whose nodes
+    are identical bit for bit share a unit; nothing is merged by
+    tolerance.  Units are sorted by their first node's float64 abscissa
+    (node + residual), ascending.  ``node``, ``res`` (n_units, n_gauss)
+    float32 hold them; unit u serves the outputs ``first_out[u]`` to
+    ``first_out[u + 1]`` ((n_units + 1,) int32; ``max_outs`` at most,
+    itself at most ``_OCC_MAX_OUTS``; in (table, bin) order), output o
+    being bin ``out_bin[o]`` of table ``out_table[o]`` (int32), with its
+    secondary percentile ``out_sec[o]`` and weights ``weight[o]``
+    (n_gauss,) float32, quad_weight * n_h.  ``n_bins`` and ``n_centrals``
+    give each table's bins (its centrals first); ``sources`` the
+    quadrature tensors' addresses it was built from (:meth:`built_from`).
+    """
+
+    n_bins: tuple
+    n_centrals: tuple
+    node: torch.Tensor
+    res: torch.Tensor
+    first_out: torch.Tensor
+    out_bin: torch.Tensor
+    out_table: torch.Tensor
+    out_sec: torch.Tensor
+    weight: torch.Tensor
+    max_outs: int
+    sources: tuple
+
+    @property
+    def n_units(self):
+        return self.node.shape[0]
+
+    @property
+    def n_gauss(self):
+        return self.node.shape[1]
+
+    @property
+    def n_out(self):
+        return self.out_bin.shape[0]
+
+    @property
+    def n_evaluated(self):
+        """(bin, node) pairs of the tables: the evaluations without the
+        plan."""
+        return sum(self.n_bins) * self.n_gauss
+
+    @property
+    def n_distinct(self):
+        """Nodes the kernel evaluates per row."""
+        return self.n_units * self.n_gauss
+
+    def built_from(self, consts):
+        """Whether the plan was built from these constants (their
+        quadrature tensors, in this order)."""
+        return tuple(_plan_source(c) for c in consts) == self.sources
+
+
+def _plan_source(c):
+    return tuple(a.data_ptr() for a in (c.logm, c.logm_res, c.sec, c.weight))
+
+
+def occupation_plan(consts) -> OccupationPlan:
+    """The node plan (:class:`OccupationPlan`) of the tables whose
+    constants are ``consts`` (each with the quadrature ``logm``,
+    ``logm_res``, ``sec``, ``weight`` (n_bins, n_gauss) float32 and
+    ``n_bins``, ``n_centrals``: :class:`SlabTcTable`, :class:`GridTable`,
+    :class:`BundleTable`), on their device."""
+    consts = list(consts)
+    if not 1 <= len(consts) <= _MAX_TABLES:
+        raise ValueError(f"a node plan serves 1 to {_MAX_TABLES} tables.")
+    device = consts[0].logm.device
+    n_gauss = consts[0].logm.shape[1]
+    if any(c.logm.device != device or c.logm.shape[1] != n_gauss
+           for c in consts):
+        raise ValueError("the tables of a node plan share a device and a "
+                         "node count.")
+    units = {}          # (node bytes, residual bytes) -> [(t, bin)]
+    arrays = []
+    for t, c in enumerate(consts):
+        logm, res, sec, weight = (a.cpu().numpy() for a in (
+            c.logm, c.logm_res, c.sec, c.weight))
+        arrays.append((sec[:, 0], weight))
+        for i in range(c.n_bins):
+            key = (logm[i].tobytes(), res[i].tobytes())
+            units.setdefault(key, (logm[i], res[i], []))[2].append((t, i))
+    order = sorted(units, key=lambda k: (
+        float(np.float64(units[k][0][0]) + np.float64(units[k][1][0])), k))
+    node, res, first, outs = [], [], [0], []
+    for key in order:
+        lm, rs, bins = units[key]
+        for o in range(0, len(bins), _OCC_MAX_OUTS):
+            chunk = bins[o:o + _OCC_MAX_OUTS]
+            node.append(lm)
+            res.append(rs)
+            outs += chunk
+            first.append(len(outs))
+    out_table = np.array([t for t, _ in outs], np.int32)
+    out_bin = np.array([i for _, i in outs], np.int32)
+    out_sec = np.array([arrays[t][0][i] for t, i in outs], np.float32)
+    weight = np.array([arrays[t][1][i] for t, i in outs], np.float32)
+    return OccupationPlan(
+        n_bins=tuple(c.n_bins for c in consts),
+        n_centrals=tuple(c.n_centrals for c in consts),
+        node=_tensor(np.array(node), device),
+        res=_tensor(np.array(res), device),
+        first_out=_tensor(first, device, np.int32),
+        out_bin=_tensor(out_bin, device, np.int32),
+        out_table=_tensor(out_table, device, np.int32),
+        out_sec=_tensor(out_sec, device),
+        weight=_tensor(weight.reshape(-1, n_gauss), device),
+        max_outs=int(np.diff(first).max()),
+        sources=tuple(_plan_source(c) for c in consts))
+
+
+def occupation_units_per_block(n_units, batch):
+    """Units of the node plan per block of the occupation kernel: the
+    most that keep ``_OCC_TARGET_BLOCKS`` blocks, at least one."""
+    row_blocks = max(1, -(-batch // _OCC_ROWS))
+    return max(1, min(n_units, n_units * row_blocks // _OCC_TARGET_BLOCKS))
+
+
+def occupation_outputs(plan: OccupationPlan, batch, bin_major, device):
+    """The densities one launch over ``plan`` writes, uninitialised: per
+    table (n_bins, B) float32 (``bin_major``) or (B, n_bins)."""
+    return [torch.empty((nb, batch) if bin_major else (batch, nb),
+                        device=device, dtype=torch.float32)
+            for nb in plan.n_bins]
+
+
+def occupation_launch(plan: OccupationPlan, fam: OccupationFamily, pcols,
+                      bin_major=True, consts=None):
+    """Launch the CUDA occupation kernel once (``csrc/occupation.cu``) over
+    the node plan ``plan`` (:func:`occupation_plan`): the densities of
+    every table the plan serves.
+
+    ``pcols`` is the (n_params, B) float32 parameter matrix of ``fam``
+    (:func:`family_columns`) on the plan's CUDA device.  ``consts``, where
+    given, are the constants the densities are for: the plan must have been
+    built from them.  Returns one float32 tensor per table of the plan,
+    n[b, i] (n_bins, B) bin-major (what model code 2 reads) or (B, n_bins)
+    (the contraction kernel's input).  Raises on any input the kernel does
+    not take and on any launch error.  The plain version is
     :func:`occupation_density`.
     """
     global OCCUPATION_LAUNCHES
+    if not isinstance(plan, OccupationPlan):
+        raise ValueError("the occupation kernel reads a node plan "
+                         "(occupation_plan).")
+    if consts is not None and not plan.built_from(consts):
+        raise ValueError("the node plan was not built from these "
+                         "constants.")
     if not pcols.is_cuda:
         raise ValueError("the kernels need CUDA tensors.")
     n_params = len(fam.param_names)
@@ -822,22 +987,29 @@ def occupation_launch(c, fam: OccupationFamily, pcols, bin_major=True):
     if batch >= 2 ** 31:
         raise ValueError("batch too large.")
     device = pcols.device
-    for a in (c.logm, c.logm_res, c.sec, c.weight):
-        _check_tensor(a, device, torch.float32, "occupation constants")
+    for a in (plan.node, plan.res, plan.out_sec, plan.weight):
+        _check_tensor(a, device, torch.float32, "node plan")
+    for a in (plan.first_out, plan.out_bin, plan.out_table):
+        _check_tensor(a, device, torch.int32, "node plan")
     spline, (n_seg, n_coef, n_pts) = None, (0, 0, 0)
     if fam.abscissa:
         spline, (n_seg, n_coef, n_pts) = _spline_on(fam.abscissa, device)
-    shape = (c.n_bins, batch) if bin_major else (batch, c.n_bins)
-    dens = torch.empty(shape, device=device, dtype=torch.float32)
+    dens = occupation_outputs(plan, batch, bin_major, device)
+    n_tables = len(dens)
     lib = _occupation_lib()
     code = lib.tabcorr_occupation(
         pcols.data_ptr(), batch, n_params, fam.family, int(fam.decorated),
         int(fam.modulate), fam.sfr, fam.threshold, fam.a, fam.log_h,
         fam.split, None if spline is None else spline.data_ptr(), n_seg,
-        n_coef, n_pts, c.logm.data_ptr(), c.logm_res.data_ptr(),
-        c.sec.data_ptr(), c.weight.data_ptr(), c.n_bins, c.n_centrals,
-        c.n_gauss, _OCC_BINS_PER_BLOCK, int(bin_major), dens.data_ptr(),
-        *_stream_args(device))
+        n_coef, n_pts, *(a.data_ptr() for a in (
+            plan.node, plan.res, plan.first_out, plan.out_bin,
+            plan.out_table, plan.out_sec, plan.weight)),
+        plan.n_units, plan.n_out, plan.max_outs, plan.n_gauss,
+        occupation_units_per_block(plan.n_units, batch), n_tables,
+        (ctypes.c_int * n_tables)(*plan.n_bins),
+        (ctypes.c_int * n_tables)(*plan.n_centrals),
+        (ctypes.c_void_p * n_tables)(*(d.data_ptr() for d in dens)),
+        int(bin_major), *_stream_args(device))
     _raise_on_error(code, "occupation", lib.tabcorr_cuda_error_string)
     OCCUPATION_LAUNCHES += 1
     return dens
@@ -846,13 +1018,14 @@ def occupation_launch(c, fam: OccupationFamily, pcols, bin_major=True):
 def kernel_densities(c, table: TableData, model, hod: KernelModel, params,
                      bin_major=True):
     """The densities of a densities-in launch on the card, (n_bins, B)
-    float32 (``bin_major``; else (B, n_bins)): the occupation kernel where
-    it evaluates the model (``hod.family``, on the constants ``c``), else
-    the model's occupation in tensor ops (:func:`occupation_density`)."""
+    float32 (``bin_major``; else (B, n_bins)): the occupation kernel over
+    the constants' node plan (``c.occupation_plan``) where it evaluates
+    the model (``hod.family``), else the model's occupation in tensor ops
+    (:func:`occupation_density`)."""
     if hod.family is not None:
-        return occupation_launch(c, hod.family,
+        return occupation_launch(c.occupation_plan, hod.family,
                                  family_columns(params, hod.family),
-                                 bin_major)
+                                 bin_major, consts=[c])[0]
     dens = occupation_density(table, model, params)
     return dens.t().contiguous() if bin_major else dens
 
@@ -868,6 +1041,8 @@ def make_fused_predictor(table: TableData, model, accuracy="elementwise"):
     if device.type == "cuda":
         half = slab_tc_table_constants(table, 1)
         hod = KernelModel(code=DENSITY_IN, family=OccupationFamily.of(model))
+        if hod.family is not None:
+            half.occupation_plan     # built once, here
 
         def contract(params):
             return contraction_launch(half, kernel_densities(
@@ -930,6 +1105,12 @@ class GridTable:
     @property
     def c_pad(self):
         return self.fp.shape[1]
+
+    @functools.cached_property
+    def occupation_plan(self):
+        """The occupation kernel's node plan of this table
+        (:func:`occupation_plan`), built at its first use."""
+        return occupation_plan([self])
 
 
 def grid_layout_for(table: TableData):
@@ -1391,6 +1572,12 @@ class SlabTcTable:
     def node_stride(self):
         return self.b.shape[1]
 
+    @functools.cached_property
+    def occupation_plan(self):
+        """The occupation kernel's node plan of this table
+        (:func:`occupation_plan`), built at its first use."""
+        return occupation_plan([self])
+
 
 def _slab_tc_columns(nb, n_xi, auto, width):
     """Per column (padded to 128 per tile): statistic k (-1: padding), bin
@@ -1618,6 +1805,8 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
     hod = KernelModel.of(model)
     occ_cen, occ_sat = occupation_functions(model)
     consts = grid_constants(table, n_nodes, layout, accuracy, device.type)
+    if device.type == "cuda" and hod.family is not None:
+        consts.occupation_plan       # built once, here
     launch = {"grid": grid_launch, "grid_tc": grid_tc_launch,
               "slab": slab_launch, "slab_tc": slab_tc_launch}[
                   grid_kernel_for(layout, accuracy)]

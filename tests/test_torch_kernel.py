@@ -26,6 +26,7 @@ from tabcorr_tpu_torch import (AssembiasLeauthaud11Model,
 from tabcorr_tpu_torch.io import ColumnTable
 from tabcorr_tpu_torch.ops import fused
 from tabcorr_tpu_torch.ops.predict import TableData, quadrature_grid
+from tabcorr_tpu_torch.predictor import stacked_grid
 from tabcorr_tpu_torch.utils.synthetic import synthetic_tabcorr
 
 pytestmark = pytest.mark.gpu
@@ -1275,11 +1276,14 @@ OCCUPATION_KINDS = ("leauthaud11", "leauthaud11 z=0.5 unmodulated", "zu15",
                     "assembias_tinker13 active", "assembias_cacciato09")
 
 
-def _occupation_model(kind):
+def _occupation_model(kind, package=None):
+    """The model of an occupation case, of the port (``package`` None) or
+    of ``package`` (a module with the same model classes)."""
     decorated = kind.startswith("assembias_")
     name = kind.removeprefix("assembias_")
     pre = "Assembias" if decorated else ""
     import tabcorr_tpu_torch as ttt
+    ttt = package or ttt
     if name.startswith("leauthaud11"):
         kw = (dict(redshift=0.5, modulate_with_cenocc=False)
               if "z=0.5" in name else {})
@@ -1324,13 +1328,30 @@ def _density_errors(got, want):
     return float(((got - want).abs() / (want.abs() + floor)).max())
 
 
+def _assert_occupation_close(got_rows, table, table64, model, params):
+    """(B, n_bins) kernel densities against the plain version (float32
+    tensor ops) at tabcorr_tpu's fused-against-XLA bar (1e-4 relative +
+    2e-6 of the row's largest), and against the float64 tensor path at
+    1e-6 (the kernel evaluates the nodes in float64 and rounds once), where
+    it is the more exact side of the comparison with plain."""
+    plain = fused.occupation_density(table, model, params)
+    want64 = fused.occupation_density(
+        table64, model, {k: v.double() for k, v in params.items()})
+    assert bool(torch.isfinite(got_rows).all())
+    d = (got_rows.double() - plain.double()).abs()
+    bar = 1e-4 * plain.double().abs() + 2e-6 * plain.double().abs().amax(
+        1, keepdim=True)
+    assert bool((d <= bar).all()), float((d / bar).max())
+    assert _density_errors(got_rows, want64) <= 1e-6
+    assert _density_errors(got_rows, want64) <= max(
+        2e-7, _density_errors(plain, want64))
+
+
 @pytest.mark.parametrize("kind", OCCUPATION_KINDS)
 def test_occupation_kernel_matches_plain_and_float64(cuda, kind):
-    """The densities against the plain version (float32 tensor ops) at
-    tabcorr_tpu's fused-against-XLA bar (1e-4 relative + 2e-6 of the
-    row's largest), and against the float64 tensor path at 1e-6 (the
-    kernel evaluates the nodes in float64 and rounds once); both layouts
-    hold the same bits."""
+    """Every family case on wp (its central and satellite bins share their
+    units): the densities against plain and float64; both layouts hold the
+    same bits."""
     tab = TabCorr.read(DATA / "bolplanck_wp.npz")
     table = tab.table_data(device=cuda)
     model = _occupation_model(kind)
@@ -1340,25 +1361,49 @@ def test_occupation_kernel_matches_plain_and_float64(cuda, kind):
     c = fused.slab_tc_table_constants(table, 1)
     cols = fused.family_columns(params, fam)
     before = fused.OCCUPATION_LAUNCHES
-    got = fused.occupation_launch(c, fam, cols)
-    rows = fused.occupation_launch(c, fam, cols, bin_major=False)
+    got, = fused.occupation_launch(c.occupation_plan, fam, cols,
+                                   consts=[c])
+    rows, = fused.occupation_launch(c.occupation_plan, fam, cols,
+                                    bin_major=False)
     torch.cuda.synchronize()
     assert fused.OCCUPATION_LAUNCHES == before + 2
     assert got.shape == (table.n_bins, 4096 + 37)
     assert torch.equal(got.t(), rows)
-    plain = fused.occupation_density(table, model, params)
-    want64 = fused.occupation_density(
-        tab.table_data(device=cuda, dtype=torch.float64), model,
-        {k: v.double() for k, v in params.items()})
-    assert bool(torch.isfinite(rows).all())
-    d = (rows.double() - plain.double()).abs()
-    bar = 1e-4 * plain.double().abs() + 2e-6 * plain.double().abs().amax(
-        1, keepdim=True)
-    assert bool((d <= bar).all()), float((d / bar).max())
-    assert _density_errors(rows, want64) <= 1e-6
-    # The kernel is the more exact side of the comparison with plain.
-    assert _density_errors(rows, want64) <= max(
-        2e-7, _density_errors(plain, want64))
+    _assert_occupation_close(rows, table, tab.table_data(
+        device=cuda, dtype=torch.float64), model, params)
+
+
+@pytest.mark.parametrize("kind", ["leauthaud11", "zu15", "tinker13 active",
+                                  "assembias_tinker13 quiescent",
+                                  "assembias_cacciato09"])
+def test_occupation_kernel_serves_a_bundle_in_one_launch(cuda, kind):
+    """wp and xi_ell (split above and below) from one launch over their
+    joint plan, each table against its plain and float64 densities, both
+    layouts; the bundle predictor launches the kernel once per call."""
+    objs, tables = _bench_tables(cuda)
+    model = _occupation_model(kind)
+    fam = fused.OccupationFamily.of(model)
+    params = _occupation_params(model, 4096 + 37, 13, cuda)
+    consts = [fused.slab_tc_table_constants(t, 1) for t in tables]
+    plan = fused.occupation_plan(consts)
+    cols = fused.family_columns(params, fam)
+    before = fused.OCCUPATION_LAUNCHES
+    got = fused.occupation_launch(plan, fam, cols, consts=consts)
+    rows = fused.occupation_launch(plan, fam, cols, bin_major=False)
+    torch.cuda.synchronize()
+    assert fused.OCCUPATION_LAUNCHES == before + 2
+    assert [tuple(d.shape) for d in got] == [(60, 4096 + 37),
+                                             (120, 4096 + 37)]
+    for d, r, obj, table in zip(got, rows, objs, tables):
+        assert torch.equal(d.t(), r)
+        _assert_occupation_close(r, table, obj.table_data(
+            device=cuda, dtype=torch.float64), model, params)
+    predict = make_multi_predictor(objs, model, device=cuda)
+    before = (fused.OCCUPATION_LAUNCHES, fused.BUNDLE_LAUNCHES)
+    predict(params)
+    torch.cuda.synchronize()
+    assert (fused.OCCUPATION_LAUNCHES, fused.BUNDLE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
 
 
 def test_occupation_kernel_on_a_wide_cross_table(cuda):
@@ -1370,7 +1415,8 @@ def test_occupation_kernel_on_a_wide_cross_table(cuda):
     fam = fused.OccupationFamily.of(model)
     params = _occupation_params(model, 300, 12, cuda)
     g = fused.grid_table_constants(table, 1)
-    got = fused.occupation_launch(g, fam, fused.family_columns(params, fam))
+    got, = fused.occupation_launch(g.occupation_plan, fam,
+                                   fused.family_columns(params, fam))
     want64 = fused.occupation_density(
         tab.table_data(device=cuda, dtype=torch.float64), model,
         {k: v.double() for k, v in params.items()})
@@ -1378,20 +1424,134 @@ def test_occupation_kernel_on_a_wide_cross_table(cuda):
     assert _density_errors(got.t(), want64) <= 1e-6
 
 
-def test_occupation_wrapper_rejects_bad_inputs(cuda):
+def test_occupation_kernel_on_the_ds_efficient_grid(cuda):
+    """The stacked 'efficient' Delta Sigma grid (1104 bins, 280 units of 4
+    outputs or fewer) for AssembiasLeauthaud11 at z = 0.5, 4,133 rows,
+    through kernel_densities as the grid predictor calls it, against the
+    float64 tensor path at 1e-6 and no further from it than the plain
+    float32 version.  (The plain version itself is 5.8e-4 off float64
+    here, beyond its own bar against an exact answer, so the comparison
+    with it is the 13 cases' on wp.)"""
+    interp = Interpolator.read(DATA / "ds_efficient.npz")
+    stacked, n_nodes, _ = stacked_grid(interp, device=cuda)
+    model = AssembiasLeauthaud11Model(threshold=10.5, redshift=0.5,
+                                      prim_haloprop_key="halo_m258m")
+    params = _occupation_params(model, 4096 + 37, 14, cuda)
+    g = fused.grid_table_constants(stacked, n_nodes)
+    assert g.occupation_plan.n_units == 280
+    dens = fused.kernel_densities(g, stacked, model,
+                                  fused.KernelModel.of(model), params)
+    assert dens.shape == (1104, 4096 + 37)
+    assert bool(torch.isfinite(dens).all())
+    want64 = fused.occupation_density(
+        interp.tabcorr_list[0].table_data(device=cuda, dtype=torch.float64),
+        model, {k: v.double() for k, v in params.items()})
+    plain = fused.occupation_density(stacked, model, params)
+    assert _density_errors(dens.t(), want64) <= 1e-6
+    assert _density_errors(dens.t(), want64) <= _density_errors(plain,
+                                                                want64)
+
+
+def test_occupation_kernel_on_a_table_whose_bins_share_no_node(cuda):
+    """wp with its satellite bins' nodes moved by 0.01 dex: 60 units of one
+    output each."""
     tab = TabCorr.read(DATA / "bolplanck_wp.npz")
-    c = fused.slab_tc_table_constants(tab.table_data(device=cuda), 1)
+    t64 = tab.table_data(device=cuda, dtype=torch.float64)
+    logm = t64.log_prim_quad.clone()
+    logm[t64.n_centrals:] += 0.01
+    table64 = dataclasses.replace(t64, log_prim_quad=logm)
+    # The float32 table at the same abscissae: node and residual.
+    node = logm.float()
+    table = dataclasses.replace(tab.table_data(device=cuda),
+                                log_prim_quad=node,
+                                log_prim_quad_lo=(logm - node.double()).float())
+    model = _occupation_model("assembias_zu15")
+    fam = fused.OccupationFamily.of(model)
+    params = _occupation_params(model, 4096 + 37, 15, cuda)
+    c = fused.slab_tc_table_constants(table, 1)
+    assert c.occupation_plan.n_units == 60
+    got, = fused.occupation_launch(c.occupation_plan, fam,
+                                   fused.family_columns(params, fam),
+                                   bin_major=False)
+    _assert_occupation_close(got, table, table64, model, params)
+
+
+def test_occupation_kernel_on_a_mass_bin_split_over_two_units(cuda):
+    """xi_ell twice in one launch: each mass bin is read by 8 bins, more
+    than a unit holds, so the plan splits it into two units of 4; both
+    tables against plain and float64.  A plan whose units claim more
+    outputs than the kernel takes is refused."""
+    tab = TabCorr.read(DATA / "synthetic_xi_ell.npz")
+    table = tab.table_data(device=cuda)
+    c = fused.slab_tc_table_constants(table, 1)
+    plan = fused.occupation_plan([c, c])
+    assert (plan.n_units, plan.max_outs) == (60, 4)
+    model = _occupation_model("assembias_zu15")
+    fam = fused.OccupationFamily.of(model)
+    params = _occupation_params(model, 4096 + 37, 17, cuda)
+    cols = fused.family_columns(params, fam)
+    got = fused.occupation_launch(plan, fam, cols, bin_major=False,
+                                  consts=[c, c])
+    table64 = tab.table_data(device=cuda, dtype=torch.float64)
+    for rows in got:
+        _assert_occupation_close(rows, table, table64, model, params)
+    with pytest.raises(RuntimeError, match="occupation kernel launch"):
+        fused.occupation_launch(dataclasses.replace(plan, max_outs=5), fam,
+                                cols)
+
+
+def test_occupation_kernel_feeds_the_contraction_row_major(cuda):
+    """B3's layout: (B, n_bins), the bin-major densities transposed bit
+    for bit; make_predictor(engine='fused') launches the occupation and
+    the contraction kernel once each."""
+    tab = TabCorr.read(DATA / "synthetic_xi_ell.npz")
+    table = tab.table_data(device=cuda)
+    model = _occupation_model("tinker13 quiescent")
+    hod = fused.KernelModel.of(model)
+    params = _occupation_params(model, 4096 + 37, 16, cuda)
+    c = fused.slab_tc_table_constants(table, 1)
+    rows = fused.kernel_densities(c, table, model, hod, params,
+                                  bin_major=False)
+    cols = fused.kernel_densities(c, table, model, hod, params)
+    assert rows.shape == (4096 + 37, 120) and torch.equal(rows, cols.t())
+    before = (fused.OCCUPATION_LAUNCHES, fused.CONTRACTION_LAUNCHES)
+    ngal, xi = make_predictor(tab, model, engine="fused", device=cuda)(
+        params)
+    torch.cuda.synchronize()
+    assert (fused.OCCUPATION_LAUNCHES, fused.CONTRACTION_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = fused.contraction_plain(fused.bundle_table_constants(table), rows)
+    _assert_close_strict([(ngal, xi)], fused.shaped([table], [want]))
+
+
+def test_occupation_wrapper_rejects_bad_inputs(cuda):
+    objs, tables = _bench_tables(cuda)
+    c, c_xi = (fused.slab_tc_table_constants(t, 1) for t in tables)
     fam = fused.OccupationFamily.of(Leauthaud11Model())
+    plan = c.occupation_plan
     good = torch.ones((16, 8), device=cuda)
     with pytest.raises(ValueError, match="CUDA"):
-        fused.occupation_launch(c, fam, good.cpu())
+        fused.occupation_launch(plan, fam, good.cpu())
     with pytest.raises(ValueError, match=r"\(16, B\)"):
-        fused.occupation_launch(c, fam, good[:15])
+        fused.occupation_launch(plan, fam, good[:15])
     with pytest.raises(ValueError, match=r"\(16, B\)"):
-        fused.occupation_launch(c, fam, good.double())
+        fused.occupation_launch(plan, fam, good.double())
     with pytest.raises(ValueError, match="contiguous"):
-        fused.occupation_launch(c, fam, good.t().contiguous().t())
+        fused.occupation_launch(plan, fam, good.t().contiguous().t())
+    # A plan of other constants, or of other tables, or not a plan.
+    with pytest.raises(ValueError, match="not built from"):
+        fused.occupation_launch(plan, fam, good, consts=[c_xi])
+    with pytest.raises(ValueError, match="not built from"):
+        fused.occupation_launch(fused.occupation_plan([c, c_xi]), fam, good,
+                                consts=[c_xi, c])
+    with pytest.raises(ValueError, match="reads a node plan"):
+        fused.occupation_launch(c, fam, good)
+    # A plan on the CPU for parameters on the card.
+    cpu_plan = fused.occupation_plan([fused.bundle_table_constants(
+        objs[0].table_data(device="cpu"))])
+    with pytest.raises(ValueError, match="node plan"):
+        fused.occupation_launch(cpu_plan, fam, good)
     before = fused.OCCUPATION_LAUNCHES
-    assert fused.occupation_launch(c, fam, good[:, :0]).shape == (
+    assert fused.occupation_launch(plan, fam, good[:, :0])[0].shape == (
         c.n_bins, 0)
     assert fused.OCCUPATION_LAUNCHES == before + 1
