@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
 It builds the hand-written CUDA kernels (tabcorr_tpu_torch/csrc: the
 bundle and contraction kernels in bundle.cu, the grid kernels in grid.cu,
 the slab kernels in slab.cu, the occupation kernel of the HOD families in
-occupation.cu, one nvcc each, in parallel) and drives
+occupation.cu, the labeled pair counter in paircount.cu, one nvcc each,
+in parallel) and drives
 ``tabcorr_tpu_torch`` through the entry points a user calls, at real
 shapes, 262,144 parameter vectors each unless said otherwise:
 
@@ -68,6 +69,34 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    against codes 0 / 1 on the same rows: the bundle, the 64-node grid,
    both slab tiers.
 
+9. Tabulation: ``TabCorr.tabulate`` on a synthetic catalog of 200,000
+   host halos in a 250 Mpc/h box (Bolshoi-Planck's; the JAX package's
+   bench-fixture mass function, ``utils.synthetic.synthetic_halocat``),
+   one projection a sweep (project_xyz=False), RSD on: (a) wp and (b)
+   xi(s, mu) in the 'default' configuration (auto, 30 mass bins x the 0.5
+   percentile split x 2 galaxy types = 120 labels, AP stretch to
+   Planck15; ~1.2 million tracers), xi_0/2/4 from (b) stacked as the
+   bench fixture stacks them; (c) Delta Sigma in the 'efficient' one
+   (cross, 300 mass bins, downsampled by M / 1e13) against 1,000,000
+   uniform particles, the annulus mean's two channels from one sweep;
+   (d) wp again on a clustered catalog of the same hosts (around 4,000
+   centres).  Each sweep is one launch of the pair counter; it is held
+   against its plain version on 65,536 random tracers a side (unit
+   counts equal, weighted cells within 1e-7) and, at full size, on the
+   histogram rows of three i-labels (that label's tracers against every
+   j-tracer); full-size auto counts must be symmetric, and 5,000 tracers
+   are held against float64 binning cell by cell (a cell may differ only
+   by the pairs that four float32 ulp would move into it).  Printed: the
+   kernel's ms, candidate pairs and their rate, kept pairs, the bound
+   (``bound_ops``: what the function needs over the z-window's
+   candidates, at 33.5 T lane-ops/s) and the share, the plain version's
+   ms on the subsample, the stages' wall time.  Then the tables of
+   (a)-(c) predict: wp + xi_ell through ``make_multi_predictor`` (B1,
+   262,144 rows, 'scaled'), Delta Sigma through
+   ``make_predictor(engine="fused")`` (B3), each against the float64
+   host path at 16 probes (ngal 1e-6 relative, the statistics 1e-6
+   scaled) and the bundle against its plain engine.
+
 Paths 3-5 and 7 run the 'scaled' contract: the grid kernel and slab_tc;
 the 'elementwise' passes run the grid kernel and the FP32 slab kernel,
 held against the same plain versions.  No contract routes to grid_tc
@@ -89,6 +118,7 @@ naming the device.
 import copy
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -126,12 +156,19 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     # bodies for the SHMR, CLF and quiescent/active families.
     "occupation": (CSRC + "occupation.cu",
                    "tabcorr_tpu/ops/fused.py:985, 1373, 1941"),
+    # The z-windowed XLA sweep of the tabulation (not a Pallas kernel).
+    "paircount": (CSRC + "paircount.cu",
+                  "tabcorr_tpu/ops/paircount.py:130, 276"),
 }
-COUNTERS = {"bundle": "BUNDLE_LAUNCHES",
-            "contraction": "CONTRACTION_LAUNCHES",
-            "grid": "GRID_LAUNCHES", "grid_tc": "GRID_TC_LAUNCHES",
-            "slab": "SLAB_LAUNCHES", "slab_tc": "SLAB_TC_LAUNCHES",
-            "occupation": "OCCUPATION_LAUNCHES"}
+# name -> (module of ctx, launch counter)
+COUNTERS = {"bundle": ("fused", "BUNDLE_LAUNCHES"),
+            "contraction": ("fused", "CONTRACTION_LAUNCHES"),
+            "grid": ("fused", "GRID_LAUNCHES"),
+            "grid_tc": ("fused", "GRID_TC_LAUNCHES"),
+            "slab": ("fused", "SLAB_LAUNCHES"),
+            "slab_tc": ("fused", "SLAB_TC_LAUNCHES"),
+            "occupation": ("fused", "OCCUPATION_LAUNCHES"),
+            "paircount": ("paircount", "PAIRCOUNT_LAUNCHES")}
 
 
 def check(ok, message):
@@ -162,6 +199,7 @@ def main():
     contraction_phase(ctx, kernels)
     slab_phase(ctx, kernels)
     family_phases(ctx, kernels)
+    tabulation_phase(ctx, kernels)
 
     for name in KERNELS:
         check(kernels[name]["launches"] > 0,
@@ -186,30 +224,36 @@ def make_context():
     import numpy as np
 
     import tabcorr_tpu_torch  # noqa: F401  (fails outside a checkout)
-    from tabcorr_tpu_torch.ops import fused
-    from tabcorr_tpu_torch.utils.build import library_path
+    from tabcorr_tpu_torch.ops import fused, paircount
+    from tabcorr_tpu_torch.utils.build import build_libraries, library_path
 
     card = card_name_and_power()
     print(f"card (name, power limit): {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device 0: {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    sources = {**fused.KERNEL_SOURCES, **paircount.KERNEL_SOURCES}
+    build_libraries(sources)
     fused.load_kernels()
+    paircount.load_kernels()
     print(f"kernel builds (parallel) + load: "
           f"{time.perf_counter() - t_start:.2f} s")
-    for name in fused.KERNEL_SOURCES:
+    for name in sources:
         log = library_path(name).with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else ():
             if "registers" in line or "spill" in line or (
-                    name == "occupation" and "entry function" in line):
+                    name in ("occupation", "paircount") and
+                    "entry function" in line):
                 print(f"ptxas ({name}): {line.strip()}")
+    modules = {"fused": fused, "paircount": paircount}
 
     def reset():
-        for attr in COUNTERS.values():
-            setattr(fused, attr, 0)
+        for module, attr in COUNTERS.values():
+            setattr(modules[module], attr, 0)
 
     def counts():
-        return {k: getattr(fused, attr) for k, attr in COUNTERS.items()}
+        return {k: getattr(modules[module], attr)
+                for k, (module, attr) in COUNTERS.items()}
 
     def expect(what, **launches):
         """The counts since reset(): ``launches`` and 0 for every other
@@ -254,7 +298,8 @@ def make_context():
             torch.backends.opt_einsum.enabled = einsum_opt
             torch.backends.cuda.matmul.allow_tf32 = tf32
 
-    return dict(torch=torch, np=np, fused=fused, card=card, reset=reset,
+    return dict(torch=torch, np=np, fused=fused, paircount=paircount,
+                card=card, reset=reset,
                 expect=expect, window_ms=window_ms, alternate=alternate,
                 library_ms=library_ms)
 
@@ -710,7 +755,7 @@ def grid_phases(ctx, kernels):
     walkers = walkers_around(ctx, model, names, BATCH, SEED + 1)
     ctx["reset"]()
     accepts, step_s, _ = run_sampler(ctx, log_prob, walkers, N_GRID_STEPS,
-                                     COUNTERS[kname], SEED + 1)
+                                     COUNTERS[kname][1], SEED + 1)
     launched = ctx["expect"]("grid sampler", **{kname: 1 + 2 * N_GRID_STEPS})
     launches += launched[kname]
     print(f"grid sampler: {launched[kname]} {kname} kernel launches (1 "
@@ -1991,6 +2036,519 @@ def density_in_cross_check(ctx):
         kernel_vs_plain(f"cross-check wide grid {tier}: code 2 against "
                         f"code 1", [(a[0], a[1].reshape(-1, s_tc.n_xi))],
                         [(b[0], b[1].reshape(-1, s_tc.n_xi))], (False,))
+
+
+# ----------------------------------------------------------------------
+# Tabulation: TabCorr.tabulate through the CUDA pair counter
+# ----------------------------------------------------------------------
+TAB_HALOS = 200_000
+TAB_LBOX = 250.0           # Bolshoi-Planck's box [Mpc/h]
+TAB_PARTICLES = 1_000_000
+TAB_SUBSAMPLE = 65_536
+TAB_BRUTE = 5_000
+# The clustered catalog: the same hosts around 4,000 uniform centres
+# (utils.synthetic.synthetic_halocat, offsets of CLUMP_RADIUS).
+TAB_CLUMPS = 4_000
+# i-labels whose histogram rows are held against the plain version at
+# full size: the first, the middle and the last label with tracers.
+TAB_SLICES = 3
+# Instruction throughput of one H100 SXM (132 SMs x 4 schedulers x 32
+# lanes x 1.98 GHz): FP32 and integer lane operations alike.
+PEAK_LANE_OPS = 33.5e12
+
+
+def bound_ops(sweep):
+    """Lane operations (FP32 and integer alike) the sweep needs, counted
+    for the function over the z-window's candidate pairs, not as
+    tabcorr_tpu's ``_tile_geometry`` writes it (a compare and an add for
+    every edge on every pair).  Returns (a, b, c): a for every candidate,
+    b more for a candidate within pi_max (rppi), c more for a kept pair.
+
+    An axis costs 3: the difference and the minimum image as a compare
+    and a conditional subtract.  Every candidate: the self test (auto, 1)
+    and its rejection path -- rppi: the z axis and |dz| < pi_max (4),
+    then, within pi_max, x, y, rp^2 (two products, a sum) and its two
+    range tests (11); smu: three axes, rp^2, s^2 (a product, a sum) and
+    its two range tests (16); proj: x, y, rp^2 and its range tests (11).
+    A kept pair: its radial bin by a branch-free binary search over the
+    edges (a compare and a select a halving); for smu also the root, the
+    guarded division (2), the mu search, its clip (2) and the flat
+    sub-bin; then the cell's address and one add a channel, and ln(rp)
+    for a log_rp channel (the clamp, the log, two products)."""
+    def search(n_edges):
+        return 2 * math.ceil(math.log2(n_edges + 1))
+
+    a = (1 if sweep.auto else 0) + {"rppi": 4, "smu": 16,
+                                    "proj": 11}[sweep.kind]
+    b = 11 if sweep.kind == "rppi" else 0
+    c = search(sweep.n_r + 1) + 1 + sweep.n_channels
+    if sweep.kind == "smu":
+        c += 1 + 2 + search(sweep.n_mu + 1) + 2 + 1
+    if sweep.pair_weight != "unit":
+        c += 4
+    return a, b, c
+
+
+def within_pi_max(sweep, layout):
+    """rppi: the candidate pairs with |dz| < pi_max (periodic, counted in
+    float64 on the layout's z).  Every ordered pair of distinct labeled
+    tracers that close in z is a candidate of the z-window."""
+    if sweep.kind != "rppi":
+        return 0
+    if sweep.z_cut is None:     # 2 pi_max >= period_z: all of them
+        return layout.candidates
+    import torch
+    pz = sweep.period[2]
+    z1 = layout.pos1[:, 2].double()
+    z2 = torch.sort(layout.pos2[:, 2].double()).values
+    zz = torch.cat([z2 - pz, z2, z2 + pz])
+    n = (torch.searchsorted(zz, z1 + sweep.pi_max) -
+         torch.searchsorted(zz, z1 - sweep.pi_max, right=True)).sum()
+    return int(n) - (len(z1) if sweep.auto else 0)
+
+
+def valid_pairs(sweep, hist):
+    """The kept pairs of a sweep: its unit counts, or its weight channel
+    where every weight is 1 (float64 sums of ones are exact)."""
+    check(sweep.unit_counts or (sweep.pair_weight != "log_rp" and
+                                bool((sweep.j_side()[2] == 1).all())),
+          "kept pairs of a sweep with unequal weights")
+    return int(hist[:sweep.n_hist].sum())
+
+
+def paircount_bound(sweep, layout, valid):
+    """The least time for a sweep: :func:`bound_ops` over its candidates,
+    those within pi_max and its kept pairs, at PEAK_LANE_OPS, against the
+    bytes (each tracer's 16-byte record and label read once, the
+    histogram written once); returns (bound dict, ops, bytes)."""
+    a, b, c = bound_ops(sweep)
+    ops = (a * layout.candidates + b * within_pi_max(sweep, layout) +
+           c * valid)
+    n2 = 0 if sweep.auto else len(sweep.pos2)
+    n_bytes = (20 * (len(sweep.pos1) + n2) +
+               8 * sweep.n_channels * sweep.n_hist)
+    ops_ms = ops / PEAK_LANE_OPS * 1e3
+    bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
+    return ({"bound_ms": max(ops_ms, bytes_ms),
+             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"},
+            ops, n_bytes)
+
+
+def subsample(ctx, sweep, n, seed):
+    """``sweep`` on ``n`` random tracers of each side (all labels kept)."""
+    torch = ctx["torch"]
+    g = torch.Generator(device=sweep.device).manual_seed(seed)
+
+    def pick(m):
+        return torch.randperm(m, generator=g, device=sweep.device)[:n]
+
+    i1 = pick(len(sweep.pos1))
+    out = dataclasses.replace(sweep, pos1=sweep.pos1[i1].contiguous(),
+                              labels1=sweep.labels1[i1].contiguous())
+    if sweep.auto:
+        if sweep.weights2 is not None:
+            out = dataclasses.replace(
+                out, weights2=sweep.weights2[i1].contiguous())
+        return out
+    i2 = pick(len(sweep.pos2))
+    return dataclasses.replace(
+        out, pos2=sweep.pos2[i2].contiguous(),
+        labels2=sweep.labels2[i2].contiguous(),
+        weights2=None if sweep.weights2 is None else
+        sweep.weights2[i2].contiguous())
+
+
+def hist_errors(got, want, unit_counts):
+    """Unit counts: the number of unequal cells.  Weighted: the largest
+    |got - want| / max(|want|, 1e-7 max |want|)."""
+    if unit_counts:
+        return int((got != want).sum())
+    floor = 1e-7 * float(want.abs().max())
+    return float(((got - want).abs() /
+                  want.abs().clamp(min=floor)).max())
+
+
+def label_slices(ctx, label, sweep, hist):
+    """Hold the main path's own histogram against the plain version at
+    full size: for TAB_SLICES i-labels (the first, the middle and the last
+    with tracers), the plain version in cross mode with that label's
+    tracers against every j-tracer must give that label's rows (unit
+    counts equal, weighted cells within 1e-7).  An auto sweep's
+    self-pairs fall out of the cross sweep because its smallest edge is
+    above 0."""
+    torch, np, pc = ctx["torch"], ctx["np"], ctx["paircount"]
+    check(not sweep.auto or float(sweep.edges_sq[0]) > 0,
+          f"{label}: an auto sweep with an edge at 0")
+    pos2, labels2, _ = sweep.j_side()
+    sizes = torch.bincount(sweep.labels1[sweep.labels1 >= 0].long(),
+                           minlength=sweep.n_labels_1).cpu().numpy()
+    full = np.flatnonzero(sizes)
+    picks = sorted({int(full[k]) for k in
+                    np.linspace(0, len(full) - 1, TAB_SLICES).round()
+                    .astype(int)})
+    rows = hist.reshape(sweep.n_channels, sweep.n_labels_1, -1)
+    errs = []
+    t0 = time.perf_counter()
+    for l1 in picks:
+        keep = sweep.labels1 == l1
+        one = dataclasses.replace(
+            sweep, pos1=sweep.pos1[keep].contiguous(),
+            labels1=torch.zeros(int(keep.sum()), dtype=torch.int32,
+                                device=sweep.device),
+            n_labels_1=1, pos2=pos2, labels2=labels2,
+            weights2=sweep.weights2)
+        want = pc.paircount_plain(one).reshape(sweep.n_channels, -1)
+        errs.append(hist_errors(rows[:, l1], want, sweep.unit_counts))
+    torch.cuda.synchronize()
+    print(f"tabulation {label}: full-size rows of i-labels {picks} "
+          f"({[int(sizes[k]) for k in picks]} tracers) against the plain "
+          f"version, each label's tracers x all {len(pos2)} j-tracers: "
+          f"{errs} {'cells unequal' if sweep.unit_counts else 'max rel'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(all(e == 0 if sweep.unit_counts else e <= 1e-7 for e in errs),
+          f"{label}: full-size rows vs plain {errs}")
+
+
+def brute_force_check(ctx, label, sweep):
+    """The kernel against float64 binning on TAB_BRUTE tracers (one side,
+    auto), cell by cell: a cell may differ only by the pairs that lie near
+    an edge and could fall into it.  A pair is near when moving one of its
+    binned quantities (rp^2 or s^2, |dz| against pi_max, mu) by n float32
+    ulp changes its cell.  The allowance takes n = 4: float32 rp^2 carries
+    up to ~3.5 ulp of rounding against float64 (the difference, the
+    minimum image, two squares and a sum), mu a little more.  Returns
+    (differing pair counts, pairs near at one ulp, at four)."""
+    np, pc = ctx["np"], ctx["paircount"]
+    import itertools
+    sub = subsample(ctx, sweep, TAB_BRUTE, SEED + 90)
+    got = pc.paircount_launch(sub).cpu().numpy()
+    p = sub.pos1.double().cpu().numpy()
+    lab = sub.labels1.cpu().numpy().astype(np.int64)
+    per = np.array(sub.period)
+    d = p[:, None, :] - p[None, :, :]
+    d -= per * np.round(d / per)
+    rp_sq = d[..., 0] ** 2 + d[..., 1] ** 2
+    dz = np.abs(d[..., 2])
+    # The sweep bins against its float32 squared edges (rounded once from
+    # float64): the same values, in float64.
+    e_sq = sub.edges_sq.astype(np.float64)
+    ok = (lab[:, None] >= 0) & (lab[None, :] >= 0)
+    np.fill_diagonal(ok, False)
+    pair_cell = (lab[:, None] * sub.n_labels_2 + lab[None, :]) * sub.n_hist_r
+    if sub.kind == "smu":
+        s_sq = rp_sq + dz ** 2
+        s = np.sqrt(s_sq)
+        mu_e = sub.mu_edges.astype(np.float64)
+        qs = [s_sq, np.where(s > 0, dz / np.maximum(s, 1e-300), 0.0)]
+        edges = [e_sq, mu_e]
+
+        def cell(q, base):
+            r_bin = np.searchsorted(e_sq, q[0], side="right") - 1
+            mu_bin = np.clip(np.searchsorted(mu_e, q[1], side="right") - 1,
+                             0, sub.n_mu - 1)
+            keep = (r_bin >= 0) & (r_bin < sub.n_r) & (q[0] > 0)
+            return np.where(keep, base + r_bin * sub.n_mu + mu_bin, -1)
+    else:
+        qs = [rp_sq, dz]
+        edges = [e_sq, np.array([sub.pi_max], dtype=np.float64)]
+
+        def cell(q, base):
+            r_bin = np.searchsorted(e_sq, q[0], side="right") - 1
+            keep = (r_bin >= 0) & (r_bin < sub.n_r) & (q[1] < sub.pi_max)
+            return np.where(keep, base + r_bin, -1)
+
+    want_cell = np.where(ok, cell(qs, pair_cell), -1)
+    want = np.bincount(want_cell[want_cell >= 0], minlength=sub.n_hist)
+    # Pairs that might move: within ten ulp (at the edge) of an edge.
+    maybe = np.zeros(rp_sq.shape, dtype=bool)
+    for q, es in zip(qs, edges):
+        for e in es:
+            maybe |= np.abs(q - e) <= 10 * float(np.spacing(np.float32(e)))
+    maybe &= ok
+    q_m = [q[maybe] for q in qs]
+    base_m, want_m = pair_cell[maybe], want_cell[maybe]
+    ulp_m = [np.spacing(q.astype(np.float32)).astype(np.float64)
+             for q in q_m]
+    near, reach = {}, None
+    for n_ulp in (1, 4):
+        moved = np.zeros(len(base_m), dtype=bool)
+        cells = [want_m]
+        for ks in itertools.product((-1, 0, 1), repeat=len(qs)):
+            c = cell([q + k * n_ulp * u for q, k, u in zip(q_m, ks, ulp_m)],
+                     base_m)
+            moved |= c != want_m
+            cells.append(c)
+        near[n_ulp] = int(moved.sum())
+        reach = np.stack(cells)[:, moved]
+    # Each near pair allows one count of difference in every cell it
+    # could fall into.
+    allow = np.zeros(sub.n_hist, dtype=np.int64)
+    for col in range(reach.shape[1]):
+        cs = np.unique(reach[:, col])
+        allow[cs[cs >= 0]] += 1
+    off = np.abs(got - want)
+    diff = int(off.sum())
+    print(f"tabulation {label}: kernel vs float64 brute force on "
+          f"{TAB_BRUTE} tracers ({int(want.sum())} pairs): {diff} pair "
+          f"counts differ, in {int((off > 0).sum())} cells; {near[1]} "
+          f"ordered pairs lie within one float32 ulp of a cell's edge, "
+          f"{near[4]} within four (each cell differs by no more than the "
+          f"four-ulp pairs that could fall into it)")
+    check(bool((off <= allow).all()), f"{label}: brute force differs by "
+          f"{int((off - allow).max())} beyond its near-edge pairs in a cell")
+    return diff, near[1]
+
+
+def tabulation_sweep_report(ctx, label, rec):
+    """Print one sweep's numbers and hold the kernel against its plain
+    version on a TAB_SUBSAMPLE subsample; returns the subsample's kernel
+    and plain ms, its bound and its error, and the main path's kernel ms
+    and bound."""
+    torch, pc = ctx["torch"], ctx["paircount"]
+    sweep, layout = rec["sweep"], rec["layout"]
+    kernel_ms = rec["sweep_s"] * 1e3
+    valid = valid_pairs(sweep, rec["hist"])
+    near = within_pi_max(sweep, layout)
+    b, ops, n_bytes = paircount_bound(sweep, layout, valid)
+    a, bz, c = bound_ops(sweep)
+    print(f"tabulation {label}: {len(sweep.pos1)} i-tracers x "
+          f"{len(sweep.pos1 if sweep.auto else sweep.pos2)} j-tracers, "
+          f"{sweep.n_labels_1} x {sweep.n_labels_2} labels, kind "
+          f"{sweep.kind}, {sweep.pair_weight}"
+          f"{'' if sweep.unit_counts else ' (weighted)'}, z window "
+          f"{sweep.z_cut}, {layout.n_tiles} tiles")
+    print(f"tabulation {label}: paircount kernel {kernel_ms:.2f} ms "
+          f"(with the wrapper's input checks; layout "
+          f"{rec['layout_s'] * 1e3:.2f} ms), 1 launch; "
+          f"{layout.candidates} candidate pairs "
+          f"({layout.candidates / rec['sweep_s']:.4g}/s)"
+          f"{f', {near} within pi_max' if sweep.kind == 'rppi' else ''}, "
+          f"{valid} kept ({valid / layout.candidates:.3f}); bound "
+          f"{b['bound_ms']:.2f} ms ({b['bound_by']}: {ops:.4g} ops = {a} a "
+          f"candidate{f' + {bz} within pi_max' if bz else ''} + {c} a kept "
+          f"pair, at 33.5 T lane-ops/s, over the z-window's candidates; "
+          f"{n_bytes / 1e6:.1f} MB), share {b['bound_ms'] / kernel_ms:.3f} "
+          f"on {ctx['card']}")
+    print(f"tabulation {label}: stages (s) " + ", ".join(
+        f"{k} {rec[k + '_s']:.3f}"
+        for k in ("mock", "layout", "sweep", "estimator")) +
+        " (mock: everything before the sweep's call -- binning, the dense "
+        "mock, RSD, the AP stretch, tensors to the card; estimator: "
+        "everything after it)")
+    sub = subsample(ctx, sweep, TAB_SUBSAMPLE, SEED + 91)
+    sub_layout = pc.bucket_layout(sub)
+    got = pc.paircount_launch(sub, layout=sub_layout)
+    want = pc.paircount_plain(sub)
+    torch.cuda.synchronize()
+    err = hist_errors(got, want, sub.unit_counts)
+    what = ("cells unequal" if sub.unit_counts else
+            "max relative error per cell (floored at 1e-7 of the largest)")
+    print(f"tabulation {label}: kernel vs plain on {TAB_SUBSAMPLE} tracers "
+          f"a side: {err} {what} (unit counts: 0; weighted: <= 1e-7)")
+    check(err == 0 if sub.unit_counts else err <= 1e-7,
+          f"{label}: kernel vs plain {err}")
+    k_ms, p_ms, _, _ = ctx["alternate"](
+        lambda: pc.paircount_launch(sub, layout=sub_layout),
+        lambda: pc.paircount_plain(sub), 5, 1, rounds=1)
+    sb, _, _ = paircount_bound(sub, sub_layout, valid_pairs(sub, want))
+    print(f"tabulation {label}: subsample kernel {k_ms:.3f} ms, plain "
+          f"PyTorch {p_ms:.1f} ms, bound {sb['bound_ms']:.3f} ms "
+          f"({sub_layout.candidates} candidates) on {ctx['card']}")
+    max_abs_err = float((got.double() - want.double()).abs().max())
+    return dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max_abs_err, **sb,
+                main_path_ms=kernel_ms, main_path_bound_ms=b["bound_ms"])
+
+
+def tabulation_phase(ctx, kernels):
+    """TabCorr.tabulate on a Bolshoi-Planck-sized synthetic catalog: wp
+    and xi(s, mu) in the 'default' configuration, Delta Sigma in the
+    'efficient' one, and wp again on a clustered catalog of the same
+    hosts; the first three tables then predict through B1 and B3."""
+    torch, np, pc = ctx["torch"], ctx["np"], ctx["paircount"]
+    import tabcorr_tpu_torch as tp
+    from tabcorr_tpu_torch.ops.multipole import tabcorr_s_mu_to_multipole
+    from tabcorr_tpu_torch.utils.synthetic import (CLUMP_RADIUS,
+                                                   synthetic_halocat,
+                                                   synthetic_particles)
+    t_phase = time.perf_counter()
+    halocat = synthetic_halocat(TAB_HALOS, TAB_LBOX)
+    clustered = synthetic_halocat(TAB_HALOS, TAB_LBOX, clumps=TAB_CLUMPS)
+    particles = synthetic_particles(TAB_PARTICLES, halocat)
+    default = tp.database.configuration("default")
+    efficient = tp.database.configuration("efficient")
+    records = []
+
+    def spy(sweep):
+        """The tabulation's sweep, as ``paircount`` runs it on the card,
+        timed by stage on the host clock (synchronized): the layout, then
+        the launch; recorded with its inputs, layout and histogram."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        layout = pc.bucket_layout(sweep)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hist = pc.paircount_launch(sweep, layout)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        records.append(dict(sweep=sweep, hist=hist, layout=layout,
+                            t_call=t0, layout_s=t1 - t0, sweep_s=t2 - t1,
+                            t_return=t2))
+        return hist
+
+    common = dict(mode="auto", prim_haloprop_bins=30,
+                  sec_haloprop_percentile_bins=0.5,
+                  sats_per_prim_haloprop=default["sats_per_prim_haloprop"],
+                  redshift_space_distortions=True, project_xyz=False,
+                  cosmology_obs=default["cosmo_obs"], seed=SEED,
+                  device="cuda")
+    print(f"tabulation: {TAB_HALOS} host halos in a {TAB_LBOX} Mpc/h box "
+          f"(z = {halocat.redshift}), project_xyz=False (one projection "
+          f"a sweep), RSD on, AP stretch to Planck15; the clustered "
+          f"catalog: the same hosts around {TAB_CLUMPS} centres, "
+          f"{CLUMP_RADIUS} Mpc/h Gaussian offsets")
+    runs = [
+        ("wp", lambda: tp.TabCorr.tabulate(
+            halocat, tp.corrfunc.wp, default["rp_wp_bins"],
+            default["pi_max"], **common)),
+        ("s_mu", lambda: tp.TabCorr.tabulate(
+            halocat, tp.corrfunc.s_mu_tpcf, default["s_bins"],
+            default["mu_bins"], **common)),
+        ("ds", lambda: tp.TabCorr.tabulate(
+            halocat, tp.corrfunc.mean_delta_sigma, particles.positions,
+            particles.effective_particle_mass, efficient["rp_ds_bins"],
+            **{**common, "mode": "cross", "prim_haloprop_bins": 300,
+               "sec_haloprop_percentile_bins": None,
+               "cosmology_obs": None,
+               "sats_per_prim_haloprop":
+                   efficient["sats_per_prim_haloprop"],
+               "downsample": efficient["downsample"]})),
+        ("wp clustered", lambda: tp.TabCorr.tabulate(
+            clustered, tp.corrfunc.wp, default["rp_wp_bins"],
+            default["pi_max"], **common)),
+    ]
+    tables, reports = {}, {}
+    launches = 0
+    dispatch = pc.paircount
+    pc.paircount = spy
+    try:
+        for label, run in runs:
+            ctx["reset"]()
+            t0 = time.perf_counter()
+            tables[label] = run()
+            t_end = time.perf_counter()
+            launched = ctx["expect"](f"tabulation {label}",
+                                     paircount=1)["paircount"]
+            launches += launched
+            rec = records[-1]
+            rec["mock_s"] = rec["t_call"] - t0
+            rec["estimator_s"] = t_end - rec["t_return"]
+            sweep = rec["sweep"]
+            kept = int((sweep.labels1 >= 0).sum())
+            print(f"tabulation {label}: {t_end - t0:.2f} s wall, "
+                  f"{launched} paircount launch; {len(sweep.pos1)} tracers "
+                  f"({kept} labeled), table {tables[label].tpcf_matrix.shape}")
+            if sweep.auto:
+                h = rec["hist"].reshape(sweep.n_labels_1, sweep.n_labels_1,
+                                        -1)
+                check(bool(torch.equal(h, h.transpose(0, 1))),
+                      f"{label}: auto counts not symmetric")
+                print(f"tabulation {label}: counts[a, b, r] == counts[b, "
+                      f"a, r] for all {h.numel()} cells")
+            reports[label] = tabulation_sweep_report(ctx, label, rec)
+            label_slices(ctx, label, sweep, rec["hist"])
+            if sweep.auto:
+                brute_force_check(ctx, label, sweep)
+    finally:
+        pc.paircount = dispatch
+
+    # ---- from tabulation to prediction ---------------------------------
+    mu_bins = default["mu_bins"]
+    parts = [tabcorr_s_mu_to_multipole(tables["s_mu"], mu_bins, order)
+             for order in (0, 2, 4)]
+    xi_ell = parts[0]
+    xi_ell.tpcf_matrix = np.concatenate([q.tpcf_matrix for q in parts])
+    xi_ell.tpcf_shape = (3, len(default["s_bins"]) - 1)
+    xi_ell.clear_caches()
+    wp_tab, ds_tab = tables["wp"], tables["ds"]
+    model = tp.Zheng07Model(threshold=-20, redshift=halocat.redshift)
+    params = bench_params(model, np.random.default_rng(SEED + 92), BATCH,
+                          "cuda")
+    accuracy = ("scaled", "scaled")
+    predict = tp.make_multi_predictor([wp_tab, xi_ell], model,
+                                      device="cuda", accuracy=accuracy)
+    ctx["reset"]()
+    outs = predict(params)
+    torch.cuda.synchronize()
+    ctx["expect"]("tabulated tables through B1", bundle=1)
+    record(kernels, "bundle", 1)
+    plain = tp.make_multi_predictor([wp_tab, xi_ell], model, device="cuda",
+                                    engine="plain", accuracy=accuracy)(
+                                        params)
+    (ngal, wp), (_, xi) = outs
+    check(bool(torch.isfinite(wp).all() and torch.isfinite(xi).all()),
+          "tabulated B1: non-finite")
+    ng_err = max(rel(outs[0][0], plain[0][0]), rel(outs[1][0], plain[1][0]))
+    wp_err, xi_err = scaled(wp, plain[0][1]), scaled(xi, plain[1][1])
+    print(f"tabulated wp ({wp_tab.n_bins} bins) + xi_ell ({xi_ell.n_bins} "
+          f"bins) through B1 ({BATCH} rows, zheng07 -20): kernel vs plain "
+          f"ngal {ng_err:.3e} (<= 1e-6), wp scaled {wp_err:.3e} (<= 2e-6), "
+          f"xi_ell scaled {xi_err:.3e} (<= 1e-6)")
+    check(ng_err <= 1e-6 and wp_err <= 2e-6 and xi_err <= 1e-6,
+          "tabulated B1 vs plain")
+    e_ng = e_wp = e_xi = e_wp_rel = 0.0
+    for i in range(N_PROBE):
+        m = host_model(model, params, i)
+        for tab, out, which in ((wp_tab, outs[0], "wp"),
+                                (xi_ell, outs[1], "xi")):
+            ng64, xi64 = tab.predict(m, check_consistency=False)
+            got = out[1][i].double().cpu().numpy().ravel()
+            want = np.ravel(xi64)
+            e_ng = max(e_ng, abs(float(out[0][i]) / ng64 - 1))
+            err = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+            if which == "wp":
+                e_wp = max(e_wp, err)
+                e_wp_rel = max(e_wp_rel,
+                               float(np.max(np.abs(got / want - 1))))
+            else:
+                e_xi = max(e_xi, err)
+    print(f"tabulated B1 vs float64 host at {N_PROBE} probes: ngal rel "
+          f"{e_ng:.3e} (<= 1e-6), wp scaled {e_wp:.3e} (<= 1e-6; per "
+          f"element {e_wp_rel:.3e}, not held: an unclustered catalog's wp "
+          f"crosses zero at large rp), xi_ell scaled {e_xi:.3e} (<= 1e-6)")
+    check(e_ng <= 1e-6 and e_wp <= 1e-6 and e_xi <= 1e-6,
+          "tabulated B1 vs float64")
+
+    predict_ds = tp.make_predictor(ds_tab, model, engine="fused",
+                                   device="cuda")
+    ctx["reset"]()
+    ng_ds, ds = predict_ds(params)
+    torch.cuda.synchronize()
+    got = ctx["expect"]("tabulated Delta Sigma, engine='fused'",
+                        contraction=1)
+    ran = [k for k, v in got.items() if v]
+    record(kernels, "contraction", 1)
+    e_ng = e_ds = 0.0
+    for i in range(N_PROBE):
+        ng64, ds64 = ds_tab.predict(host_model(model, params, i),
+                                    check_consistency=False)
+        e_ng = max(e_ng, abs(float(ng_ds[i]) / ng64 - 1))
+        e_ds = max(e_ds, float(np.max(np.abs(
+            ds[i].double().cpu().numpy().ravel() - np.ravel(ds64))) /
+            np.max(np.abs(ds64))))
+    print(f"tabulated Delta Sigma ({ds_tab.n_bins} bins, cross) through "
+          f"make_predictor(engine='fused'): kernel {ran}, vs float64 host "
+          f"at {N_PROBE} probes: ngal rel {e_ng:.3e} (<= 1e-6), Delta Sigma "
+          f"scaled {e_ds:.3e} (<= 1e-6)")
+    check(e_ng <= 1e-6 and e_ds <= 1e-6, "tabulated Delta Sigma vs float64")
+
+    wp_report = reports["wp"]
+    record(kernels, "paircount", launches, library_ms=None,
+           **{k: wp_report[k] for k in ("ms", "plain_ms", "max_abs_err",
+                                        "bound_ms", "bound_by")},
+           main_path_ms=sum(r["main_path_ms"] for r in reports.values()),
+           main_path_bound_ms=sum(r["main_path_bound_ms"]
+                                  for r in reports.values()))
+    print(f"tabulation phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

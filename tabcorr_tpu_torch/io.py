@@ -30,8 +30,14 @@ class ColumnTable:
     def __contains__(self, key):
         return key in self._cols
 
-    def __getitem__(self, key: str) -> np.ndarray:
-        return self._cols[key]
+    def __getitem__(self, key):
+        if isinstance(key, str):
+            return self._cols[key]
+        # Row selection with a mask or an index array: a new table.
+        out = ColumnTable()
+        for name, col in self._cols.items():
+            out._cols[name] = col[key]
+        return out
 
     def __setitem__(self, key, value):
         value = np.asarray(value)
@@ -91,6 +97,14 @@ class ColumnTable:
         """Read a structured dataset (written by astropy or tabcorr_tpu)
         from an open h5py group."""
         return cls.from_structured_array(group[path][()])
+
+
+def vstack(tables) -> ColumnTable:
+    """Stack tables with identical columns vertically."""
+    out = ColumnTable()
+    for name in tables[0].colnames:
+        out[name] = np.concatenate([t[name] for t in tables])
+    return out
 
 
 def read_attrs(group) -> dict:

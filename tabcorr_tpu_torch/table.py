@@ -1,4 +1,5 @@
-"""The ``TabCorr`` tabulation container: I/O, quadrature, prediction.
+"""The ``TabCorr`` tabulation container: tabulation, I/O, quadrature,
+prediction.
 
 Reads the reference's HDF5 schema (reference: tabcorr/tabcorr.py:374-463)
 and a numpy ``.npz`` copy of it (:meth:`TabCorr.write_npz`), which needs no
@@ -44,6 +45,22 @@ class TabCorr:
         self._quad_cache = {}
         self._dense_cache = None
         self._table_data_cache = {}
+
+    def clear_caches(self):
+        """Forget the derived data (after ``tpcf_matrix`` or ``gal_type``
+        is assigned anew)."""
+        self._quad_cache = {}
+        self._dense_cache = None
+        self._table_data_cache = {}
+
+    @classmethod
+    def tabulate(cls, halocat, tpcf, *tpcf_args, **kwargs):
+        """Tabulate correlation functions for a halo catalog: see
+        :func:`tabcorr_tpu_torch.tabulate.tabulate` (signature-compatible
+        with the reference, tabcorr/tabcorr.py:24-34; the pair counts run
+        on ``device``, 'cuda' by default)."""
+        from .tabulate import tabulate as _tabulate
+        return _tabulate(cls, halocat, tpcf, *tpcf_args, **kwargs)
 
     # ------------------------------------------------------------------
     # I/O

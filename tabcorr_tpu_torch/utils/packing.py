@@ -25,6 +25,19 @@ def packed_index_arrays(n: int) -> tuple[np.ndarray, np.ndarray]:
     return i[order].astype(np.int32), j[order].astype(np.int32)
 
 
+def symmetric_matrix_to_array(matrix: np.ndarray,
+                              check_symmetry: bool = True) -> np.ndarray:
+    """Pack a symmetric (n, n) matrix into its row-wise lower triangle, in
+    the reference's packing order (tabcorr/tabcorr.py:770-806)."""
+    if check_symmetry:
+        if matrix.ndim != 2 or matrix.shape[0] != matrix.shape[1]:
+            raise ValueError("The matrix you provided is not symmetric.")
+        if not np.all(matrix == np.swapaxes(matrix, -1, -2)):
+            raise ValueError("The matrix you provided is not symmetric.")
+    idx_i, idx_j = packed_index_arrays(matrix.shape[0])
+    return matrix[idx_i, idx_j]
+
+
 def array_to_symmetric_matrix(packed: np.ndarray) -> np.ndarray:
     """Unpack a row-wise lower-triangle array to a dense symmetric matrix.
 

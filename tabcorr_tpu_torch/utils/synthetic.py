@@ -15,12 +15,19 @@ log_eta) and xi_0/2/4 x 14 separation bins = 42 rows per node.
   2 x 2 = 160 halo bins: too wide for the packed grid layout (more than
   127 bins), so the fused engine runs the slab kernel.  Same draws, in
   the same order, with ``n_sec=2``.
+
+And the catalogs a tabulation runs on: :func:`synthetic_halocat`, the
+JAX package's benchmark-fixture catalog (``scripts/make_bench_fixture.py:
+27-52``) in a box of a chosen size, and :func:`synthetic_particles`,
+uniform dark-matter particles for Delta Sigma.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..cosmology import FlatFLRW
+from ..halocat import HaloCatalog, ParticleCatalog
 from ..interpolator import Interpolator
 from ..io import ColumnTable
 from ..table import TabCorr
@@ -108,3 +115,61 @@ def _default_grid(n_nodes, n_prim, n_sec, n_xi, seed):
     table["alpha_s"] = as_.ravel()
     table["log_eta"] = le.ravel()
     return Interpolator(tabs, table)
+
+
+# The Gaussian offset of a clustered catalog's hosts from their centres
+# [Mpc/h]: a few virial radii of a group.
+CLUMP_RADIUS = 3.0
+
+
+def synthetic_halocat(n_halos=200_000, lbox=250.0, seed=20,
+                      particle_mass=5e8, redshift=0.25, clumps=0):
+    """Host halos with the bench fixture's mass function, 10^(11.5 + 3
+    u^2) for u uniform, uniform positions, 300 km/s Gaussian velocities,
+    r_vir = 0.3 (M / 1e13)^(1/3) Mpc/h and NFW concentrations 9 (M /
+    1e13)^-0.1 with 0.3 dex-e scatter, clipped to [2, 25], in a periodic
+    box of ``lbox`` Mpc/h; FlatFLRW(70, 0.3).  The draws come in
+    ``scripts/make_bench_fixture.py``'s order (its defaults: 40,000 halos,
+    400 Mpc/h, seed 20).  250 Mpc/h is Bolshoi-Planck's box.
+
+    ``clumps`` > 0 makes a clustered catalog of the same halos: each host
+    is moved to one of ``clumps`` uniform centres (drawn after everything
+    above, with its own draws), offset by a Gaussian of CLUMP_RADIUS
+    Mpc/h a coordinate and wrapped into the box."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(0, 1, n_halos)
+    mass = 10.0 ** (11.5 + 3.0 * u**2)
+    table = {
+        "halo_x": rng.uniform(0, lbox, n_halos),
+        "halo_y": rng.uniform(0, lbox, n_halos),
+        "halo_z": rng.uniform(0, lbox, n_halos),
+        "halo_vx": 300 * rng.normal(size=n_halos),
+        "halo_vy": 300 * rng.normal(size=n_halos),
+        "halo_vz": 300 * rng.normal(size=n_halos),
+        "halo_mvir": mass,
+        "halo_rvir": 0.3 * (mass / 1e13) ** (1.0 / 3.0),
+        "halo_nfw_conc": np.clip(
+            9 * (mass / 1e13) ** -0.1 *
+            np.exp(0.3 * rng.normal(size=n_halos)), 2.0, 25.0),
+        "halo_upid": np.full(n_halos, -1, dtype=np.int64),
+    }
+    if clumps:
+        centres = rng.uniform(0, lbox, (clumps, 3))
+        which = rng.integers(clumps, size=n_halos)
+        xyz = np.mod(centres[which] +
+                     CLUMP_RADIUS * rng.normal(size=(n_halos, 3)), lbox)
+        for k, axis in enumerate("xyz"):
+            table[f"halo_{axis}"] = xyz[:, k]
+    cosmology = FlatFLRW(H0=70, Om0=0.3, Tcmb0=0, Neff=0)
+    return HaloCatalog(table, Lbox=lbox, particle_mass=particle_mass,
+                       redshift=redshift, cosmology=cosmology,
+                       simname="bench_synthetic")
+
+
+def synthetic_particles(n_particles, halocat, seed=21):
+    """``n_particles`` uniform particles in ``halocat``'s box, standing for
+    a subsample of its simulation's particles (one particle mass each)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, 1, (n_particles, 3)) * halocat.Lbox
+    return ParticleCatalog(pos[:, 0], pos[:, 1], pos[:, 2], halocat.Lbox,
+                           halocat.particle_mass, halocat.redshift)

@@ -45,7 +45,9 @@ def test_scan_sees_the_whole_package():
             "assembias.py", "chip_smoke.py", "leauthaud11.py",
             "zu_mandelbaum15.py", "cacciato09.py", "tinker13.py",
             "functional.py", "nonparametric.py", "inversion.py",
-            "special.py", "backend.py"} <= names
+            "special.py", "backend.py", "paircount.py", "multipole.py",
+            "tabulate.py", "mock.py", "halocat.py", "cosmology.py",
+            "database.py", "corrfunc.py"} <= names
 
 
 def test_port_imports_with_jax_blocked():
@@ -65,6 +67,12 @@ def test_port_imports_with_jax_blocked():
             "import tabcorr_tpu_torch.models.nonparametric\n"
             "import tabcorr_tpu_torch.utils.inversion\n"
             "import tabcorr_tpu_torch.utils.special\n"
+            "import tabcorr_tpu_torch.ops.paircount\n"
+            "import tabcorr_tpu_torch.ops.multipole\n"
+            "import tabcorr_tpu_torch.tabulate, tabcorr_tpu_torch.mock\n"
+            "import tabcorr_tpu_torch.halocat, tabcorr_tpu_torch.cosmology\n"
+            "import tabcorr_tpu_torch.database, tabcorr_tpu_torch.corrfunc\n"
+            "assert 'h5py' not in sys.modules\n"
             "from tabcorr_tpu_torch.utils.build import load_library\n"
             "assert load_library.cache_info().currsize == 0\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
