@@ -87,10 +87,15 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    j-tracer); full-size auto counts must be symmetric, and 5,000 tracers
    are held against float64 binning cell by cell (a cell may differ only
    by the pairs that four float32 ulp would move into it).  Printed: the
-   kernel's ms, candidate pairs and their rate, kept pairs, the bound
-   (``bound_ops``: what the function needs over the z-window's
-   candidates, at 33.5 T lane-ops/s) and the share, the plain version's
-   ms on the subsample, the stages' wall time.  Then the tables of
+   layout (cells, neighbour cells, label groups, tiles); three pair
+   counts -- within the z cut (no layout read), the kernel's candidates
+   (its own count, held equal to its layout's runs) and the kept pairs;
+   the kernel's ms by CUDA events around its launch and the wall time
+   with the wrapper's checks; the kept-pair bound (every kept pair's
+   geometry and bin, ``bound_ops``, at 33.5 T lane-ops/s) and the
+   z-slab bound (``bound_ops`` over every pair within the z cut, the
+   enumeration of a layout without xy cells), each with its share; the plain
+   version's ms on the subsample, the stages' wall time.  Then the tables of
    (a)-(c) predict: wp + xi_ell through ``make_multi_predictor`` (B1,
    262,144 rows, 'scaled'), Delta Sigma through
    ``make_predictor(engine="fused")`` (B3), each against the float64
@@ -2059,22 +2064,23 @@ PEAK_LANE_OPS = 33.5e12
 
 def bound_ops(sweep):
     """Lane operations (FP32 and integer alike) the sweep needs, counted
-    for the function over the z-window's candidate pairs, not as
-    tabcorr_tpu's ``_tile_geometry`` writes it (a compare and an add for
-    every edge on every pair).  Returns (a, b, c): a for every candidate,
-    b more for a candidate within pi_max (rppi), c more for a kept pair.
+    for the function, not as tabcorr_tpu's ``_tile_geometry`` writes it
+    (a compare and an add for every edge on every pair).  Returns (a, b,
+    c): a for every pair a layout evaluates, b more for a pair within
+    pi_max (rppi), c more for a kept pair.  A kept pair needs all three,
+    whatever enumerates it.
 
     An axis costs 3: the difference and the minimum image as a compare
-    and a conditional subtract.  Every candidate: the self test (auto, 1)
-    and its rejection path -- rppi: the z axis and |dz| < pi_max (4),
-    then, within pi_max, x, y, rp^2 (two products, a sum) and its two
-    range tests (11); smu: three axes, rp^2, s^2 (a product, a sum) and
-    its two range tests (16); proj: x, y, rp^2 and its range tests (11).
-    A kept pair: its radial bin by a branch-free binary search over the
-    edges (a compare and a select a halving); for smu also the root, the
-    guarded division (2), the mu search, its clip (2) and the flat
-    sub-bin; then the cell's address and one add a channel, and ln(rp)
-    for a log_rp channel (the clamp, the log, two products)."""
+    and a conditional subtract.  Every pair: the self test (auto, 1) and
+    its rejection path -- rppi: the z axis and |dz| < pi_max (4), then,
+    within pi_max, x, y, rp^2 (two products, a sum) and its two range
+    tests (11); smu: three axes, rp^2, s^2 (a product, a sum) and its two
+    range tests (16); proj: x, y, rp^2 and its range tests (11).  A kept
+    pair: its radial bin by a branch-free binary search over the edges (a
+    compare and a select a halving); for smu also the root, the guarded
+    division (2), the mu search, its clip (2) and the flat sub-bin; then
+    the cell's address and one add a channel, and ln(rp) for a log_rp
+    channel (the clamp, the log, two products)."""
     def search(n_edges):
         return 2 * math.ceil(math.log2(n_edges + 1))
 
@@ -2089,22 +2095,25 @@ def bound_ops(sweep):
     return a, b, c
 
 
-def within_pi_max(sweep, layout):
-    """rppi: the candidate pairs with |dz| < pi_max (periodic, counted in
-    float64 on the layout's z).  Every ordered pair of distinct labeled
-    tracers that close in z is a candidate of the z-window."""
-    if sweep.kind != "rppi":
-        return 0
-    if sweep.z_cut is None:     # 2 pi_max >= period_z: all of them
-        return layout.candidates
+def z_slab_pairs(sweep, cut):
+    """The ordered pairs of labeled tracers (distinct, in auto mode) whose
+    periodic |dz| lies below ``cut`` (every pair where cut is None or
+    spans half the period), counted in float64 on the sweep's own
+    tracers: no layout is read, so the count does not move with the
+    enumeration."""
     import torch
+    pos2, labels2, _ = sweep.j_side()
+    z1 = sweep.pos1[sweep.labels1 >= 0, 2].double()
+    z2 = pos2[labels2 >= 0, 2].double()
+    n_self = len(z1) if sweep.auto else 0
     pz = sweep.period[2]
-    z1 = layout.pos1[:, 2].double()
-    z2 = torch.sort(layout.pos2[:, 2].double()).values
+    if cut is None or 2 * cut >= pz:
+        return len(z1) * len(z2) - n_self
+    z2 = torch.sort(z2).values
     zz = torch.cat([z2 - pz, z2, z2 + pz])
-    n = (torch.searchsorted(zz, z1 + sweep.pi_max) -
-         torch.searchsorted(zz, z1 - sweep.pi_max, right=True)).sum()
-    return int(n) - (len(z1) if sweep.auto else 0)
+    n = (torch.searchsorted(zz, z1 + cut) -
+         torch.searchsorted(zz, z1 - cut, right=True)).sum()
+    return int(n) - n_self
 
 
 def valid_pairs(sweep, hist):
@@ -2116,22 +2125,37 @@ def valid_pairs(sweep, hist):
     return int(hist[:sweep.n_hist].sum())
 
 
-def paircount_bound(sweep, layout, valid):
-    """The least time for a sweep: :func:`bound_ops` over its candidates,
-    those within pi_max and its kept pairs, at PEAK_LANE_OPS, against the
-    bytes (each tracer's 16-byte record and label read once, the
-    histogram written once); returns (bound dict, ops, bytes)."""
+def paircount_bounds(sweep, kept):
+    """The least time for a sweep, two ways, each the larger of its
+    operations at PEAK_LANE_OPS and its bytes (each tracer's 16-byte
+    record and label read once, the histogram written once) at
+    PEAK_HBM_BYTES:
+
+    * the kept-pair bound: every kept pair's whole geometry and bin, (a +
+      b + c) of :func:`bound_ops`, whatever layout enumerates it;
+    * the z-slab bound, over the z-slab's pairs: a for each pair within
+      the z cut (:func:`z_slab_pairs`; every pair for 'proj'), b more
+      within pi_max, c more a kept pair -- what the function needs over
+      the z-window enumeration of a layout without xy cells (tiles of one
+      label sorted in z).
+
+    Returns (kept-pair bound dict, z-slab bound ms, counts dict)."""
     a, b, c = bound_ops(sweep)
-    ops = (a * layout.candidates + b * within_pi_max(sweep, layout) +
-           c * valid)
+    slab = z_slab_pairs(sweep, sweep.z_cut)
+    within = z_slab_pairs(sweep, sweep.pi_max) if sweep.kind == "rppi" \
+        else 0
     n2 = 0 if sweep.auto else len(sweep.pos2)
     n_bytes = (20 * (len(sweep.pos1) + n2) +
                8 * sweep.n_channels * sweep.n_hist)
-    ops_ms = ops / PEAK_LANE_OPS * 1e3
     bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
+    kept_ops = kept * (a + b + c)
+    ops_ms = kept_ops / PEAK_LANE_OPS * 1e3
+    slab_ops = a * slab + b * within + c * kept
     return ({"bound_ms": max(ops_ms, bytes_ms),
              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"},
-            ops, n_bytes)
+            max(slab_ops / PEAK_LANE_OPS * 1e3, bytes_ms),
+            dict(slab=slab, within=within, kept_ops=kept_ops,
+                 slab_ops=slab_ops, n_bytes=n_bytes, a=a, b=b, c=c))
 
 
 def subsample(ctx, sweep, n, seed):
@@ -2302,33 +2326,45 @@ def brute_force_check(ctx, label, sweep):
 def tabulation_sweep_report(ctx, label, rec):
     """Print one sweep's numbers and hold the kernel against its plain
     version on a TAB_SUBSAMPLE subsample; returns the subsample's kernel
-    and plain ms, its bound and its error, and the main path's kernel ms
-    and bound."""
+    and plain ms, its kept-pair bound and its error, and the main path's
+    kernel ms and kept-pair bound."""
     torch, pc = ctx["torch"], ctx["paircount"]
     sweep, layout = rec["sweep"], rec["layout"]
-    kernel_ms = rec["sweep_s"] * 1e3
-    valid = valid_pairs(sweep, rec["hist"])
-    near = within_pi_max(sweep, layout)
-    b, ops, n_bytes = paircount_bound(sweep, layout, valid)
-    a, bz, c = bound_ops(sweep)
+    kernel_ms = rec["kernel_ms"]
+    kept = valid_pairs(sweep, rec["hist"])
+    candidates = rec["visited"]
+    counted = pc.candidate_count(sweep, layout)
+    check(candidates == counted, f"{label}: the kernel evaluated "
+          f"{candidates} pairs, its layout's runs hold {counted}")
+    b, slab_ms, n = paircount_bounds(sweep, kept)
+    within = f" + {n['within']} x {n['b']}" if n["b"] else ""
     print(f"tabulation {label}: {len(sweep.pos1)} i-tracers x "
           f"{len(sweep.pos1 if sweep.auto else sweep.pos2)} j-tracers, "
           f"{sweep.n_labels_1} x {sweep.n_labels_2} labels, kind "
           f"{sweep.kind}, {sweep.pair_weight}"
           f"{'' if sweep.unit_counts else ' (weighted)'}, z window "
-          f"{sweep.z_cut}, {layout.n_tiles} tiles")
-    print(f"tabulation {label}: paircount kernel {kernel_ms:.2f} ms "
-          f"(with the wrapper's input checks; layout "
-          f"{rec['layout_s'] * 1e3:.2f} ms), 1 launch; "
-          f"{layout.candidates} candidate pairs "
-          f"({layout.candidates / rec['sweep_s']:.4g}/s)"
-          f"{f', {near} within pi_max' if sweep.kind == 'rppi' else ''}, "
-          f"{valid} kept ({valid / layout.candidates:.3f}); bound "
-          f"{b['bound_ms']:.2f} ms ({b['bound_by']}: {ops:.4g} ops = {a} a "
-          f"candidate{f' + {bz} within pi_max' if bz else ''} + {c} a kept "
-          f"pair, at 33.5 T lane-ops/s, over the z-window's candidates; "
-          f"{n_bytes / 1e6:.1f} MB), share {b['bound_ms'] / kernel_ms:.3f} "
-          f"on {ctx['card']}")
+          f"{sweep.z_cut}; {layout.cells[0]} x {layout.cells[1]} cells, "
+          f"{len(layout.neighbours)} neighbour cells a tile, "
+          f"{len(layout.group_start) - 1} label groups of <= "
+          f"{layout.group_rows}, {layout.n_tiles} tiles "
+          f"({len(layout.pos1) / layout.n_tiles:.1f} tracers a tile)")
+    print(f"tabulation {label}: pairs within the z cut {n['slab']} "
+          f"(independent of the enumeration), kernel candidates "
+          f"{candidates} ({n['slab'] / max(candidates, 1):.3f}x fewer; "
+          f"the layout's runs hold as many), kept {kept} "
+          f"({kept / max(candidates, 1):.3f} of the candidates)")
+    print(f"tabulation {label}: paircount kernel {kernel_ms:.2f} ms (CUDA "
+          f"events around the launch; {rec['sweep_s'] * 1e3:.2f} ms wall "
+          f"with the wrapper's input checks, layout "
+          f"{rec['layout_s'] * 1e3:.2f} ms), 1 launch, "
+          f"{candidates / kernel_ms * 1e3:.4g} candidates/s; kept-pair "
+          f"bound {b['bound_ms']:.2f} ms ({b['bound_by']}: {kept} x "
+          f"{n['a'] + n['b'] + n['c']} ops at 33.5 T lane-ops/s; "
+          f"{n['n_bytes'] / 1e6:.1f} MB), share "
+          f"{b['bound_ms'] / kernel_ms:.4f}; the z-slab bound (over the "
+          f"z-slab's pairs) {slab_ms:.2f} ms ({n['slab']} x {n['a']}{within} + "
+          f"{kept} x {n['c']} ops), share {slab_ms / kernel_ms:.4f} on "
+          f"{ctx['card']}")
     print(f"tabulation {label}: stages (s) " + ", ".join(
         f"{k} {rec[k + '_s']:.3f}"
         for k in ("mock", "layout", "sweep", "estimator")) +
@@ -2350,10 +2386,11 @@ def tabulation_sweep_report(ctx, label, rec):
     k_ms, p_ms, _, _ = ctx["alternate"](
         lambda: pc.paircount_launch(sub, layout=sub_layout),
         lambda: pc.paircount_plain(sub), 5, 1, rounds=1)
-    sb, _, _ = paircount_bound(sub, sub_layout, valid_pairs(sub, want))
+    sb, _, _ = paircount_bounds(sub, valid_pairs(sub, want))
     print(f"tabulation {label}: subsample kernel {k_ms:.3f} ms, plain "
-          f"PyTorch {p_ms:.1f} ms, bound {sb['bound_ms']:.3f} ms "
-          f"({sub_layout.candidates} candidates) on {ctx['card']}")
+          f"PyTorch {p_ms:.1f} ms, kept-pair bound {sb['bound_ms']:.3f} ms "
+          f"({pc.candidate_count(sub, sub_layout)} candidates) on "
+          f"{ctx['card']}")
     max_abs_err = float((got.double() - want.double()).abs().max())
     return dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max_abs_err, **sb,
                 main_path_ms=kernel_ms, main_path_bound_ms=b["bound_ms"])
@@ -2381,16 +2418,23 @@ def tabulation_phase(ctx, kernels):
     def spy(sweep):
         """The tabulation's sweep, as ``paircount`` runs it on the card,
         timed by stage on the host clock (synchronized): the layout, then
-        the launch; recorded with its inputs, layout and histogram."""
+        the launch with its input checks; the kernel alone by CUDA events;
+        recorded with its inputs, layout, histogram and the pairs the
+        kernel evaluated."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         layout = pc.bucket_layout(sweep)
+        visited = torch.zeros(1, dtype=torch.int64, device=sweep.device)
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        hist = pc.paircount_launch(sweep, layout)
+        hist = pc.paircount_launch(sweep, layout, visited, events)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         records.append(dict(sweep=sweep, hist=hist, layout=layout,
+                            visited=int(visited),
+                            kernel_ms=events[0].elapsed_time(events[1]),
                             t_call=t0, layout_s=t1 - t0, sweep_s=t2 - t1,
                             t_return=t2))
         return hist

@@ -15,9 +15,10 @@ with channels ``unit`` / ``log_rp`` / ``unit+log_rp``.  It hands a
 :class:`Sweep` to :func:`paircount`, which runs
 
 * :func:`paircount_launch`, the CUDA kernel (``csrc/paircount.cu``), for
-  tensors on the card: the tracers bucketed by label and z on the card
-  (:func:`bucket_layout`), one block per (tile of one label_1, label_2
-  bucket) over the tile's z-window; or
+  tensors on the card, over the cell-list layout built on the card
+  (:func:`bucket_layout`): one block per (spatially compact tile of
+  i-tracers of mixed labels, label_2), scanning that label's xy cell
+  columns around the tile within its z-window (:func:`pair_runs`); or
 * :func:`paircount_plain`, its plain version in tensor ops, for tensors on
   the CPU: tabcorr_tpu's sweep -- tracers sorted in z, chunks of 1024,
   each i-chunk against the circular run of j-chunks within the
@@ -461,31 +462,67 @@ def paircount_plain(sweep: Sweep) -> torch.Tensor:
 # ----------------------------------------------------------------------
 # The CUDA kernel: layout, wrapper
 # ----------------------------------------------------------------------
+# xy cells per axis: the period over (the largest radial edge /
+# CELLS_PER_REACH), rounded down, at most MAX_AXIS_CELLS; fewer where the
+# (label_2, cell) columns would pass MAX_COLUMNS or a tile's neighbour
+# cells MAX_NEIGHBOURS (csrc/paircount.cu kMaxNeighbours).
+CELLS_PER_REACH = 4
+MAX_AXIS_CELLS = 128
+MAX_COLUMNS = 2 ** 24
+MAX_NEIGHBOURS = 128
+# Shared memory for a block's label-group histogram (a block has 227 KB
+# on an H100), and the most that the private float64 rows of a weighted
+# sweep's block may take.
+HIST_BYTES = 40 * 1024
+PRIVATE_ROWS_BYTES = 64 * 1024
+# (tile, label_2, neighbour) columns one step of pair_runs searches.
+_RUN_CHUNK = 2 ** 21
+
+
 @dataclasses.dataclass(frozen=True)
 class PairLayout:
-    """The kernel's inputs, built on the card by :func:`bucket_layout`.
+    """The kernel's inputs, built on the sweep's device by
+    :func:`bucket_layout`; labels below 0 dropped on both sides.
 
-    ``pos1`` / ``pos2``: (N, 4) float32 (x, y, z, weight), labels below 0
-    dropped, sorted by (label, z) (in auto mode one tensor); ``offsets1``
-    / ``offsets2``: (n_labels + 1,) int64 bucket starts; ``tile_label``,
-    ``tile_start``, ``tile_count``: (n_tiles,) int32, tiles of at most
-    ``TILE`` i-tracers of one label; ``runs``: (n_tiles, n_labels_2, 4)
-    int32, the j-runs [a0, b0) and [a1, b1) each block scans;
-    ``candidates``: the pairs the kernel will evaluate."""
+    i-side, sorted by (label group, xy cell, z): ``pos1`` (N1, 4) float32
+    (x, y, z, 0), ``labels1`` and ``index1`` (each tracer's index in the
+    sweep) (N1,) int32; tiles of at most ``TILE`` i-tracers of one (group,
+    cell), ``tile_start``, ``tile_count``, ``tile_group``, ``tile_cell``
+    (n_tiles,) int32; ``group_start`` (n_groups + 1,) int32, the first
+    label_1 of each group (a run of consecutive labels), ``group_rows``
+    the most labels a group holds.
+
+    j-side, sorted by (label_2, xy cell, z): ``pos2`` (N2, 4) float32 (x,
+    y, z, weight), ``index2`` (N2,) int32; ``columns`` (n_labels_2 *
+    n_cells + 1,) int32, the start of each (label_2, cell) column.
+
+    ``cells``: (n_x, n_y) cells per axis, a cell's index ``cx * n_y +
+    cy``; ``neighbours`` (n_nb, 2) int32: the cell offsets (rx, ry), each
+    a residue of its axis, that a tile scans; ``reach_z`` (n_nb,) float64:
+    each offset's z reach (-1: whole columns, the sweep has no window).
+    ``private_rows``: a weighted sweep whose threads each add into a
+    private float64 row (one group of every label)."""
 
     pos1: torch.Tensor
-    offsets1: torch.Tensor
-    pos2: torch.Tensor
-    offsets2: torch.Tensor
-    tile_label: torch.Tensor
+    labels1: torch.Tensor
+    index1: torch.Tensor
     tile_start: torch.Tensor
     tile_count: torch.Tensor
-    runs: torch.Tensor
-    candidates: int
+    tile_group: torch.Tensor
+    tile_cell: torch.Tensor
+    group_start: torch.Tensor
+    group_rows: int
+    pos2: torch.Tensor
+    index2: torch.Tensor
+    columns: torch.Tensor
+    cells: tuple
+    neighbours: torch.Tensor
+    reach_z: torch.Tensor
+    private_rows: bool
 
     @property
     def n_tiles(self):
-        return len(self.tile_label)
+        return len(self.tile_start)
 
 
 def wrap_thresholds(period):
@@ -503,98 +540,242 @@ def wrap_thresholds(period):
     return tuple(out)
 
 
-def _bucket(pos, labels, weights, n_labels):
-    keep = labels >= 0
-    pos, labels = pos[keep], labels[keep]
-    w = (torch.ones(len(pos), dtype=torch.float32, device=pos.device)
-         if weights is None else weights[keep])
-    order = torch.argsort(pos[:, 2], stable=True)
-    order = order[torch.argsort(labels[order], stable=True)]
-    packed = torch.cat([pos[order], w[order, None]], dim=1).contiguous()
-    counts = torch.bincount(labels.long(), minlength=n_labels)
-    offsets = torch.zeros(n_labels + 1, dtype=torch.int64,
-                          device=pos.device)
-    offsets[1:] = torch.cumsum(counts, 0)
-    return packed, labels[order], offsets
+def _margin(period):
+    """tabcorr_tpu's float32 safety margin on a distance cut."""
+    return 1e-3 + 1e-6 * period
+
+
+def cell_grid(sweep: Sweep):
+    """The xy cells per axis and the cell offsets a tile scans.
+
+    A kept pair lies within the largest radial edge in projection (rp <=
+    s for 'smu').  An offset (rx, ry) is a residue of each axis, so a
+    wrapped offset never names a cell twice however few cells an axis
+    has; it is kept when the least periodic gap between two cells that far
+    apart -- ``max(m - 1, 0) * side`` per axis, m the circular distance in
+    cells -- is within that edge (plus the margin) in quadrature: a lower
+    bound of every minimum-image separation between the two cells, so
+    no offset within reach is dropped however the reach compares with the
+    period.  Returns ((n_x, n_y), offsets (n_nb, 2) int64, gaps (n_nb,)
+    float64)."""
+    r_max = float(np.sqrt(np.float64(sweep.edges_sq[-1])))
+    reach = r_max + _margin(max(sweep.period[:2]))
+    n = [MAX_AXIS_CELLS if r_max <= 0 else
+         int(min(MAX_AXIS_CELLS, max(1.0, np.floor(p * CELLS_PER_REACH /
+                                                    r_max))))
+         for p in sweep.period[:2]]
+    while True:
+        gap = []
+        for p, n_a in zip(sweep.period[:2], n):
+            r = np.arange(n_a)
+            gap.append(np.maximum(np.minimum(r, n_a - r) - 1, 0) * (p / n_a))
+        gap_sq = gap[0][:, None] ** 2 + gap[1][None, :] ** 2
+        rx, ry = np.nonzero(gap_sq <= reach ** 2)
+        if n == [1, 1] or (len(rx) <= MAX_NEIGHBOURS and
+                           sweep.n_labels_2 * n[0] * n[1] <= MAX_COLUMNS):
+            return (tuple(n), np.stack([rx, ry], axis=1),
+                    np.sqrt(gap_sq[rx, ry]))
+        n = [max(1, n_a * 3 // 4) for n_a in n]
+
+
+def _z_reach(sweep: Sweep, gaps):
+    """Each offset's z reach: the line-of-sight cut plus the margin
+    ('rppi'); for 'smu' the sphere's half-chord at the offset's least xy
+    gap, sqrt((s_max + m)^2 - gap^2) + m; -1 where the sweep has no
+    window."""
+    if sweep.z_cut is None:
+        return np.full(len(gaps), -1.0)
+    m = _margin(sweep.period[2])
+    if sweep.kind == "smu":
+        s = max(sweep.z_cut, float(np.sqrt(np.float64(sweep.edges_sq[-1]))))
+        return np.sqrt(np.maximum((s + m) ** 2 - gaps ** 2, 0.0)) + m
+    return np.full(len(gaps), sweep.z_cut + m)
+
+
+def _sorted(key, z):
+    """The order by (key, z), or by key alone where z is None."""
+    if z is None:
+        return torch.argsort(key, stable=True)
+    order = torch.argsort(z, stable=True)
+    return order[torch.argsort(key[order], stable=True)]
+
+
+def _starts(key, n_keys):
+    """(n_keys + 1,) int64 starts of each key's run in a sorted order."""
+    starts = torch.zeros(n_keys + 1, dtype=torch.int64, device=key.device)
+    starts[1:] = torch.cumsum(torch.bincount(key, minlength=n_keys), 0)
+    return starts
 
 
 def bucket_layout(sweep: Sweep) -> PairLayout:
-    """Bucket the tracers by label, sorted in z inside each bucket, cut the
-    i-buckets into tiles and find each (tile, j-bucket) block's j-runs:
-    the j-tracers of the bucket within ``z_cut`` (plus tabcorr_tpu's
-    float32 margin) of the tile's z range across the periodic boundary,
-    at most two runs of the bucket, or the whole bucket where the sweep
-    has no window or the window spans the period.  Tensor ops on the
-    sweep's device."""
+    """The kernel's layout (tensor ops on the sweep's device).
+
+    j-side: one cell list per label_2, its tracers sorted by (xy cell, z)
+    (by cell alone where the sweep has no z window).  i-side: spatially
+    compact tiles that mix labels: the tracers sorted by (label group,
+    cell, z) and cut into tiles of at most ``TILE`` within one (group,
+    cell).  A label group is a run of consecutive labels_1 whose block
+    histogram (rows x n_channels x n_hist_r cells of 4 or 8 bytes) fits
+    HIST_BYTES; a weighted sweep whose 256 private float64 rows fit
+    PRIVATE_ROWS_BYTES takes one group of every label (the kernel's
+    float64 shared atomics are compare-and-swap loops; private rows need
+    none).  Each block (tile, label_2) then scans the columns of
+    its label_2 in the cells of :func:`cell_grid` around its tile's cell,
+    each over the tile's z range widened by the offset's z reach
+    (:func:`pair_runs`)."""
     dev = sweep.device
     n_l1, n_l2 = sweep.n_labels_1, sweep.n_labels_2
+    (n_x, n_y), offsets, gaps = cell_grid(sweep)
+    n_cells = n_x * n_y
+    windowed = sweep.z_cut is not None
+    row_cells = sweep.n_channels * sweep.n_hist_r
+    private = (not sweep.unit_counts and
+               TILE * (row_cells | 1) * 8 <= PRIVATE_ROWS_BYTES)
+    row_bytes = row_cells * (4 if sweep.unit_counts else 8)
+    n_groups = 1 if private else -(-n_l1 // max(1, HIST_BYTES // row_bytes))
+    rows = -(-n_l1 // n_groups)
+    n_groups = -(-n_l1 // rows)
+    scale = torch.tensor([n_x / sweep.period[0], n_y / sweep.period[1]],
+                         dtype=torch.float32, device=dev)
+    last = torch.tensor([n_x - 1, n_y - 1], device=dev)
+
+    def side(pos, labels, weights, label_key):
+        """Drop labels below 0; sort by (label_key * n_cells + cell, z)."""
+        keep = labels >= 0
+        index = torch.nonzero(keep).flatten()
+        pos, labels = pos[keep], labels[keep].long()
+        cxy = torch.minimum(torch.floor(pos[:, :2] * scale).long(), last)
+        key = label_key(labels) * n_cells + cxy[:, 0] * n_y + cxy[:, 1]
+        order = _sorted(key, pos[:, 2] if windowed else None)
+        w = (torch.zeros(len(pos), dtype=torch.float32, device=dev)
+             if weights is None else weights[keep][order])
+        packed = torch.cat([pos[order], w[:, None]], dim=1).contiguous()
+        return (packed, labels[order].int(), index[order].int(),
+                key[order])
+
     pos2, labels2, w2 = sweep.j_side()
-    pos1, lab1s, off1 = _bucket(sweep.pos1, sweep.labels1,
-                                sweep.weights2 if sweep.auto else None,
-                                n_l1)
-    if sweep.auto:
-        pos2, lab2s, off2 = pos1, lab1s, off1
-    else:
-        pos2, lab2s, off2 = _bucket(pos2, labels2, sweep.weights2, n_l2)
-    counts1 = off1[1:] - off1[:-1]
-    tiles_per = (counts1 + TILE - 1) // TILE
-    tile_label = torch.repeat_interleave(
-        torch.arange(n_l1, device=dev), tiles_per)
-    first_tile = torch.cumsum(tiles_per, 0) - tiles_per
-    k = torch.arange(len(tile_label), device=dev) - first_tile[tile_label]
-    tile_start = off1[tile_label] + TILE * k
-    tile_count = torch.minimum(off1[tile_label + 1] - tile_start,
+    pos2, _, index2, key2 = side(pos2, labels2, w2, lambda lab: lab)
+    columns = _starts(key2, n_l2 * n_cells)
+    pos1, labels1, index1, key1 = side(sweep.pos1, sweep.labels1, None,
+                                       lambda lab: lab // rows)
+    col1 = _starts(key1, n_groups * n_cells)
+    counts = col1.diff()
+    tiles_per = (counts + TILE - 1) // TILE
+    tile_col = torch.repeat_interleave(
+        torch.arange(len(counts), device=dev), tiles_per)
+    first = torch.cumsum(tiles_per, 0) - tiles_per
+    k = torch.arange(len(tile_col), device=dev) - first[tile_col]
+    tile_start = col1[tile_col] + TILE * k
+    tile_count = torch.minimum(col1[tile_col + 1] - tile_start,
                                torch.full_like(tile_start, TILE))
-    n_tiles = len(tile_label)
-
-    lo2, hi2 = off2[:-1], off2[1:]
-    runs = torch.zeros((n_tiles, n_l2, 4), dtype=torch.int64, device=dev)
-    runs[:, :, 0] = lo2
-    runs[:, :, 1] = hi2
-    if sweep.z_cut is not None and n_tiles:
-        pz = float(sweep.period[2])
-        zc = sweep.z_cut + 1e-3 + 1e-6 * pz
-        # The tile's z range (sorted in z within its label), widened.
-        lo = pos1[tile_start, 2].double() - zc
-        hi = pos1[tile_start + tile_count - 1, 2].double() + zc
-        full = (hi - lo) >= pz
-        wrap_lo = lo <= 0
-        wrap_hi = ~wrap_lo & (hi >= pz)
-        wraps = wrap_lo | wrap_hi
-        # Two closed z intervals [u0, v0] and [u1, v1] per tile; [u1, v1]
-        # is empty (v1 < u1) where the window does not wrap.
-        u0 = torch.where(wrap_lo, lo + pz, lo)
-        v0 = torch.where(wraps, torch.full_like(lo, pz + 1), hi)
-        u1 = torch.where(wraps, torch.full_like(lo, -1.0),
-                         torch.full_like(lo, 1.0))
-        v1 = torch.where(wrap_lo, hi, torch.where(wrap_hi, hi - pz,
-                                                  torch.zeros_like(lo)))
-        # One sorted key over all buckets: label * span + z.
-        span = 4.0 * pz + 4.0
-        key = lab2s.double() * span + pos2[:, 2].double()
-        base = torch.arange(n_l2, device=dev, dtype=torch.float64) * span
-
-        def search(bound, right):
-            q = base[None, :] + bound[:, None]
-            return torch.searchsorted(key, q.contiguous(), right=right)
-
-        a0, b0 = search(u0, False), search(v0, True)
-        a1, b1 = search(u1, False), search(v1, True)
-        b1 = torch.where((v1 >= u1)[:, None], torch.minimum(b1, a0), a1)
-        windowed = (~full)[:, None]
-        runs[:, :, 0] = torch.where(windowed, a0, lo2[None, :])
-        runs[:, :, 1] = torch.where(windowed, b0, hi2[None, :])
-        runs[:, :, 2] = torch.where(windowed, a1, 0)
-        runs[:, :, 3] = torch.where(windowed, b1, 0)
-    lengths = runs[:, :, 1] - runs[:, :, 0] + runs[:, :, 3] - runs[:, :, 2]
-    candidates = int((tile_count[:, None] * lengths).sum()) if n_tiles \
-        else 0
+    group_start = torch.tensor(list(range(0, n_l1, rows)) + [n_l1],
+                               dtype=torch.int32, device=dev)
     i32 = torch.int32
-    return PairLayout(pos1=pos1, offsets1=off1, pos2=pos2, offsets2=off2,
-                      tile_label=tile_label.to(i32),
-                      tile_start=tile_start.to(i32),
-                      tile_count=tile_count.to(i32),
-                      runs=runs.to(i32).contiguous(), candidates=candidates)
+    return PairLayout(
+        pos1=pos1, labels1=labels1, index1=index1,
+        tile_start=tile_start.to(i32), tile_count=tile_count.to(i32),
+        tile_group=(tile_col // n_cells).to(i32),
+        tile_cell=(tile_col % n_cells).to(i32),
+        group_start=group_start, group_rows=rows, pos2=pos2,
+        index2=index2, columns=columns.to(i32), cells=(n_x, n_y),
+        neighbours=torch.tensor(offsets, dtype=i32, device=dev),
+        reach_z=torch.tensor(_z_reach(sweep, gaps), dtype=torch.float64,
+                             device=dev), private_rows=private)
+
+
+def _f32_bits(x):
+    """The float32 bit patterns of non-negative values, as int64 (ordered
+    as the values are)."""
+    return x.contiguous().view(torch.int32).long()
+
+
+def pair_runs(sweep: Sweep, layout: PairLayout, tiles) -> torch.Tensor:
+    """The j-runs [a0, b0) and [a1, b1) of each (tile, label_2, offset)
+    column as the kernel finds them (csrc/paircount.cu ``column_runs``):
+    the column's j-tracers whose z lies within the offset's z reach of the
+    tile's z range across the periodic boundary -- at most two runs of
+    the column, the second before the first -- or the whole column where
+    the sweep has no window or the widened range spans the period.
+    (len(tiles), n_labels_2, n_nb, 4) int64, in tensor ops; the searches
+    are exact (keys of column and float32 bits), as the kernel's float64
+    comparisons are."""
+    dev = layout.pos2.device
+    tiles = torch.as_tensor(tiles, device=dev).long()
+    n_x, n_y = layout.cells
+    n_cells = n_x * n_y
+    n_l2 = sweep.n_labels_2
+    cell = layout.tile_cell[tiles].long()
+    rx = layout.neighbours[:, 0].long()
+    ry = layout.neighbours[:, 1].long()
+    ncell = (((cell // n_y)[:, None] + rx) % n_x * n_y +
+             ((cell % n_y)[:, None] + ry) % n_y)
+    col = (torch.arange(n_l2, device=dev)[None, :, None] * n_cells +
+           ncell[:, None, :])
+    starts = layout.columns.long()
+    cs, ce = starts[col], starts[col + 1]
+    if not bool((layout.reach_z >= 0).all()):
+        return torch.stack([cs, ce, cs, cs], dim=-1)
+    first = layout.tile_start[tiles].long()
+    z_lo = layout.pos1[first, 2].double()
+    z_hi = layout.pos1[first + layout.tile_count[tiles].long() - 1,
+                       2].double()
+    lo = z_lo[:, None] - layout.reach_z[None, :]
+    hi = z_hi[:, None] + layout.reach_z[None, :]
+    pz = float(sweep.period[2])
+    full = (hi - lo) >= pz
+    wrap_lo = lo <= 0
+    wrap_hi = ~wrap_lo & (hi >= pz)
+    wraps = wrap_lo | wrap_hi
+    u0 = torch.where(wrap_lo, lo + pz, lo)
+    v0 = torch.where(wraps, torch.full_like(hi, pz + 1), hi)
+    v1 = torch.where(wrap_lo, hi, hi - pz)
+    z2 = layout.pos2[:, 2] + 0.0             # -0.0 to +0.0
+    keys = (torch.repeat_interleave(
+        torch.arange(len(starts) - 1, device=dev), starts.diff()) << 32) + \
+        _f32_bits(z2)
+    base = col << 32
+
+    def first_at_or_above(u):
+        f = u.float()
+        f = torch.where(f.double() < u,
+                        torch.nextafter(f, torch.full_like(f, np.inf)), f)
+        f = torch.where(f > 0, f, torch.zeros_like(f))
+        q = base + _f32_bits(f)[:, None, :]
+        return torch.searchsorted(keys, q.contiguous())
+
+    def first_above(v):
+        g = v.float()
+        g = torch.where(g.double() > v,
+                        torch.nextafter(g, torch.full_like(g, -np.inf)), g)
+        bits = torch.where(g < 0, torch.full_like(g, -1, dtype=torch.int64),
+                           _f32_bits(torch.where(g > 0, g,
+                                                 torch.zeros_like(g))))
+        return torch.searchsorted(keys, (base + bits[:, None, :])
+                                  .contiguous(), right=True)
+
+    a0 = first_at_or_above(u0)
+    b0 = torch.maximum(first_above(v0), a0)
+    b1 = torch.where(wraps[:, None, :], torch.minimum(first_above(v1), a0),
+                     cs)
+    whole = full[:, None, :]
+    return torch.stack([torch.where(whole, cs, a0),
+                        torch.where(whole, ce, b0), cs,
+                        torch.where(whole, cs, b1)], dim=-1)
+
+
+def candidate_count(sweep: Sweep, layout: PairLayout) -> int:
+    """The pairs the kernel evaluates over ``layout``: each tile's tracers
+    times the j-tracers of its runs, summed over every block."""
+    per = max(1, _RUN_CHUNK // (sweep.n_labels_2 * len(layout.neighbours)))
+    total = 0
+    for t0 in range(0, layout.n_tiles, per):
+        tiles = torch.arange(t0, min(t0 + per, layout.n_tiles),
+                             device=layout.pos2.device)
+        runs = pair_runs(sweep, layout, tiles)
+        lengths = (runs[..., 1] - runs[..., 0] + runs[..., 3] -
+                   runs[..., 2]).sum(dim=(1, 2))
+        total += int((layout.tile_count[tiles].long() * lengths).sum())
+    return total
 
 
 @functools.cache
@@ -603,8 +784,8 @@ def _paircount_lib():
     lib = load_library("paircount", KERNEL_SOURCES["paircount"])
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tabcorr_paircount.argtypes = (
-        [vp] * 4 + [i] + [vp] * 2 + [i] * 5 + [vp, i, vp, i] + [f] * 7 +
-        [vp, i, vp])
+        [vp] * 7 + [i] + [vp, i] + [vp] * 5 + [i] * 3 + [i] * 5 +
+        [vp, i, vp, i] + [f] * 7 + [i, vp, vp, i, vp])
     lib.tabcorr_paircount.restype = i
     lib.tabcorr_cuda_error_string.argtypes = [i]
     lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
@@ -619,9 +800,11 @@ def load_kernels():
 def check_kernel_sweep(sweep: Sweep):
     """Raise on what the kernel does not take, beyond :func:`check_sweep`:
     tensors not on a CUDA device or not contiguous, coordinates outside
-    [0, period], more than 65,535 j-labels, a block histogram or edge list
-    over its shared memory, and buckets so full that a block's 32-bit
-    counts could wrap."""
+    [0, period], more than 65,535 j-labels, a label pair's histogram row
+    or edge list over its shared memory, and buckets so full that a
+    block's 32-bit counts could wrap: a block visits each j-tracer of its
+    label_2 at most once (distinct cells, disjoint runs), so a cell gains
+    at most TILE x that label's tracers."""
     check_sweep(sweep)
     if sweep.device.type != "cuda":
         raise ValueError("paircount_launch needs CUDA tensors.")
@@ -649,17 +832,26 @@ def check_kernel_sweep(sweep: Sweep):
                              "kernel's 32-bit block counts.")
 
 
-def paircount_launch(sweep: Sweep,
-                     layout: PairLayout | None = None) -> torch.Tensor:
+def paircount_launch(sweep: Sweep, layout: PairLayout | None = None,
+                     visited: torch.Tensor | None = None,
+                     events=None) -> torch.Tensor:
     """Launch the CUDA pair counter once on ``sweep`` (tensors on the
     card), over ``layout`` (built here by :func:`bucket_layout` unless
     given).  Returns the flat histogram as :func:`paircount` does.
-    Raises on any input the kernel does not take and on any launch
-    error."""
+
+    ``visited``: an optional (1,) int64 tensor on the card to which the
+    kernel adds the pairs it evaluated (:func:`candidate_count`);
+    ``events``: an optional (start, end) pair of CUDA events recorded on
+    the stream just before and after the kernel.  Raises on any input the
+    kernel does not take and on any launch error."""
     global PAIRCOUNT_LAUNCHES
     check_kernel_sweep(sweep)
     if layout is None:
         layout = bucket_layout(sweep)
+    if visited is not None and (visited.shape != (1,) or
+                                visited.dtype != torch.int64 or
+                                visited.device != sweep.device):
+        raise ValueError("visited must be a (1,) int64 tensor on the card.")
     hist = _empty_hist(sweep)
     if layout.n_tiles == 0:
         return hist
@@ -668,16 +860,27 @@ def paircount_launch(sweep: Sweep,
     mu = torch.tensor(sweep.mu_edges, device=sweep.device)
     pw = (0 if sweep.unit_counts else
           {"unit": 1, "log_rp": 2, "unit+log_rp": 3}[sweep.pair_weight])
+    stream = torch.cuda.current_stream(sweep.device)
+    if events is not None:
+        events[0].record(stream)
     code = lib.tabcorr_paircount(
-        layout.pos1.data_ptr(), layout.tile_label.data_ptr(),
-        layout.tile_start.data_ptr(), layout.tile_count.data_ptr(),
-        layout.n_tiles, layout.pos2.data_ptr(), layout.runs.data_ptr(),
+        layout.pos1.data_ptr(), layout.labels1.data_ptr(),
+        layout.index1.data_ptr(), layout.tile_start.data_ptr(),
+        layout.tile_count.data_ptr(), layout.tile_group.data_ptr(),
+        layout.tile_cell.data_ptr(), layout.n_tiles,
+        layout.group_start.data_ptr(), layout.group_rows,
+        layout.pos2.data_ptr(), layout.index2.data_ptr(),
+        layout.columns.data_ptr(), layout.neighbours.data_ptr(),
+        layout.reach_z.data_ptr(), len(layout.neighbours), *layout.cells,
         sweep.n_labels_1, sweep.n_labels_2, int(sweep.auto),
         KINDS.index(sweep.kind), pw, edges.data_ptr(), sweep.n_r,
         mu.data_ptr(), sweep.n_mu, *sweep.period,
-        *wrap_thresholds(sweep.period), sweep.pi_max, hist.data_ptr(),
-        sweep.device.index,
-        torch.cuda.current_stream(sweep.device).cuda_stream)
+        *wrap_thresholds(sweep.period), sweep.pi_max,
+        int(layout.private_rows), hist.data_ptr(),
+        None if visited is None else visited.data_ptr(),
+        sweep.device.index, stream.cuda_stream)
+    if events is not None:
+        events[1].record(stream)
     if code != 0:
         raise RuntimeError(
             f"paircount kernel launch failed: CUDA error {code} "

@@ -344,50 +344,86 @@ def test_square_root_is_correctly_rounded():
 
 
 def _emulate_kernel(sweep):
-    """The kernel's traversal in tensor ops: every (tile, j-label) block of
-    :func:`bucket_layout` over its j-runs (the geometry of the plain
-    version, which the threshold test above holds equal to the kernel's);
-    returns the flat histogram and the layout."""
+    """The kernel's traversal in tensor ops: every (tile, label_2) block of
+    :func:`bucket_layout` over the runs of its neighbour columns
+    (``pair_runs``, the kernel's ``column_runs``), with the geometry of the
+    plain version (which the threshold test above holds equal to the
+    kernel's).  Asserts the layout's invariants -- every labeled i-tracer
+    in one tile, a tile within one (label group, xy cell), each offset a
+    distinct cell, each j-run within its column -- and that no block
+    evaluates a (i, j) pair twice.  Returns (histogram, layout, pairs
+    evaluated)."""
     layout = pc.bucket_layout(sweep)
     consts = pc.sweep_constants(sweep)
     hist = pc._empty_hist(sweep)
+    n_x, n_y = layout.cells
+    n_cells = n_x * n_y
+    n_l2 = sweep.n_labels_2
+    n1 = len(layout.pos1)
+    # i-side: tiles partition the tracers; one (group, cell) a tile.
+    starts, counts = layout.tile_start.long(), layout.tile_count.long()
+    assert bool(((counts >= 1) & (counts <= pc.TILE)).all())
+    assert torch.equal(torch.cat([torch.arange(a, a + c) for a, c in
+                                  zip(starts.tolist(), counts.tolist())]),
+                       torch.arange(n1))
+    assert n1 == int((sweep.labels1 >= 0).sum())
+    tile_of = torch.repeat_interleave(torch.arange(layout.n_tiles), counts)
+    scale = torch.tensor([n_x / sweep.period[0], n_y / sweep.period[1]],
+                         dtype=torch.float32)
+    cxy = torch.minimum(torch.floor(layout.pos1[:, :2] * scale).long(),
+                        torch.tensor([n_x - 1, n_y - 1]))
+    assert torch.equal(cxy[:, 0] * n_y + cxy[:, 1],
+                       layout.tile_cell[tile_of].long())
+    group = torch.searchsorted(layout.group_start.long(),
+                               layout.labels1.long(), right=True) - 1
+    assert torch.equal(group, layout.tile_group[tile_of].long())
+    assert int(layout.group_start.diff().max()) == layout.group_rows
+    # Offsets: distinct residues of each axis.
+    offsets = layout.neighbours.long()
+    assert len(torch.unique(offsets[:, 0] * n_y + offsets[:, 1])) == \
+        len(offsets) <= pc.MAX_NEIGHBOURS
+    assert bool(((offsets[:, 0] < n_x) & (offsets[:, 1] < n_y)).all())
+    # j-side: columns of (label_2, cell).
+    column_of = torch.repeat_interleave(torch.arange(n_l2 * n_cells),
+                                        layout.columns.long().diff())
+    label2 = column_of // n_cells
+    runs = pc.pair_runs(sweep, layout, torch.arange(layout.n_tiles))
     evaluated = 0
-    label1 = torch.repeat_interleave(
-        torch.arange(sweep.n_labels_1), layout.offsets1.diff())
-    label2 = torch.repeat_interleave(
-        torch.arange(sweep.n_labels_2), layout.offsets2.diff())
     for t in range(layout.n_tiles):
-        i0 = int(layout.tile_start[t])
-        i1 = i0 + int(layout.tile_count[t])
-        assert 1 <= i1 - i0 <= pc.TILE
-        assert bool((label1[i0:i1] == layout.tile_label[t]).all())
-        for l2 in range(sweep.n_labels_2):
-            a0, b0, a1, b1 = layout.runs[t, l2].tolist()
-            assert a0 <= b0 and a1 <= b1 and (a1 == b1 or b1 <= a0)
-            for ja, jb in ((a0, b0), (a1, b1)):
-                if ja == jb:
-                    continue
-                assert bool((label2[ja:jb] == l2).all())
-                idx1 = torch.arange(i0, i1)
-                idx2 = torch.arange(ja, jb) if sweep.auto else \
-                    torch.full((jb - ja,), -1)
-                sub, valid, rp_sq = pc.pair_geometry(
-                    layout.pos1[i0:i1, :3], idx1, layout.pos2[ja:jb, :3],
-                    idx2, sweep, consts)
-                pc.accumulate(hist, sub, valid, rp_sq, label1[i0:i1],
-                              label2[ja:jb], layout.pos2[ja:jb, 3], sweep)
-                evaluated += (i1 - i0) * (jb - ja)
-    assert evaluated == layout.candidates
-    return hist, layout
+        i0, i1 = int(starts[t]), int(starts[t] + counts[t])
+        r = runs[t].reshape(-1, 4)
+        a = torch.cat([r[:, 0], r[:, 2]])
+        lengths = torch.cat([r[:, 1] - r[:, 0], r[:, 3] - r[:, 2]])
+        assert bool((lengths >= 0).all())
+        total = int(lengths.sum())
+        if total == 0:
+            continue
+        js = torch.repeat_interleave(a, lengths) + torch.arange(total) - \
+            torch.repeat_interleave(torch.cumsum(lengths, 0) - lengths,
+                                    lengths)
+        # No (i, j) pair twice: each j once in the tile's blocks.
+        assert len(torch.unique(js)) == total
+        sub, valid, rp_sq = pc.pair_geometry(
+            layout.pos1[i0:i1, :3], layout.index1[i0:i1],
+            layout.pos2[js, :3], layout.index2[js], sweep, consts)
+        pc.accumulate(hist, sub, valid, rp_sq, layout.labels1[i0:i1],
+                      label2[js], layout.pos2[js, 3], sweep)
+        evaluated += (i1 - i0) * total
+    assert evaluated == pc.candidate_count(sweep, layout)
+    return hist, layout, evaluated
 
 
 def _sweep(p1, l1, n_l1, kind, p2=None, l2=None, n_l2=None, w2=None,
-           period=L, pair_weight="unit", sort=True, mu=MU_UNIFORM):
+           period=L, pair_weight="unit", sort=True, mu=MU_UNIFORM,
+           r_edges=None):
     args = _kind_args(kind, mu)
-    period3 = (float(np.float32(period)),) * 3
+    if r_edges is not None:
+        args["r_edges"] = r_edges
+    period3 = tuple(float(np.float32(p)) for p in
+                    np.broadcast_to(np.asarray(period, float), (3,)))
     z_cut = {"rppi": args.get("pi_max"),
              "smu": float(args["r_edges"][-1]), "proj": None}[kind]
-    if not (sort and z_cut is not None and 2 * z_cut < period):
+    if not (sort and z_cut is not None and 2 * z_cut < period3[2]):
         z_cut = None
     t = torch.from_numpy
     return pc.Sweep(
@@ -404,15 +440,18 @@ def _sweep(p1, l1, n_l1, kind, p2=None, l2=None, n_l2=None, w2=None,
         pair_weight=pair_weight, z_cut=z_cut)
 
 
-def _layout_sample(seed, n=700):
+def _layout_sample(seed, n=700, period=L):
     """Labels of 1 tracer, of 257 (a full tile and a partial one), and
     the rest; a band of tracers at each periodic z boundary (wrapping
-    windows)."""
+    windows) and coordinates on the boundary."""
+    period = np.broadcast_to(np.asarray(period, float), (3,))
     rng = np.random.default_rng(seed)
-    p = rng.uniform(0, L, (n, 3))
+    p = rng.uniform(0, 1, (n, 3)) * period
     p[:60, 2] = rng.uniform(0, 1.0, 60)
-    p[60:120, 2] = rng.uniform(L - 1.0, L, 60)
-    p[120, 2] = L                       # a coordinate on the boundary
+    p[60:120, 2] = rng.uniform(period[2] - 1.0, period[2], 60)
+    p[120, 2] = period[2]               # coordinates on the boundary
+    p[121, 0] = period[0]
+    p[122, :2] = period[:2]
     labels = np.full(n, 2)
     labels[rng.choice(np.arange(320, n), 40, replace=False)] = -1
     labels[257 - 20:257 + 20] = 2
@@ -422,23 +461,40 @@ def _layout_sample(seed, n=700):
     return p, labels
 
 
+def _assert_equal_plain(sweep, got):
+    want = pc.paircount_plain(sweep)
+    if sweep.unit_counts:
+        assert torch.equal(got, want)
+        assert int(want.sum()) > 0
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("kind", ["rppi", "smu", "proj"])
 def test_kernel_layout_emulation_auto(kind):
     p, labels = _layout_sample(10)
     sweep = _sweep(p, labels, 4, kind)      # label 3: empty
-    got, layout = _emulate_kernel(sweep)
+    got, layout, evaluated = _emulate_kernel(sweep)
     assert torch.equal(got, pc.paircount_plain(sweep))
     assert int(layout.tile_count.min()) < pc.TILE
-    assert 1 in layout.tile_count.tolist()
     hist = got.reshape(4, 4, -1)
     assert torch.equal(hist, hist.transpose(0, 1))
+    # The cell lists cut the work: fewer pairs than all; and the windows
+    # wrap (a tile at the bottom of z reaches the top of the box).
+    assert evaluated < len(layout.pos1) * len(layout.pos2)
     if kind != "proj":
-        # The windows cut the work, and wrap: a tile at the bottom of z
-        # reaches the top of the box.
-        full = sum(int(layout.tile_count[t]) * len(layout.pos2)
-                   for t in range(layout.n_tiles))
-        assert layout.candidates < full
-        assert bool((layout.runs[:, :, 3] > layout.runs[:, :, 2]).any())
+        runs = pc.pair_runs(sweep, layout, torch.arange(layout.n_tiles))
+        assert bool((runs[..., 3] > runs[..., 2]).any())
+
+
+@pytest.mark.parametrize("pair_weight", ["log_rp", "unit+log_rp"])
+@pytest.mark.parametrize("kind", ["rppi", "smu", "proj"])
+def test_kernel_layout_emulation_auto_weighted(kind, pair_weight):
+    p, labels = _layout_sample(15)
+    w = np.random.default_rng(16).uniform(0.2, 1.0, len(p))
+    sweep = _sweep(p, labels, 3, kind, w2=w, pair_weight=pair_weight)
+    got, _, _ = _emulate_kernel(sweep)
+    _assert_equal_plain(sweep, got)
 
 
 @pytest.mark.parametrize("pair_weight", ["unit", "log_rp", "unit+log_rp"])
@@ -453,25 +509,175 @@ def test_kernel_layout_emulation_cross(kind, pair_weight):
         rng.uniform(0.2, 1.0, 500)
     sweep = _sweep(p, labels, 3, kind, p2=p2, l2=l2, n_l2=2, w2=w2,
                    pair_weight=pair_weight)
-    got, _ = _emulate_kernel(sweep)
-    want = pc.paircount_plain(sweep)
-    if sweep.unit_counts:
-        assert torch.equal(got, want)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    got, _, _ = _emulate_kernel(sweep)
+    _assert_equal_plain(sweep, got)
 
 
 def test_kernel_layout_without_window():
-    # 2 * z_cut >= period_z: every block scans its whole bucket.
+    # 2 * z_cut >= period_z: every block scans whole columns.
     p, labels = _layout_sample(13)
     sweep = _sweep(p, labels, 3, "rppi", period=L)
     wide = dataclasses.replace(sweep, pi_max=25.0, z_cut=None)
-    got, layout = _emulate_kernel(wide)
+    got, layout, _ = _emulate_kernel(wide)
     assert torch.equal(got, pc.paircount_plain(wide))
-    sizes = layout.offsets2.diff()
-    assert torch.equal(layout.runs[:, :, 1] - layout.runs[:, :, 0],
-                       sizes[None, :].expand(layout.n_tiles, -1).int())
-    assert bool((layout.runs[:, :, 3] == layout.runs[:, :, 2]).all())
+    assert bool((layout.reach_z == -1).all())
+    runs = pc.pair_runs(wide, layout, torch.arange(layout.n_tiles))
+    sizes = layout.columns.long().diff()
+    n_x, n_y = layout.cells
+    cell = layout.tile_cell.long()[:, None]
+    nb = layout.neighbours.long()
+    ncell = ((cell // n_y + nb[:, 0]) % n_x * n_y +
+             (cell % n_y + nb[:, 1]) % n_y)
+    col = torch.arange(3)[None, :, None] * n_x * n_y + ncell[:, None, :]
+    assert torch.equal(runs[..., 1] - runs[..., 0], sizes[col])
+    assert bool((runs[..., 3] == runs[..., 2]).all())
+
+
+@pytest.mark.parametrize("kind", ["rppi", "smu", "proj"])
+@pytest.mark.parametrize("r_max", [15.0, 25.0, 60.0],
+                         ids=["wrapped-offsets", "2rmax>=period", "one-cell"])
+def test_kernel_layout_few_cells(kind, r_max):
+    # Few cells per axis: 2 * reach + 1 >= n_a, so wrapped offsets would
+    # name a cell twice but for the residues; 2 r_max >= period: no xy
+    # culling (every offset kept); r_max above the period: one cell.
+    p, labels = _layout_sample(17)
+    edges = np.logspace(-0.5, np.log10(r_max), 6)
+    if kind == "proj":
+        edges = np.concatenate([[0.0], edges])
+    sweep = _sweep(p, labels, 3, kind, r_edges=edges)
+    got, layout, _ = _emulate_kernel(sweep)
+    assert torch.equal(got, pc.paircount_plain(sweep))
+    n_x, n_y = layout.cells
+    assert n_x == n_y == max(1, int(L * pc.CELLS_PER_REACH // r_max))
+    if 2 * r_max >= L:
+        assert len(layout.neighbours) == n_x * n_y
+    else:
+        assert len(layout.neighbours) < n_x * n_y
+        assert n_x < 2 * (pc.CELLS_PER_REACH + 1) + 1
+
+
+@pytest.mark.parametrize("kind", ["rppi", "smu", "proj"])
+def test_kernel_layout_non_cubic_period(kind):
+    # The AP stretch makes wp and xi boxes non-cubic: cells per axis each
+    # on its own.
+    period = (40.0, 31.0, 47.0)
+    p, labels = _layout_sample(18, period=period)
+    rng = np.random.default_rng(19)
+    p2 = rng.uniform(0, 1, (600, 3)) * period
+    p2[0] = period
+    l2 = rng.integers(0, 2, 600)
+    for p_other in (None, p2):
+        sweep = _sweep(p, labels, 3, kind, p2=p_other,
+                       l2=None if p_other is None else l2,
+                       n_l2=None if p_other is None else 2, period=period)
+        got, layout, _ = _emulate_kernel(sweep)
+        assert torch.equal(got, pc.paircount_plain(sweep))
+        assert layout.cells == (16, 12)     # 40 / 2.5 and 31 / 2.5
+
+
+@pytest.mark.parametrize("kind", ["rppi", "smu", "proj"])
+def test_kernel_layout_label_groups(kind, monkeypatch):
+    # A small histogram budget splits the labels into several groups: a
+    # tile mixes the labels of one group, and each group's rows land in
+    # their own rows of the histogram.
+    rng = np.random.default_rng(20)
+    p = rng.uniform(0, L, (900, 3))
+    labels = rng.integers(-1, 7, 900)
+    labels[:5] = 6
+    sweep = _sweep(p, labels, 8, kind)      # label 7: empty
+    row_bytes = sweep.n_channels * sweep.n_hist_r * 4
+    monkeypatch.setattr(pc, "HIST_BYTES", 3 * row_bytes)
+    got, layout, _ = _emulate_kernel(sweep)
+    assert torch.equal(got, pc.paircount_plain(sweep))
+    assert layout.group_start.tolist() == [0, 3, 6, 8]
+    assert layout.group_rows == 3
+    assert len(torch.unique(layout.tile_group)) == 3
+    # One group of every label where the budget holds all rows.
+    monkeypatch.setattr(pc, "HIST_BYTES", 8 * row_bytes)
+    _, whole, _ = _emulate_kernel(sweep)
+    assert whole.group_start.tolist() == [0, 8]
+
+
+@pytest.mark.parametrize("kind,pair_weight,private", [
+    ("rppi", "log_rp", True), ("proj", "unit+log_rp", True),
+    ("smu", "unit+log_rp", False), ("proj", "unit", False)])
+def test_kernel_layout_private_rows(kind, pair_weight, private, monkeypatch):
+    # A weighted sweep whose 256 float64 rows a block fit
+    # PRIVATE_ROWS_BYTES adds into a private row a thread, one group of
+    # every label; else (xi(s, mu)'s 2 x 30 cells a row here, unit
+    # counts) the group histogram.
+    p, labels = _layout_sample(23)
+    w = np.random.default_rng(24).uniform(0.2, 1.0, len(p))
+    sweep = _sweep(p, labels, 3, kind, pair_weight=pair_weight,
+                   w2=None if pair_weight == "unit" else w)
+    row_bytes = sweep.n_channels * sweep.n_hist_r * (
+        4 if sweep.unit_counts else 8)
+    monkeypatch.setattr(pc, "HIST_BYTES", row_bytes)
+    got, layout, _ = _emulate_kernel(sweep)
+    _assert_equal_plain(sweep, got)
+    assert layout.private_rows == private
+    assert layout.group_start.tolist() == ([0, 3] if private else
+                                           [0, 1, 2, 3])
+
+
+@pytest.mark.parametrize("kind", ["rppi", "proj"])
+def test_kernel_layout_self_pairs_by_index(kind):
+    # Auto mode with a first edge at 0: distinct tracers on one position
+    # pair at rp = 0, a tracer with itself does not; i and j are two
+    # arrays sorted differently, so the self test is by tracer index.
+    rng = np.random.default_rng(21)
+    p = rng.uniform(0, L, (500, 3))
+    p[100:110] = p[90]                  # 11 tracers on one point
+    labels = rng.integers(0, 3, 500)
+    edges = np.concatenate([[0.0], R_EDGES])
+    sweep = _sweep(p, labels, 3, kind, r_edges=edges)
+    got, _, _ = _emulate_kernel(sweep)
+    assert torch.equal(got, pc.paircount_plain(sweep))
+    # The coincident tracers' ordered pairs at rp = 0: 11 * 10.
+    assert int(got.reshape(3, 3, -1)[:, :, 0].sum()) >= 110
+
+
+@pytest.mark.parametrize("kind", ["rppi", "smu", "proj"])
+def test_kernel_layout_visits_fewer_pairs_than_the_z_slab_layout(kind):
+    # A uniform sample at the shape of the tabulation's sweeps (a box of
+    # 250, r_max 63 for rppi / smu with pi_max 80, r_max 40 for proj, 120
+    # sparse labels): the cell lists visit fewer pairs than the layout
+    # they replace, tiles of one label sorted in z, each against every
+    # j-tracer in its periodic z-window.
+    rng = np.random.default_rng(22)
+    box = 250.0
+    p = rng.uniform(0, box, (4000, 3))
+    labels = rng.integers(0, 120, 4000)
+    r_max = 10 ** (1.6 if kind == "proj" else 1.8)
+    edges = np.logspace(-1, np.log10(r_max), 15)
+    sweep = _sweep(p, labels, 120, kind, period=box, r_edges=edges)
+    if kind == "rppi":
+        sweep = dataclasses.replace(sweep, pi_max=80.0, z_cut=80.0)
+    layout = pc.bucket_layout(sweep)
+    new = pc.candidate_count(sweep, layout)
+    # The layout being replaced, counted in numpy.
+    z = p[:, 2]
+    zc = sweep.z_cut + 1e-3 + 1e-6 * box if sweep.z_cut else None
+    z_all = np.sort(np.float32(z).astype(np.float64))
+    old = 0
+    for lab in range(120):
+        zs = np.sort(np.float32(z[labels == lab]).astype(np.float64))
+        for t0 in range(0, len(zs), pc.TILE):
+            n_t = min(pc.TILE, len(zs) - t0)
+            if zc is None:
+                old += n_t * len(z)
+                continue
+            lo, hi = zs[t0] - zc, zs[t0 + n_t - 1] + zc
+            if hi - lo >= box:
+                old += n_t * len(z)
+                continue
+            inside = sum(int(np.searchsorted(z_all, hi + k, "right") -
+                             np.searchsorted(z_all, lo + k, "left"))
+                         for k in (-box, 0.0, box))
+            old += n_t * inside
+    assert new < 0.6 * old, (new, old)
+    if kind == "proj":
+        assert new < 0.25 * old, (new, old)
 
 
 def test_refusals():

@@ -1,8 +1,12 @@
 """The CUDA pair counter (csrc/paircount.cu) against its plain PyTorch
 version on the card: every kind, mode and channel; partial tiles, a
 one-tracer label, windows that wrap the periodic boundary, sweeps without
-a window; ``TabCorr.tabulate`` on the card against the CPU; the launch
-counter and the wrapper's refusals.
+a window; the cell-list layout's traps (few cells per axis, coordinates on
+the period, non-cubic periods, 2 r_max >= period, several label groups,
+a group histogram over 48 KB of shared memory, self-pairs by index); the
+kernel's own count of the pairs it evaluated against the layout's
+(``candidate_count``); ``TabCorr.tabulate`` on the card against the CPU;
+the launch counter and the wrapper's refusals.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a GPU machine without JAX it runs on its own:
@@ -41,6 +45,7 @@ def _tracers(seed, n, n_labels):
     p[:80, 2] = rng.uniform(0, 1.0, 80)
     p[80:160, 2] = rng.uniform(L - 1.0, L, 80)
     p[160, 2] = L
+    p[161, :2] = L
     labels = rng.integers(2, max(n_labels - 1, 3), n)
     labels[rng.choice(np.arange(300, n), 50, replace=False)] = -1
     labels[:257] = 0
@@ -75,9 +80,13 @@ def _sweep(cuda, kind, auto, pair_weight="unit", weighted=False, seed=0,
 
 def _check(sweep):
     before = pc.PAIRCOUNT_LAUNCHES
-    got = pc.paircount_launch(sweep)
+    layout = pc.bucket_layout(sweep)
+    visited = torch.zeros(1, dtype=torch.int64, device=sweep.device)
+    got = pc.paircount_launch(sweep, layout, visited)
     torch.cuda.synchronize()
     assert pc.PAIRCOUNT_LAUNCHES == before + 1
+    # The kernel's binary searches find the runs pair_runs finds.
+    assert int(visited) == pc.candidate_count(sweep, layout)
     want = pc.paircount_plain(sweep)
     if sweep.unit_counts:
         assert got.dtype == torch.int64
@@ -118,6 +127,103 @@ def test_without_window(cuda, kind):
 def test_skewed_mu_bins(cuda):
     _check(_sweep(cuda, "smu", True,
                   mu=np.array([0.0, 0.1, 0.35, 0.5, 0.8, 0.93, 1.0])))
+
+
+def _trap_sweep(cuda, kind, auto, r_max=10.0, period=(L, L, L), n=1500,
+                n_labels=5, mu=np.linspace(0, 1, 7), first_edge=None,
+                pair_weight="unit"):
+    """A sweep of uniform tracers in a (possibly non-cubic) box, with
+    tracers on every face of the box and at its corner."""
+    rng = np.random.default_rng(30)
+    per = np.asarray(period, dtype=np.float64)
+    p1 = rng.uniform(0, 1, (n, 3)) * per
+    p1[:3] = per
+    p1[3, 0] = per[0]
+    p1[4, 1] = per[1]
+    l1 = rng.integers(-1, n_labels - 2, n)      # the last label empty,
+    l1[5] = n_labels - 2                        # the one before one tracer
+    p2 = rng.uniform(0, 1, (n, 3)) * per
+    p2[:2] = per
+    l2 = rng.integers(0, 3, n)
+    edges = np.logspace(-0.5, np.log10(r_max), 8)
+    if first_edge is not None or kind == "proj":
+        edges = np.concatenate([[0.0], edges])
+    pi_max = 7.0
+    cut = {"rppi": pi_max, "smu": float(edges[-1]), "proj": None}[kind]
+    if cut is not None and 2 * cut >= per[2]:
+        cut = None
+    w = rng.uniform(0.1, 1.0, n) if pair_weight != "unit" else None
+
+    def t(a, dtype):
+        return torch.tensor(a, dtype=dtype, device=cuda)
+
+    return pc.Sweep(
+        pos1=t(p1, torch.float32), labels1=t(l1, torch.int32),
+        n_labels_1=n_labels, pos2=None if auto else t(p2, torch.float32),
+        labels2=None if auto else t(l2, torch.int32),
+        n_labels_2=n_labels if auto else 3,
+        weights2=None if w is None else t(w, torch.float32),
+        period=tuple(float(np.float32(x)) for x in per), kind=kind,
+        edges_sq=(edges ** 2).astype(np.float32),
+        mu_edges=(mu if kind == "smu" else np.zeros(2)).astype(np.float32),
+        pi_max=pi_max, pair_weight=pair_weight, z_cut=cut)
+
+
+@pytest.mark.parametrize("auto", [True, False], ids=["auto", "cross"])
+@pytest.mark.parametrize("kind", ["rppi", "smu", "proj"])
+@pytest.mark.parametrize("r_max", [15.0, 25.0, 60.0],
+                         ids=["wrapped-offsets", "2rmax>=period", "one-cell"])
+def test_few_cells_per_axis(cuda, kind, auto, r_max):
+    sweep = _trap_sweep(cuda, kind, auto, r_max=r_max)
+    layout = pc.bucket_layout(sweep)
+    assert layout.cells[0] == max(1, int(L * pc.CELLS_PER_REACH // r_max))
+    hist = _check(sweep)
+    if auto:
+        h = hist.reshape(5, 5, -1)
+        assert torch.equal(h, h.transpose(0, 1))
+
+
+@pytest.mark.parametrize("pair_weight", ["unit", "unit+log_rp"])
+@pytest.mark.parametrize("auto", [True, False], ids=["auto", "cross"])
+@pytest.mark.parametrize("kind", ["rppi", "smu", "proj"])
+def test_non_cubic_period(cuda, kind, auto, pair_weight):
+    _check(_trap_sweep(cuda, kind, auto, period=(40.0, 31.0, 47.0),
+                       pair_weight=pair_weight))
+
+
+@pytest.mark.parametrize("kind", ["rppi", "smu", "proj"])
+def test_several_label_groups(cuda, kind, monkeypatch):
+    sweep = _trap_sweep(cuda, kind, True, n_labels=9)
+    monkeypatch.setattr(pc, "HIST_BYTES",
+                        2 * sweep.n_channels * sweep.n_hist_r * 4)
+    assert len(pc.bucket_layout(sweep).group_start) == 6
+    _check(sweep)
+
+
+def test_group_histogram_over_48_kb(cuda, monkeypatch):
+    # xi(s, mu) with 31 labels of 60 x 40 cells: all rows would take
+    # 31 x 9,600 B = 298 KB, so a 160 KB budget gives groups of 16 rows,
+    # 154 KB of shared memory a block (above 48 KB: opted in).
+    sweep = _trap_sweep(cuda, "smu", True, n=3000, n_labels=31,
+                        mu=np.linspace(0, 1, 41))
+    sweep = dataclasses.replace(
+        sweep, edges_sq=(np.logspace(-0.5, 1.0, 61) ** 2).astype(
+            np.float32))
+    monkeypatch.setattr(pc, "HIST_BYTES", 160 * 1024)
+    layout = pc.bucket_layout(sweep)
+    assert layout.group_rows * sweep.n_hist_r * 4 > 48 * 1024
+    _check(sweep)
+
+
+@pytest.mark.parametrize("kind", ["rppi", "proj"])
+def test_self_pairs_by_index(cuda, kind):
+    # A first edge at 0: coincident distinct tracers pair at rp = 0, a
+    # tracer with itself does not.
+    sweep = _trap_sweep(cuda, kind, True, first_edge=0.0)
+    pos = sweep.pos1.clone()
+    pos[100:110] = pos[90]
+    hist = _check(dataclasses.replace(sweep, pos1=pos))
+    assert int(hist.reshape(5, 5, -1)[:, :, 0].sum()) >= 110
 
 
 @pytest.mark.parametrize("pi_max", [9.0, 25.0])   # 2 pi_max >= L: no window
