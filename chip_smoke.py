@@ -102,6 +102,27 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    host path at 16 probes (ngal 1e-6 relative, the statistics 1e-6
    scaled) and the bundle against its plain engine.
 
+10. Joint statistics and the gradient samplers: (a)
+   ``make_multi_predictor([bolplanck wp, bolplanck Delta Sigma], zheng07
+   -18, engine="auto")``, which must resolve to the bundle kernel, one
+   launch a call, held against the bundle's plain engine over the whole
+   batch and, wp per element and Delta Sigma scaled, to 1e-6 of float64
+   at 16 probes, then three ensemble steps over its log posterior; (b)
+   ``engine="auto"`` over the wp TabCorr and the 'efficient' Delta Sigma
+   Interpolator (a check of the route, not a physical fit): one
+   contraction and one grid launch a call, NaN only in the grid member's
+   out-of-grid rows, each kernel against its plain version over the
+   whole batch (the same NaN elements) and each member against its own
+   float64 host path; (c) ``run_nuts`` on 4,096 chains over the zheng07
+   posterior of wp + Delta Sigma on the plain float64 engine on the card
+   (no kernel launched; the kernels give no gradient, and the bundle's
+   refusal is printed), a 10-step warmup with the mass matrix, then
+   timed ``nuts_step``s: ms per step, batched gradients, chain gradient
+   evaluations per second, the share of a step outside the batched
+   gradients (each step and each gradient in it timed on CUDA events); the log probability and its gradient on 16 chains held to
+   the host's float64 at 1e-10, no NaN, accept statistics in [0, 1],
+   mean depth >= 1; (d) ``run_hmc_adaptive`` on the same posterior.
+
 Paths 3-5 and 7 run the 'scaled' contract: the grid kernel and slab_tc;
 the 'elementwise' passes run the grid kernel and the FP32 slab kernel,
 held against the same plain versions.  No contract routes to grid_tc
@@ -204,6 +225,7 @@ def main():
     contraction_phase(ctx, kernels)
     slab_phase(ctx, kernels)
     family_phases(ctx, kernels)
+    sampler_phases(ctx, kernels)
     tabulation_phase(ctx, kernels)
 
     for name in KERNELS:
@@ -2041,6 +2063,440 @@ def density_in_cross_check(ctx):
         kernel_vs_plain(f"cross-check wide grid {tier}: code 2 against "
                         f"code 1", [(a[0], a[1].reshape(-1, s_tc.n_xi))],
                         [(b[0], b[1].reshape(-1, s_tc.n_xi))], (False,))
+
+
+# ----------------------------------------------------------------------
+# Joint statistics through engine='auto', and the gradient samplers
+# ----------------------------------------------------------------------
+N_JOINT_STEPS = 3
+N_CHAINS = 4096
+NUTS_WARMUP = 10           # Stan's windows: 1, 8 and 1 step
+NUTS_STEPS = 2
+NUTS_TIMED = 3
+MAX_DEPTH = 6
+HMC_WARMUP = 6
+HMC_STEPS = 4
+HMC_LEAPFROG = 8
+ZHENG07_NAMES = ("logMmin", "sigma_logM", "logM0", "logM1", "alpha")
+ZHENG07_BOUNDS = {"logMmin": (10.0, 13.5), "sigma_logM": (0.01, 1.5),
+                  "logM0": (9.0, 14.0), "logM1": (11.0, 15.0),
+                  "alpha": (0.3, 2.0)}
+
+
+def bolplanck_tables():
+    from tabcorr_tpu_torch import TabCorr
+    data = Path(__file__).resolve().parent / "tabcorr_tpu_torch" / "data"
+    return [TabCorr.read(data / f"bolplanck_{s}.npz") for s in ("wp", "ds")]
+
+
+def diagonal_data(outs):
+    """Each statistic's row 0 as data, 5% errors (a floor of 1e-3)."""
+    import numpy as np
+    data = [xi[0].double().cpu().numpy().ravel() for _, xi in outs]
+    return data, [np.diag(1.0 / (0.05 * np.abs(d) + 1e-3) ** 2)
+                  for d in data]
+
+
+def sampler_phases(ctx, kernels):
+    t_phase = time.perf_counter()
+    bundle_log_prob = joint_phase(ctx, kernels)
+    mixed_members_phase(ctx, kernels)
+    log_prob, host_log_prob, positions0 = gradient_posterior(ctx)
+    nuts_phase(ctx, log_prob, host_log_prob, positions0, bundle_log_prob)
+    hmc_phase(ctx, log_prob, host_log_prob, positions0)
+    print(f"joint + sampler phases: {time.perf_counter() - t_phase:.1f} s")
+
+
+def joint_phase(ctx, kernels):
+    """(a) wp + Delta Sigma through make_multi_predictor(engine='auto'):
+    the bundle kernel, then ensemble steps over its log posterior."""
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
+    from tabcorr_tpu_torch import Zheng07Model, make_multi_predictor
+    from tabcorr_tpu_torch.mcmc import make_gaussian_logpost_batched
+    from tabcorr_tpu_torch.predictor import multi_engine_for
+
+    tabs = bolplanck_tables()
+    model = Zheng07Model(threshold=-18, redshift=tabs[0].attrs["redshift"])
+    route = multi_engine_for(tabs, model, torch.float32, "cuda")
+    check(route == "bundle", f"joint: engine='auto' picked {route!r}")
+    predict = make_multi_predictor(tabs, model, device="cuda",
+                                   engine="auto")
+    predict_plain = make_multi_predictor(tabs, model, device="cuda",
+                                         engine="plain")
+    params = bench_params(model, np.random.default_rng(SEED + 40), BATCH,
+                          "cuda")
+    names = ZHENG07_NAMES
+
+    # ---- path: two predictions, then the ensemble --------------------
+    ctx["reset"]()
+    predict(params)
+    torch.cuda.synchronize()
+    check(fused.BUNDLE_LAUNCHES == 1, "joint: a call is not one launch")
+    outs = predict(params)
+    torch.cuda.synchronize()
+    check(fused.BUNDLE_LAUNCHES == 2, "joint: a call is not one launch")
+    data, inv_cov = diagonal_data(outs)
+    log_prob = make_gaussian_logpost_batched(
+        predict, names, model.param_dict, data, inv_cov, device="cuda")
+    walkers = walkers_around(ctx, model, names, BATCH, SEED + 41)
+    accepts, step_s, lp = run_sampler(ctx, log_prob, walkers, N_JOINT_STEPS,
+                                      "BUNDLE_LAUNCHES", SEED + 41)
+    launched = ctx["expect"]("joint", bundle=3 + 2 * N_JOINT_STEPS)["bundle"]
+    record(kernels, "bundle", launched)
+    (ngal, wp), (ngal_ds, ds) = outs
+    shapes = (tuple(wp.shape), tuple(ds.shape))
+    check(shapes == ((BATCH, 19), (BATCH, 19)), f"joint: shapes {shapes}")
+    for name, out in (("ngal", ngal), ("wp", wp), ("ds", ds)):
+        check(bool(torch.isfinite(out).all()), f"joint: non-finite {name}")
+    print(f"joint (a): make_multi_predictor([bolplanck wp (auto, "
+          f"{tabs[0].n_bins} bins), bolplanck Delta Sigma (cross, "
+          f"{tabs[1].n_bins} bins)], zheng07 -18, engine='auto') -> "
+          f"{route!r}: {launched} bundle launches (one a call: 2 "
+          f"predictions, 1 initial log-prob, 2 per ensemble step x "
+          f"{N_JOINT_STEPS}); accept fractions {accepts}; "
+          f"{BATCH / float(np.median(step_s)):.6g} walker-steps/s "
+          f"(per-step host-clock s {step_s}) on {ctx['card']}")
+
+    # ---- the kernel against its plain version (same inputs) -----------
+    plain = predict_plain(params)
+    torch.cuda.synchronize()
+    ngal_err = max(rel(ngal, plain[0][0]), rel(ngal_ds, plain[1][0]))
+    wp_err, ds_err = rel(wp, plain[0][1]), scaled(ds, plain[1][1])
+    err = max_abs((ngal, plain[0][0]), (ngal_ds, plain[1][0]),
+                  (wp, plain[0][1]), (ds, plain[1][1]))
+    print(f"joint (a): bundle kernel vs plain (B={BATCH}, wp + cross-mode "
+          f"Delta Sigma): ngal max rel {ngal_err:.3e} (<= 1e-6), wp max "
+          f"rel {wp_err:.3e} (<= 2e-6), Delta Sigma max scaled "
+          f"{ds_err:.3e} (<= 1e-6), max abs {err:.3e}")
+    check(ngal_err <= 1e-6, f"joint: ngal kernel vs plain {ngal_err}")
+    check(wp_err <= 2e-6, f"joint: wp kernel vs plain {wp_err}")
+    check(ds_err <= 1e-6, f"joint: Delta Sigma kernel vs plain {ds_err}")
+
+    # ---- against the float64 host path --------------------------------
+    e_ng = e_wp = e_ds = 0.0
+    for i in range(N_PROBE):
+        m = host_model(model, params, i)
+        for tab, (ng, xi), per_element in ((tabs[0], outs[0], True),
+                                          (tabs[1], outs[1], False)):
+            ng64, xi64 = tab.predict(m, check_consistency=False)
+            x, want = xi[i].double().cpu().numpy(), np.ravel(xi64)
+            e_ng = max(e_ng, abs(float(ng[i]) / ng64 - 1))
+            if per_element:
+                e_wp = max(e_wp, float(np.max(np.abs(x / want - 1))))
+            else:
+                e_ds = max(e_ds, float(np.max(np.abs(x - want)) /
+                                       np.max(np.abs(want))))
+    print(f"joint (a): bundle vs float64 host at {N_PROBE} probes: ngal "
+          f"rel {e_ng:.3e} (<= 1e-6), wp rel per element {e_wp:.3e} "
+          f"(<= 1e-6), Delta Sigma scaled {e_ds:.3e} (<= 1e-6)")
+    check(e_ng <= 1e-6 and e_wp <= 1e-6 and e_ds <= 1e-6,
+          "joint: bundle vs float64")
+    ms = ctx["window_ms"](lambda: predict(params), 10)
+    print(f"timing (joint): one engine='auto' call (the bundle, wp + "
+          f"Delta Sigma) {ms:.4f} ms per {BATCH}-row batch "
+          f"({BATCH / ms * 1e3:.6g} predictions/s) on {ctx['card']}")
+    return log_prob
+
+
+def mixed_members_phase(ctx, kernels):
+    """(b) A TabCorr and an Interpolator in one make_multi_predictor
+    (engine='auto'): one contraction launch and one grid launch a call."""
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
+    from tabcorr_tpu_torch import (Interpolator, Zheng07Model,
+                                   make_multi_predictor,
+                                   occupation_functions)
+    from tabcorr_tpu_torch.predictor import (grid_node_weights,
+                                             multi_engine_for, stacked_grid)
+
+    data = Path(__file__).resolve().parent / "tabcorr_tpu_torch" / "data"
+    wp_tab = bolplanck_tables()[0]
+    interp = Interpolator.read(data / "ds_efficient.npz")
+    model = Zheng07Model(threshold=-21, redshift=0.5,
+                         prim_haloprop_key="halo_m258m")
+    model.param_dict.update(log_eta=0.0, alpha_s=1.0, alpha_c=0.0)
+    members = [wp_tab, interp]
+    route = multi_engine_for(members, model, torch.float32, "cuda")
+    check(route == "members", f"mixed: engine='auto' picked {route!r}")
+    predict = make_multi_predictor(members, model, device="cuda",
+                                   engine="auto")
+    rng = np.random.default_rng(SEED + 50)
+    params = bench_params(model, rng, BATCH, "cuda")
+    v = rng.uniform(-0.45, 0.45, BATCH)
+    v[0] = 0.0
+    v[list(OUT_ROWS)] = 0.6
+    params["log_eta"] = torch.tensor(v, dtype=torch.float32, device="cuda")
+
+    # ---- path ----------------------------------------------------------
+    ctx["reset"]()
+    (ng_wp, wp), (ng_ds, ds) = predict(params)
+    torch.cuda.synchronize()
+    launched = ctx["expect"]("mixed members", contraction=1, grid=1)
+    record(kernels, "contraction", 1)
+    record(kernels, "grid", 1)
+    out = torch.zeros(BATCH, dtype=torch.bool, device="cuda")
+    out[list(OUT_ROWS)] = True
+    ds = ds.reshape(BATCH, -1)
+    check(bool(torch.isnan(ng_ds[out]).all() and torch.isnan(ds[out]).all()),
+          "mixed: out-of-grid rows are not all NaN")
+    check(bool(torch.isfinite(ng_ds[~out]).all() and
+               torch.isfinite(ds[~out]).all()),
+          "mixed: NaN or inf inside the grid")
+    check(bool(torch.isfinite(ng_wp).all() and torch.isfinite(wp).all()),
+          "mixed: NaN or inf in the TabCorr member")
+    print(f"mixed (b): make_multi_predictor([bolplanck wp TabCorr, "
+          f"ds_efficient Interpolator ({interp.tabcorr_list[0].n_bins} "
+          f"bins, {len(interp.tabcorr_list)} log_eta nodes)], "
+          f"engine='auto') -> {route!r}: launches "
+          f"{ {k: v for k, v in launched.items() if v} } in one call; rows "
+          f"{OUT_ROWS} outside the grid NaN in the grid member only.  A "
+          "check of the route, not a physical fit: one zheng07 model "
+          "(threshold -21, M258m) drives the z = 0 wp table and the "
+          "z = 0.5 grid")
+
+    # ---- each kernel against its plain version (same inputs) ----------
+    table = wp_tab.table_data(device="cuda")
+    ngal_p, wp_p = fused.contraction_plain(
+        fused.bundle_table_constants(table),
+        fused.occupation_density(table, model, params))
+    stacked, n_nodes, _ = stacked_grid(interp, device="cuda")
+    ngal_g, ds_p = fused.grid_predict_plain(
+        fused.grid_table_constants(stacked, n_nodes), params,
+        grid_node_weights(interp, params), *occupation_functions(model))
+    torch.cuda.synchronize()
+    check(torch.equal(torch.isnan(ds_p), torch.isnan(ds)),
+          "mixed: the grid kernel's NaN elements differ from the plain "
+          "version's")
+    c_ngal, c_wp = rel(ng_wp, ngal_p), rel(wp, wp_p.reshape(wp.shape))
+    g_ngal = rel(ng_ds[~out], ngal_g[~out])
+    g_ds = scaled(ds[~out], ds_p[~out])
+    err = max_abs((ng_wp, ngal_p), (wp, wp_p.reshape(wp.shape)),
+                  (ng_ds[~out], ngal_g[~out]), (ds[~out], ds_p[~out]))
+    print(f"mixed (b): kernels vs plain (B={BATCH}): contraction ngal max "
+          f"rel {c_ngal:.3e} (<= 1e-6), wp max rel {c_wp:.3e} (<= 2e-6); "
+          f"grid ngal max rel {g_ngal:.3e} (<= 1e-6), Delta Sigma max "
+          f"scaled {g_ds:.3e} (<= 1e-6) over the rows inside the grid, "
+          f"NaN elements identical; max abs {err:.3e}")
+    check(c_ngal <= 1e-6, f"mixed: contraction ngal vs plain {c_ngal}")
+    check(c_wp <= 2e-6, f"mixed: contraction wp vs plain {c_wp}")
+    check(g_ngal <= 1e-6, f"mixed: grid ngal vs plain {g_ngal}")
+    check(g_ds <= 1e-6, f"mixed: grid Delta Sigma vs plain {g_ds}")
+
+    # ---- each member against its own float64 host path ----------------
+    e_ng = e_wp = e_ds = 0.0
+    for i in range(N_PROBE):
+        m = host_model(model, params, i)
+        ng64, wp64 = wp_tab.predict(m, check_consistency=False)
+        e_ng = max(e_ng, abs(float(ng_wp[i]) / ng64 - 1))
+        e_wp = max(e_wp, float(np.max(np.abs(
+            wp[i].double().cpu().numpy() / np.ravel(wp64) - 1))))
+        ng64, ds64 = interp.predict(m, check_consistency=False)
+        e_ng = max(e_ng, abs(float(ng_ds[i]) / ng64 - 1))
+        e_ds = max(e_ds, float(np.max(np.abs(
+            ds[i].double().cpu().numpy() - np.ravel(ds64))) /
+            np.max(np.abs(ds64))))
+    print(f"mixed (b): vs float64 host at {N_PROBE} probes: ngal rel "
+          f"{e_ng:.3e} (<= 1e-6), wp (contraction) rel per element "
+          f"{e_wp:.3e} (<= 1e-6), Delta Sigma (grid) scaled {e_ds:.3e} "
+          "(<= 1e-6)")
+    check(e_ng <= 1e-6 and e_wp <= 1e-6 and e_ds <= 1e-6,
+          "mixed: members vs float64")
+    ms = ctx["window_ms"](lambda: predict(params), 5)
+    print(f"timing (mixed): one engine='auto' call (contraction + grid "
+          f"spline weights + grid kernel) {ms:.4f} ms per {BATCH}-row "
+          f"batch on {ctx['card']}")
+
+
+def gradient_posterior(ctx):
+    """The zheng07 log posterior over wp + Delta Sigma on the plain
+    float64 engine, on the card and on the host, and the chains' start:
+    N_CHAINS around the fiducial values."""
+    torch, np = ctx["torch"], ctx["np"]
+    from tabcorr_tpu_torch import Zheng07Model, make_multi_predictor
+    from tabcorr_tpu_torch.mcmc import make_gaussian_logpost_batched
+    from tabcorr_tpu_torch.predictor import multi_engine_for
+
+    tabs = bolplanck_tables()
+    model = Zheng07Model(threshold=-18, redshift=tabs[0].attrs["redshift"])
+    route = multi_engine_for(tabs, model, torch.float64, "cuda")
+    check(route == "members", f"float64: engine='auto' picked {route!r}")
+    data = [np.ravel(tab.predict(model)[1]) for tab in tabs]
+    inv_cov = [np.diag(1.0 / (0.05 * np.abs(d) + 1e-3) ** 2) for d in data]
+
+    def log_posterior(device):
+        predict = make_multi_predictor(tabs, model, dtype=torch.float64,
+                                       device=device, engine="auto")
+        return make_gaussian_logpost_batched(
+            predict, ZHENG07_NAMES, model.param_dict, data, inv_cov,
+            bounds=ZHENG07_BOUNDS, device=device)
+
+    rng = np.random.default_rng(SEED + 60)
+    truth = np.array([model.param_dict[k] for k in ZHENG07_NAMES])
+    positions0 = torch.tensor(
+        truth + 0.01 * rng.normal(size=(N_CHAINS, len(truth))),
+        dtype=torch.float64, device="cuda")
+    return log_posterior("cuda"), log_posterior("cpu"), positions0
+
+
+def gradient_check(ctx, label, log_prob, host_log_prob, q):
+    """The log probability and its gradient on 16 chains against the
+    same float64 computation on the host: 1e-10 relative (the gradient
+    relative to each row's largest component)."""
+    torch = ctx["torch"]
+    from tabcorr_tpu_torch.mcmc import _value_and_grad
+    lp, grad = _value_and_grad(log_prob, q[:N_PROBE])
+    lp_h, grad_h = _value_and_grad(host_log_prob, q[:N_PROBE].cpu())
+    check(bool(torch.isfinite(lp).all() and torch.isfinite(grad).all()),
+          f"{label}: non-finite log-prob or gradient")
+    e_lp, e_g = rel(lp.cpu(), lp_h), scaled(grad.cpu(), grad_h)
+    print(f"{label}: log-prob and gradient on the card vs the host, "
+          f"{N_PROBE} chains: log-prob rel {e_lp:.3e}, gradient scaled "
+          f"{e_g:.3e} (<= 1e-10)")
+    check(e_lp <= 1e-10 and e_g <= 1e-10, f"{label}: card vs host")
+
+
+def counted(log_prob):
+    """``log_prob`` counting its calls (each a batched gradient).  While
+    ``fn.spans`` is a list, each call that autograd differentiates adds
+    its span on the stream to it: a CUDA event recorded where the forward
+    starts and one recorded where the backward reaches ``theta`` (an
+    identity node, the last one the backward runs)."""
+    import torch
+
+    class Span(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, theta, span):
+            ctx.span = span
+            return theta.view_as(theta)
+
+        @staticmethod
+        def backward(ctx, grad):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            ctx.span.append(end)
+            return grad, None
+
+    def fn(theta):
+        fn.calls += 1
+        if fn.spans is not None and theta.requires_grad:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            span = [start]
+            fn.spans.append(span)
+            theta = Span.apply(theta, span)
+        return log_prob(theta)
+    fn.calls, fn.spans = 0, None
+    return fn
+
+
+def chains_check(ctx, label, q, lp):
+    torch = ctx["torch"]
+    check(not bool(torch.isnan(q).any()), f"{label}: NaN in the chains")
+    check(bool(torch.isfinite(lp).all()), f"{label}: non-finite log-prob")
+
+
+def nuts_phase(ctx, log_prob, host_log_prob, positions0, bundle_log_prob):
+    """(c) run_nuts on the plain float64 engine on the card, N_CHAINS
+    chains, mass-matrix warmup, then timed nuts_steps."""
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
+    from tabcorr_tpu_torch.mcmc import _value_and_grad, nuts_step, run_nuts
+
+    gradient_check(ctx, "nuts (c) start", log_prob, host_log_prob,
+                   positions0)
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    fn = counted(log_prob)
+    # ---- path ----------------------------------------------------------
+    ctx["reset"]()
+    t0 = time.perf_counter()
+    chain, lp, mean_depth, step_size = run_nuts(
+        generator, fn, positions0, NUTS_WARMUP, NUTS_STEPS,
+        max_depth=MAX_DEPTH, initial_step_size=0.01, adapt_mass_matrix=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ctx["expect"]("nuts (plain float64 engine)")
+    chains_check(ctx, "nuts", chain, lp)
+    check(float(mean_depth) >= 1.0, f"nuts: mean depth {mean_depth}")
+    print(f"nuts (c): run_nuts, {N_CHAINS} chains x 5 zheng07 parameters, "
+          f"wp + Delta Sigma on the plain float64 engine (no kernel "
+          f"launched), max_depth {MAX_DEPTH}, {NUTS_WARMUP} warmup steps "
+          f"with the mass matrix + {NUTS_STEPS}: {run_s:.2f} s, "
+          f"{fn.calls} batched gradients, mean depth "
+          f"{float(mean_depth):.4g}, step size {step_size:.6g}")
+
+    # ---- timed steps at the adapted step size: each step and each -----
+    # ---- batched gradient inside it on the stream's CUDA events --------
+    q = chain[-1]
+    inv_mass = q.var(dim=0, correction=0)
+    step_ms, grad_ms, outside, n_grads = [], [], [], []
+    for _ in range(NUTS_TIMED):
+        fn.spans = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        q, lp, depth, accept, n_grad = nuts_step(
+            generator, q, fn, step_size, MAX_DEPTH, inv_mass)
+        end.record()
+        end.synchronize()
+        check(all(len(span) == 2 for span in fn.spans),
+              "nuts: a batched gradient without its backward")
+        spans = [a.elapsed_time(b) for a, b in fn.spans]
+        step_ms.append(start.elapsed_time(end))
+        grad_ms.append(spans)
+        outside.append(1 - sum(spans) / step_ms[-1])
+        n_grads.append(int(n_grad.sum()))
+        chains_check(ctx, "nuts step", q, lp)
+        check(bool(((accept >= 0) & (accept <= 1)).all()),
+              "nuts: accept statistic outside [0, 1]")
+    fn.spans = None
+    gradient_check(ctx, "nuts (c) end", log_prob, host_log_prob, q)
+    ms = float(np.median(step_ms))
+    all_spans = [t for spans in grad_ms for t in spans]
+    print(f"nuts (c): {ms:.4f} ms per NUTS step (median of {step_ms}, "
+          f"CUDA events), {[len(t) for t in grad_ms]} batched gradients a "
+          f"step (each {float(np.median(all_spans)):.4f} ms median, "
+          f"{min(all_spans):.4f}-{max(all_spans):.4f} ms, on the stream "
+          f"from the forward's start to the backward's end), "
+          f"{sum(n_grads) / (sum(step_ms) / 1e3):.6g} chain gradient "
+          f"evaluations/s ({n_grads} a step over {N_CHAINS} chains), one "
+          f"host read a leapfrog; share of each step outside the batched "
+          f"gradients (host reads, masking, draws) {outside}; depths "
+          f"{torch.bincount(depth).tolist()} on {ctx['card']}")
+
+    # ---- the kernels give no gradient ---------------------------------
+    refused = None
+    try:
+        _value_and_grad(bundle_log_prob, positions0[:4].float())
+    except RuntimeError as err:
+        refused = str(err)
+    check(refused == fused.NO_GRADIENT,
+          f"the bundle gave a gradient or another error: {refused}")
+    print(f"nuts (c): autograd through the bundle kernel refuses: {refused}")
+
+
+def hmc_phase(ctx, log_prob, host_log_prob, positions0):
+    """(d) run_hmc_adaptive on the same log posterior."""
+    torch, np = ctx["torch"], ctx["np"]
+    from tabcorr_tpu_torch.mcmc import run_hmc_adaptive
+
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    fn = counted(log_prob)
+    ctx["reset"]()
+    t0 = time.perf_counter()
+    chain, lp, accept, step_size = run_hmc_adaptive(
+        generator, fn, positions0, HMC_WARMUP, HMC_STEPS,
+        n_leapfrog=HMC_LEAPFROG, initial_step_size=0.005)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ctx["expect"]("hmc (plain float64 engine)")
+    chains_check(ctx, "hmc", chain, lp)
+    check(0.0 <= float(accept) <= 1.0, f"hmc: accept fraction {accept}")
+    check(bool((chain[-1] != positions0).any()), "hmc: no chain moved")
+    gradient_check(ctx, "hmc (d) end", log_prob, host_log_prob, chain[-1])
+    steps = HMC_WARMUP + HMC_STEPS
+    print(f"hmc (d): run_hmc_adaptive, {N_CHAINS} chains, {HMC_WARMUP} "
+          f"warmup + {HMC_STEPS} steps of {HMC_LEAPFROG} leapfrogs: "
+          f"{run_s / steps * 1e3:.4g} ms per HMC step ({fn.calls} batched "
+          f"gradients), accept fraction {float(accept):.4g}, step size "
+          f"{step_size:.6g} on {ctx['card']}")
 
 
 # ----------------------------------------------------------------------

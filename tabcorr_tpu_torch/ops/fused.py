@@ -564,6 +564,13 @@ def contraction_fits(n_bins, n_xi) -> bool:
     return fp32_stage_steps(n_bins, n_xi) is not None
 
 
+def bundle_takes(shapes) -> bool:
+    """Whether one bundle launch takes tables of these (n_bins, n_xi)."""
+    return (1 <= len(shapes) <= _MAX_TABLES and
+            contraction_fits(max(n for n, _ in shapes),
+                             max(k for _, k in shapes)))
+
+
 def _half_arrays(h: SlabTcTable):
     return (h.b, h.ct_step0, h.ct_steps, h.ct_off, h.col_k, h.col_i0)
 
@@ -682,6 +689,45 @@ def shaped(tables, results):
             for t, (total, xi) in zip(tables, results)]
 
 
+NO_GRADIENT = (
+    "the kernel-backed predictors (make_predictor(engine='fused'), "
+    "make_multi_predictor(engine='bundle')) compute no gradient: "
+    "differentiate the plain float64 engine instead, "
+    "make_predictor(..., dtype=torch.float64) or "
+    "make_multi_predictor(..., dtype=torch.float64)")
+
+
+class _NoGradient(torch.autograd.Function):
+    """The identity on a kernel's output, tied to the tensors it was
+    computed from; its backward raises :data:`NO_GRADIENT`, so autograd
+    never returns a zero or missing gradient through a kernel."""
+
+    @staticmethod
+    def forward(ctx, out, *inputs):
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError(NO_GRADIENT)
+
+
+def refuse_gradient(out, params, *extra):
+    """``out`` (a tensor or nested tuples and lists of them) tied through
+    :class:`_NoGradient` to every tensor of ``params`` (a dict) and
+    ``extra`` that requires a gradient; unchanged where none does."""
+    inputs = [v for v in (*params.values(), *extra)
+              if torch.is_tensor(v) and v.requires_grad]
+    if not inputs or not torch.is_grad_enabled():
+        return out
+
+    def tie(x):
+        if torch.is_tensor(x):
+            return _NoGradient.apply(x, *inputs)
+        return type(x)(tie(y) for y in x)
+
+    return tie(out)
+
+
 def make_fused_bundle_predictor(tables, model, accuracy=None):
     """One-kernel multi-statistic predictor.
 
@@ -747,7 +793,7 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
             results = bundle_predict_plain(consts, params, occ_cen, occ_sat)
         else:
             results = bundle_launch(consts, _param_matrix(params, hod), hod)
-        return shaped(tables, results)
+        return refuse_gradient(shaped(tables, results), params)
 
     return predict_batch
 
@@ -1056,7 +1102,9 @@ def make_fused_predictor(table: TableData, model, accuracy="elementwise"):
 
     def predict_batch(params):
         total, xi = contract(params)
-        return total, xi.reshape((xi.shape[0],) + tuple(table.tpcf_shape))
+        return refuse_gradient(
+            (total, xi.reshape((xi.shape[0],) + tuple(table.tpcf_shape))),
+            params)
 
     return predict_batch
 
@@ -1818,7 +1866,7 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
         return _param_matrix(params, hod)
 
     if layout == "slab":
-        def run_slab(params):
+        def slab_outputs(params):
             _check_params_device(params, device)
             if device.type == "cuda":
                 return launch(consts, inputs(params), hod)
@@ -1827,9 +1875,9 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
                     consts, occupation_density(table, model, params))
             return slab_predict_plain(consts, params, occ_cen, occ_sat)
 
-        return run_slab
+        return lambda params: refuse_gradient(slab_outputs(params), params)
 
-    def run(params, node_weights):
+    def outputs(params, node_weights):
         _check_params_device(params, device)
         if device.type == "cuda":
             return launch(consts, inputs(params), node_weights, hod)
@@ -1839,6 +1887,10 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
                 node_weights)
         return grid_predict_plain(consts, params, node_weights, occ_cen,
                                   occ_sat)
+
+    def run(params, node_weights):
+        return refuse_gradient(outputs(params, node_weights), params,
+                               node_weights)
 
     if fold_spline:
         return run

@@ -32,8 +32,12 @@ under 'auto' and raises under 'fused' and 'bundle'.
 Every entry point runs on the CUDA device unless ``device="cpu"`` is
 passed; without a card it raises (``utils.device.resolve_device``).
 
-:func:`make_multi_predictor` evaluates several tabulations at once through
-one launch of the bundle kernel.
+:func:`make_multi_predictor` evaluates several tabulations at once: through
+one launch of the bundle kernel, or (``engine='auto'``) one predictor per
+member where the bundle does not take them (Interpolators, float64).
+
+The kernels compute no gradient; autograd runs through the plain engine,
+in float64 for the gradient samplers (``mcmc.run_hmc``, ``mcmc.run_nuts``).
 """
 
 from __future__ import annotations
@@ -52,8 +56,8 @@ from .table import TabCorr
 from .utils.device import resolve_device
 
 __all__ = ["occupation_functions", "make_predictor", "make_multi_predictor",
-           "make_occupation_predictor", "params_batch", "stacked_grid",
-           "grid_node_weights"]
+           "multi_engine_for", "make_occupation_predictor", "params_batch",
+           "stacked_grid", "grid_node_weights"]
 
 ENGINES = ("auto", "fused", "plain")
 
@@ -290,24 +294,48 @@ def _fused_kernel_takes(obj):
     return fused.grid_kernel_takes(tab.n_bins, tab.mode, n_xi)
 
 
-def _fused_eligible(obj, model, dtype, separate_gal_type):
-    return (not separate_gal_type and dtype == torch.float32 and
+def _fused_eligible(obj, model, dtype, separate_gal_type, vectorized=True):
+    return (vectorized and not separate_gal_type and
+            dtype == torch.float32 and
             getattr(model, "supports_fused_engine", True) and
             (isinstance(obj, TabCorr) or
              len(obj.unique_gal_type_index) == 1))
 
 
-def _auto_engine(obj, model, dtype, separate_gal_type, device):
+def _auto_engine(obj, model, dtype, separate_gal_type, device,
+                 vectorized=True):
     """The engine 'auto' picks: 'fused' on CUDA where the object, model
     and dtype allow it and a kernel takes the shapes, else 'plain'."""
     return ("fused" if device.type == "cuda" and
-            _fused_eligible(obj, model, dtype, separate_gal_type) and
+            _fused_eligible(obj, model, dtype, separate_gal_type,
+                            vectorized) and
             _fused_kernel_takes(obj) else "plain")
 
 
+def _unbatched(predict, dtype, device):
+    """``predict`` over a dict of 0-d tensors: each parameter gets a batch
+    axis of 1, which every output loses again.  Traceable by
+    ``torch.vmap``, which maps the 0-d parameters."""
+    def drop(x):
+        if isinstance(x, dict):
+            return {k: drop(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(drop(v) for v in x)
+        return x[0]
+
+    def predict_one(params):
+        return drop(predict({
+            k: (v if torch.is_tensor(v) else
+                torch.tensor(v, dtype=dtype, device=device)).reshape(1)
+            for k, v in params.items()}))
+
+    return predict_one
+
+
 def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
-                   separate_gal_type=False, engine="auto", extrapolate=False,
-                   accuracy="elementwise", *, device="cuda"):
+                   separate_gal_type=False, vectorized=True, engine="auto",
+                   extrapolate=False, accuracy="elementwise", *,
+                   device="cuda"):
     """Batched predictor for a tabulation or an interpolator.
 
     Parameters
@@ -323,11 +351,17 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
         float64 host path to rounding).
     separate_gal_type : bool, optional
         Per-galaxy-type dicts (plain engine).
+    vectorized : bool, optional
+        True (default): the callable maps dicts of (B,) tensors.  False:
+        dicts of 0-d tensors (or floats) to (ngal 0-d, xi tpcf_shape), on
+        the plain engine; ``torch.vmap`` maps it over a batch.
     engine : str, optional
         'fused', 'plain' or 'auto' (default; see the module docstring).
-        'fused' takes float32, no ``separate_gal_type``, a model whose
-        ``supports_fused_engine`` is true, and an Interpolator only if its
-        nodes share one halo binning.
+        'fused' takes float32, ``vectorized``, no ``separate_gal_type``, a
+        model whose ``supports_fused_engine`` is true, and an Interpolator
+        only if its nodes share one halo binning.  It computes no
+        gradient (``ops.fused.NO_GRADIENT``): autograd runs through the
+        plain engine, in float64 for the samplers of :mod:`.mcmc`.
     extrapolate : bool, optional
         Interpolators only.  False (default) gives NaN for parameters
         outside the grid -- pair it with a log posterior that maps
@@ -345,7 +379,8 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
     Returns
     -------
     callable
-        ``f(params dict of (B,) tensors) -> (ngal, xi)``.
+        ``f(params dict of (B,) tensors) -> (ngal, xi)``; with
+        ``vectorized=False``, of 0-d tensors.
     """
     device = resolve_device(device)
     if engine not in ENGINES:
@@ -356,15 +391,18 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
         raise NotImplementedError(
             "the bfloat16 fused route (tabcorr_tpu's XLA occupation plus "
             "bf16 contraction) is not ported; ROADMAP.md lists it.")
-    fused_eligible = _fused_eligible(obj, model, dtype, separate_gal_type)
+    fused_eligible = _fused_eligible(obj, model, dtype, separate_gal_type,
+                                     vectorized)
     if engine == "auto":
-        engine = _auto_engine(obj, model, dtype, separate_gal_type, device)
+        engine = _auto_engine(obj, model, dtype, separate_gal_type, device,
+                              vectorized)
     if engine == "fused":
         if not fused_eligible:
             raise ValueError(
-                "engine='fused' requires float32, separate_gal_type=False, "
-                "a model whose supports_fused_engine is true, and a TabCorr "
-                "or an Interpolator whose nodes share one halo binning.")
+                "engine='fused' requires float32, vectorized=True, "
+                "separate_gal_type=False, a model whose "
+                "supports_fused_engine is true, and a TabCorr or an "
+                "Interpolator whose nodes share one halo binning.")
         if isinstance(obj, Interpolator):
             return _interpolator_fused_predict_fn(obj, model, n_gauss,
                                                   extrapolate, accuracy,
@@ -372,49 +410,94 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
         table = obj.table_data(n_gauss=n_gauss, dtype=dtype, device=device)
         return fused.make_fused_predictor(table, model, accuracy)
     if isinstance(obj, Interpolator):
-        return _interpolator_predict_fn(obj, model, n_gauss, dtype,
-                                        separate_gal_type, extrapolate,
-                                        device)
-    return _tabcorr_predict_fn(obj, model, n_gauss, dtype, separate_gal_type,
-                               device)
+        predict = _interpolator_predict_fn(obj, model, n_gauss, dtype,
+                                           separate_gal_type, extrapolate,
+                                           device)
+    else:
+        predict = _tabcorr_predict_fn(obj, model, n_gauss, dtype,
+                                      separate_gal_type, device)
+    return predict if vectorized else _unbatched(predict, dtype, device)
 
 
-def make_multi_predictor(objs, model, n_gauss=10, *, device="cuda",
-                         engine="bundle", accuracy=None):
+MULTI_ENGINES = ("auto", "bundle", "plain")
+
+
+def _float32_tabcorrs(objs, dtype):
+    return dtype == torch.float32 and all(isinstance(obj, TabCorr)
+                                          for obj in objs)
+
+
+def multi_engine_for(objs, model, dtype, device):
+    """The engine ``make_multi_predictor(engine='auto')`` picks: 'bundle'
+    on a CUDA device for float32 TabCorr members, a model whose
+    ``supports_fused_engine`` is true and tables one bundle launch takes
+    (the counterpart of tabcorr_tpu's shared VMEM budget,
+    ``tabcorr_tpu/predictor.py:559-563``); else 'members', one
+    ``make_predictor(engine='auto')`` per member."""
+    return ("bundle" if torch.device(device).type == "cuda" and
+            _float32_tabcorrs(objs, dtype) and
+            getattr(model, "supports_fused_engine", True) and
+            fused.bundle_takes([(obj.n_bins, int(np.prod(obj.tpcf_shape)))
+                                for obj in objs])
+            else "members")
+
+
+def make_multi_predictor(objs, model, n_gauss=10, dtype=torch.float32, *,
+                         device="cuda", engine="bundle", accuracy=None):
     """Joint predictor over several tabulations (e.g. wp + xi_0/2/4 + ds).
 
     Parameters
     ----------
-    objs : sequence of TabCorr
+    objs : sequence of TabCorr or Interpolator
     model : HodModel
         Under 'bundle' a model whose ``supports_fused_engine`` is true
         (``ops.fused.kernel_model``: zheng07 and its decoration in the
         kernel, any other model's densities ahead of it, from the
-        occupation kernel or tensor ops);
-        any model under 'plain'.
+        occupation kernel or tensor ops); any model under 'plain' and
+        'auto'.
     n_gauss : int, optional
         Gauss-Legendre nodes per halo bin. Default 10.
+    dtype : torch.dtype, optional
+        float32 (default; 'bundle' and 'plain' take only it) or float64
+        ('auto': every member on the plain engine, differentiable).
     device : str or torch.device, optional
         Where the tables live and the batch runs: 'cuda' (default) or
         'cpu'.
     engine : str, optional
-        'bundle' (default): on a CUDA device one launch of the bundle
-        kernel per call, on the CPU its plain version.  'plain': the plain
-        tensor version on any device (tests and timing).
+        'bundle' (default): float32 TabCorr members only; on a CUDA device
+        one launch of the bundle kernel per call, on the CPU its plain
+        version.  'plain': that plain version on any device (tests and
+        timing).  'auto': 'bundle' where :func:`multi_engine_for` allows
+        it, else one ``make_predictor(obj, model, n_gauss, dtype,
+        engine='auto')`` per member (tabcorr_tpu's 'xla' engine): on the
+        card the contraction kernel for a float32 TabCorr, the grid or
+        slab kernel for a float32 Interpolator, the plain engine in
+        float64; on the CPU the plain versions.
     accuracy : sequence of str, optional
-        One contract per table, 'elementwise' (default) or 'scaled'.
-        Both run at full float32 precision.
+        One contract per member, 'elementwise' (default) or 'scaled'
+        (see :func:`make_predictor`).
 
     Returns
     -------
     callable
-        ``f(params dict of (B,) float32 tensors) -> [(ngal, xi), ...]``,
-        float32 throughout.
+        ``f(params dict of (B,) tensors) -> [(ngal, xi), ...]`` in
+        ``dtype``.
     """
     device = resolve_device(device)
-    if engine not in ("bundle", "plain"):
+    if engine not in MULTI_ENGINES:
         raise ValueError(f"Unknown engine: {engine!r}")
     accuracy = fused.check_accuracy(accuracy, len(objs))
+    if engine == "auto":
+        engine = multi_engine_for(objs, model, dtype, device)
+    if engine == "members":
+        fns = [make_predictor(obj, model, n_gauss, dtype, engine="auto",
+                              accuracy=acc, device=device)
+               for obj, acc in zip(objs, accuracy)]
+        return lambda params: [fn(params) for fn in fns]
+    if not _float32_tabcorrs(objs, dtype):
+        raise ValueError(
+            f"engine={engine!r} requires float32 and TabCorr members; "
+            "engine='auto' takes Interpolators and float64.")
     tables = [obj.table_data(n_gauss=n_gauss, dtype=torch.float32,
                              device=device) for obj in objs]
     if engine == "bundle":

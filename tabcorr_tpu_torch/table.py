@@ -37,8 +37,10 @@ class TabCorr:
 
     def __init__(self):
         self.attrs = {}
-        self.gal_type = None
-        self.tpcf_matrix = None
+        self._gal_type = None
+        self._gal_type_version = 0
+        self._tpcf_matrix = None
+        self._matrix_version = 0
         self.tpcf_args = ()
         self.tpcf_kwargs = {}
         self.tpcf_shape = ()
@@ -46,9 +48,32 @@ class TabCorr:
         self._dense_cache = None
         self._table_data_cache = {}
 
+    # Version counters key the derived-data caches (tabcorr_tpu/table.py:
+    # 35-66): assigning ``tpcf_matrix`` or ``gal_type`` anew invalidates
+    # them.  An edit in place is not seen: reassign, or clear_caches().
+    @property
+    def tpcf_matrix(self):
+        return self._tpcf_matrix
+
+    @tpcf_matrix.setter
+    def tpcf_matrix(self, value):
+        self._tpcf_matrix = value
+        self._matrix_version += 1
+
+    @property
+    def gal_type(self):
+        return self._gal_type
+
+    @gal_type.setter
+    def gal_type(self, value):
+        self._gal_type = value
+        self._gal_type_version += 1
+        # The quadrature derives from the gal_type columns only.
+        self._quad_cache = {}
+
     def clear_caches(self):
         """Forget the derived data (after ``tpcf_matrix`` or ``gal_type``
-        is assigned anew)."""
+        was edited in place)."""
         self._quad_cache = {}
         self._dense_cache = None
         self._table_data_cache = {}
@@ -175,24 +200,27 @@ class TabCorr:
         """The stored matrix in its dense contraction form (float64).
 
         Auto mode: (n_xi, n_bins, n_bins) symmetric; cross mode: unchanged
-        (n_xi, n_bins).  Cached; assigning ``tpcf_matrix`` anew is not
-        tracked, so a changed table is read into a new ``TabCorr``.
+        (n_xi, n_bins).  Cached per matrix version.
         """
         if self.mode != AUTO:
             return self.tpcf_matrix
-        if self._dense_cache is None:
-            self._dense_cache = array_to_symmetric_matrix(self.tpcf_matrix)
-        return self._dense_cache
+        if (self._dense_cache is None or
+                self._dense_cache[0] != self._matrix_version):
+            self._dense_cache = (self._matrix_version,
+                                 array_to_symmetric_matrix(self.tpcf_matrix))
+        return self._dense_cache[1]
 
     def table_data(self, n_gauss=10, dtype=torch.float32, *,
                    device="cuda") -> TableData:
-        """The tabulation as tensors on ``device`` (cached per arguments).
+        """The tabulation as tensors on ``device`` (cached per arguments
+        and per version of ``tpcf_matrix`` and ``gal_type``).
 
         In float32 the float64 node residual ``log_prim_quad_lo`` is kept,
         so occupations are evaluated at the float64 node positions.
         """
         device = resolve_device(device)
-        key = (n_gauss, dtype, device)
+        key = (n_gauss, dtype, device, self._matrix_version,
+               self._gal_type_version)
         if key not in self._table_data_cache:
             np_dtype = numpy_dtype(dtype)
             log_quad, weight = self._quadrature(n_gauss)
@@ -293,6 +321,12 @@ class TabCorr:
             for name, vec in [("centrals", n_c), ("satellites", n_s)]:
                 xi_dict[name] = (dense @ vec / total).reshape(self.tpcf_shape)
         return ngal_dict, xi_dict
+
+    def make_predictor(self, model, **kwargs):
+        """Batched predictor for this tabulation: see
+        :func:`tabcorr_tpu_torch.predictor.make_predictor`."""
+        from .predictor import make_predictor
+        return make_predictor(self, model, **kwargs)
 
     def __repr__(self):
         return (f"TabCorr(tpcf={self.attrs.get('tpcf')}, mode="

@@ -115,7 +115,10 @@ def _dgamma_dx(a, x):
 
 class _GammaUpper(torch.autograd.Function):
     """Gamma(a, x) for a > 0 on tensors of one shape, with derivatives in
-    both arguments (forward and reverse mode)."""
+    both arguments (forward and reverse mode), under ``torch.vmap`` too
+    (the unvectorized predictors are mapped over chains)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(a, x):

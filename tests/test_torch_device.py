@@ -16,7 +16,8 @@ from conftest import DATA_DIR
 ENTRY_POINTS = [ttt.make_predictor, ttt.make_multi_predictor,
                 ttt.make_occupation_predictor, ttt.params_batch,
                 predictor.stacked_grid, ttt.TabCorr.table_data,
-                mcmc.make_gaussian_logpost_batched]
+                mcmc.make_gaussian_logpost_batched,
+                mcmc.make_gaussian_logpost]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__name__)

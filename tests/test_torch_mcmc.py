@@ -65,6 +65,97 @@ def test_gaussian_logpost_batched_matches_jax():
     np.testing.assert_allclose(got[finite], ref[finite], rtol=1e-6)
 
 
+def test_float64_logpost_batched_keeps_the_data_in_float64():
+    """float64 theta: data, residual and inverse covariance stay float64,
+    as tabcorr_tpu's under x64 (1e-12), on data float32 cannot hold."""
+    data, inv_cov, theta = _posterior_inputs()
+    data = [d + 1e-9 * np.arange(d.size) for d in data]
+    assert all(np.any(d.astype(np.float32) != d) for d in data)
+    theta = theta.astype(np.float64)
+    kwargs = dict(bounds={"logM1": (11.0, 14.0)}, ngal_data=30.0,
+                  ngal_sigma=0.5)
+    ref = np.asarray(jax_mcmc.make_gaussian_logpost_batched(
+        _linear_predictor(jnp), NAMES, BASE, data, inv_cov, **kwargs)(
+        jnp.asarray(theta)))
+    got = mcmc.make_gaussian_logpost_batched(
+        _linear_predictor(torch), NAMES, BASE, data, inv_cov,
+        device="cpu", **kwargs)(torch.tensor(theta))
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(ref))
+    finite = np.isfinite(ref)
+    np.testing.assert_allclose(got.numpy()[finite], ref[finite], rtol=1e-12)
+    # The float32 path rounds the data: the same theta in float32 reads
+    # the chi^2 of the rounded data.
+    got32 = mcmc.make_gaussian_logpost_batched(
+        _linear_predictor(torch), NAMES, BASE, data, inv_cov,
+        device="cpu", **kwargs)(torch.tensor(theta, dtype=torch.float32))
+    assert got32.dtype == torch.float32
+
+
+@pytest.mark.parametrize("target", ["wp", "grid"])
+def test_gaussian_logpost_matches_jax(target):
+    """The unvectorized log posterior over the plain float64 predictor,
+    mapped by torch.vmap, against tabcorr_tpu's under jax.vmap (1e-12):
+    the ngal term, the bounds, and -inf outside an Interpolator's grid."""
+    import tabcorr_tpu as tt
+    import tabcorr_tpu_torch as ttt
+    from tabcorr_tpu.predictor import make_predictor as jax_make_predictor
+
+    from conftest import DATA_DIR
+
+    if target == "grid":
+        path = (DATA_DIR / "AbacusSummit" / "base_c000_ph000" / "0p50" /
+                "ds_efficient.hdf5")
+        objs = (tt.Interpolator.read(path), ttt.Interpolator.read(path))
+        kw = dict(threshold=-21, redshift=0.5,
+                  prim_haloprop_key="halo_m258m")
+        names = ("logM1", "log_eta")
+    else:
+        path = DATA_DIR / "examples" / "bolplanck_wp.hdf5"
+        objs = (tt.TabCorr.read(path), ttt.TabCorr.read(path))
+        kw = dict(threshold=-18,
+                  redshift=float(objs[1].attrs["redshift"]))
+        names = ("logMmin", "logM1")
+    models = (tt.Zheng07Model(**kw), ttt.Zheng07Model(**kw))
+    for m in models:
+        m.param_dict.update(log_eta=0.0, alpha_s=1.0, alpha_c=0.0)
+    jax_one = jax_make_predictor(objs[0], models[0], dtype=jnp.float64,
+                                 vectorized=False, jit=False, engine="xla")
+    one = ttt.make_predictor(objs[1], models[1], dtype=torch.float64,
+                             vectorized=False, device="cpu")
+    ngal, xi = objs[1].predict(models[1])
+    data = np.asarray(xi).ravel() * 1.03
+    inv_cov = np.diag(1.0 / (0.05 * np.abs(data)) ** 2)
+    kwargs = dict(bounds={"logM1": (12.0, 14.0)},
+                  ngal_data=float(ngal) * 1.1,
+                  ngal_sigma=float(ngal) * 0.2)
+    jax_lp = jax_mcmc.make_gaussian_logpost(
+        jax_one, names, {k: jnp.float64(v)
+                         for k, v in models[0].param_dict.items()},
+        data, inv_cov, **kwargs)
+    lp = mcmc.make_gaussian_logpost(one, names, models[1].param_dict, data,
+                                    inv_cov, device="cpu", **kwargs)
+    rng = np.random.default_rng(5)
+    theta = (np.array([models[1].param_dict[k] for k in names]) +
+             0.03 * rng.normal(size=(6, 2)))
+    theta[1, names.index("logM1")] = 11.5             # out of bounds
+    if target == "grid":
+        theta[4, 1] = 3.0                              # outside the grid
+    want = np.asarray(jax.vmap(jax_lp)(jnp.asarray(theta)))
+    got = torch.vmap(lp)(torch.tensor(theta))
+    assert got.dtype == torch.float64 and got.shape == (6,)
+    np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(want))
+    assert np.isneginf(got[1].item())
+    assert np.isneginf(got[4].item()) == (target == "grid")
+    finite = np.isfinite(want)
+    assert finite.sum() >= 4
+    np.testing.assert_allclose(got.numpy()[finite], want[finite],
+                               rtol=1e-12)
+    # One theta at a time, as the samplers' vmap sees it.
+    np.testing.assert_allclose(lp(torch.tensor(theta[0])).item(), want[0],
+                               rtol=1e-12)
+
+
 def _gauss_torch(theta):
     mean = torch.tensor([1.0, -2.0], dtype=theta.dtype)
     sigma = torch.tensor([0.5, 2.0], dtype=theta.dtype)

@@ -80,7 +80,8 @@ def test_npz_and_hdf5_reads_agree(fixture, tmp_path):
                             from_hdf5)
 
 
-@pytest.mark.parametrize("name", ["bolplanck_wp", "synthetic_xi_ell"])
+@pytest.mark.parametrize("name", ["bolplanck_wp", "synthetic_xi_ell",
+                                  "bolplanck_ds"])
 def test_packaged_npz_copies_match_hdf5(name):
     _assert_same_tabulation(
         ttt.TabCorr.read(PACKAGE_DATA / f"{name}.npz"),
@@ -119,3 +120,46 @@ def test_table_data_needs_an_explicit_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tab.table_data(device="cuda")
+
+
+def test_matrix_reassignment_invalidates_caches():
+    # Assigning a new tpcf_matrix invalidates the dense-matrix and tensor
+    # caches (tabcorr_tpu's tests/test_predict.py:183-199).
+    tab = ttt.TabCorr.read(DATA_DIR / FIXTURES[0])
+    model = ttt.Zheng07Model(threshold=-18, redshift=tab.attrs["redshift"])
+    _, xi = tab.predict(model)
+    tab.table_data(device="cpu")
+    tab.table_data(dtype=torch.float64, device="cpu")
+
+    tab.tpcf_matrix = tab.tpcf_matrix * 2.0
+    _, xi2 = tab.predict(model)
+    np.testing.assert_allclose(xi2, 2.0 * xi, rtol=1e-12)
+    np.testing.assert_allclose(
+        tab.table_data(device="cpu").tpcf_dense.numpy(),
+        tab.dense_matrix().astype(np.float32), rtol=1e-6)
+    predict = ttt.make_predictor(tab, model, dtype=torch.float64,
+                                 device="cpu")
+    params = ttt.params_batch(model, batch_shape=(2,), dtype=torch.float64,
+                              device="cpu")
+    np.testing.assert_allclose(predict(params)[1][0].numpy(), xi2,
+                               rtol=1e-12)
+
+
+def test_gal_type_reassignment_clears_the_quadrature():
+    tab = ttt.TabCorr.read(DATA_DIR / FIXTURES[0])
+    model = ttt.Zheng07Model(threshold=-18, redshift=tab.attrs["redshift"])
+    occ = tab.mean_occupation(model)
+    quad = tab.table_data(dtype=torch.float64, device="cpu").log_prim_quad
+
+    gal_type = tab.gal_type.copy()
+    gal_type["log_prim_haloprop_max"] = (
+        np.asarray(gal_type["log_prim_haloprop_max"]) + 0.05)
+    tab.gal_type = gal_type
+    moved = tab.table_data(dtype=torch.float64, device="cpu").log_prim_quad
+    assert not torch.equal(moved, quad)
+    fresh = ttt.TabCorr.read(DATA_DIR / FIXTURES[0])
+    fresh.gal_type = gal_type
+    np.testing.assert_array_equal(tab.mean_occupation(model),
+                                  fresh.mean_occupation(model))
+    assert (np.max(np.abs(tab.mean_occupation(model) - occ)) >
+            1e-3 * np.max(occ))
