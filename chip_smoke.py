@@ -36,13 +36,19 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    predictor on all 8 parameters, three ensemble steps, 262,144 walkers.
 6. Contraction: ``make_predictor(tab, engine="fused")`` on both bundle
    tables, and on xi_ell with the decorated model.
-7. Wide grid (slab_tc kernel): ``make_predictor(interp, engine="fused",
-   accuracy="scaled")`` on the 64-node grid of 160 bins (40 mass x 2
-   secondary-percentile bins x 2 galaxy types), too wide for the grid
-   kernels' packed layout; the decorated model at threshold -20, 32,768
-   rows, a few outside the grid; then two ensemble steps over its 10
-   parameters; then the 'elementwise' route (the FP32 slab kernel, from
-   the same constants).
+7. Wide grid (slab_tc kernel, 3xTF32 on wgmma): ``make_predictor(interp,
+   engine="fused", accuracy="scaled")`` on the 64-node grid of 160 bins
+   (40 mass x 2 secondary-percentile bins x 2 galaxy types), too wide for
+   the grid kernels' packed layout; the decorated model at threshold -20,
+   32,768 rows, a few outside the grid; then two ensemble steps over its
+   10 parameters; then slab_tc against its plain version off those
+   shapes (156 bins at 32,691 rows; 400 bins, whose block has one
+   consumer warpgroup); then the 'elementwise' route (the FP32 slab
+   kernel, from the block-triangular half that slab_tc's split constants
+   are cut from).  slab_tc's block (warpgroups, ring slots, cluster size)
+   is printed, ptxas' registers and spills of every slab.cu kernel, and
+   the register budgets slab_tc's warpgroups set (setmaxnreg) as its SASS
+   shows them.
 
 8. The other HOD families, whose densities the occupation kernel
    computes and the kernels read (model code 2): the bundle on the wp +
@@ -145,6 +151,7 @@ import copy
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -269,9 +276,10 @@ def make_context():
         log = library_path(name).with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else ():
             if "registers" in line or "spill" in line or (
-                    name in ("occupation", "paircount") and
+                    name in ("occupation", "paircount", "slab") and
                     "entry function" in line):
                 print(f"ptxas ({name}): {line.strip()}")
+    slab_tc_register_budgets(library_path("slab"))
     modules = {"fused": fused, "paircount": paircount}
 
     def reset():
@@ -329,6 +337,33 @@ def make_context():
                 card=card, reset=reset,
                 expect=expect, window_ms=window_ms, alternate=alternate,
                 library_ms=library_ms)
+
+
+def slab_tc_register_budgets(lib):
+    """Print the setmaxnreg budgets of each slab_tc instantiation from its
+    SASS (USETMAXREG).  ptxas -v reports a kernel that reallocates
+    registers at its launch bound (65,536 / 384 threads: 168); its
+    producer warpgroup then runs at the first budget, its consumers at the
+    second.  A kernel with none uses what ptxas reports."""
+    from tabcorr_tpu_torch.utils.build import nvcc_path
+    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    for func in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = func.split("\n", 1)[0].strip()
+        if "slab_tc_kernel" not in name:
+            continue
+        instr = list(dict.fromkeys(
+            " ".join(i.split()) for i in re.findall(r"USETMAXREG[^;]*", func)))
+
+        def budget(kind):
+            return [int(re.findall(r"0x[0-9a-f]+|\b\d+\b", i)[-1], 0)
+                    for i in instr if ("DEALLOC" in i) == (kind == "dec")]
+        print(f"setmaxnreg (slab, SASS): {name}: " + (
+            f"registers a thread: producer {budget('dec')}, consumers "
+            f"{budget('inc')} (ptxas' count above is the launch bound; "
+            f"{instr})" if instr else
+            "none (ptxas' count above is what it uses)"))
 
 
 def record(kernels, name, launches, **numbers):
@@ -1084,7 +1119,13 @@ def slab_phase(ctx, kernels):
     # ---- kernel against its plain version, per node, same inputs -------
     stacked, n_nodes, _ = stacked_grid(interp, device="cuda")
     s = fused.slab_table_constants(stacked, n_nodes)
-    s_tc = fused.slab_tc_table_constants(stacked, n_nodes)
+    s_half = fused.slab_tc_table_constants(stacked, n_nodes)
+    s_tc = fused.slab_split_table_constants(stacked, n_nodes)
+    wgs, stages = fused.slab_tc_config(s.n_bins, s.n_xi)
+    print(f"wide grid: slab_tc block {64 * wgs} rows ({wgs} consumer "
+          f"warpgroups + 1 producer), {stages} ring slots of 8 KB, a "
+          f"cluster of 1 block, {nbytes(s_tc.b) / 1e6:.1f} MB of split node "
+          f"matrices (FP32 half layout {nbytes(s_half.b) / 1e6:.1f} MB)")
     occ = occupation_functions(model)
     hod = fused.KernelModel.of(model)
     pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
@@ -1128,8 +1169,7 @@ def slab_phase(ctx, kernels):
     print(f"wide grid: {dense_flop:.4g} FLOP of dense contraction per batch "
           f"(2 x {n_nodes} x {s.n_xi} x {s.n_bins}^2 per sample): "
           f"{dense_flop / k_ms / 1e9:.4g} TFLOP/s-equivalent in slab_tc "
-          f"({s_tc.n_ct} column tiles, {nbytes(s_tc.b) / 1e6:.1f} MB of "
-          f"node matrices)")
+          f"({s_tc.n_ct} column tiles, {s_tc.node_steps} stages a node)")
     dens = fused.occupation_density(stacked, model, params)
     dense = stacked.tpcf_dense
     lib_ms = ctx["library_ms"](
@@ -1171,6 +1211,7 @@ def slab_phase(ctx, kernels):
                                   tensor_flop=tensor_flop),
            library_ms=lib_ms)
     del total_k, nodes_k
+    slab_tc_ragged_pass(ctx)
 
     # ---- the 'elementwise' route: the FP32 slab kernel -----------------
     predict = make_predictor(interp, model, engine="fused",
@@ -1183,7 +1224,7 @@ def slab_phase(ctx, kernels):
     check(bool(torch.isnan(xi_e[out]).all() and
                torch.isfinite(xi_e[~out]).all()),
           "wide grid elementwise: NaN rows")
-    total_k, nodes_k = fused.slab_launch(s_tc, pmat, hod)
+    total_k, nodes_k = fused.slab_launch(s_half, pmat, hod)
     ngal_err = rel(total_k, total_p)
     node_err = scaled(nodes_k.reshape(-1, s.n_xi), nodes_p.reshape(-1, s.n_xi))
     err = max_abs((total_k, total_p), (nodes_k, nodes_p))
@@ -1193,14 +1234,65 @@ def slab_phase(ctx, kernels):
           f"(<= 1e-6), max abs {err:.3e}")
     check(ngal_err <= 1e-6, f"wide grid elementwise: ngal {ngal_err}")
     check(node_err <= 1e-6, f"wide grid elementwise: xi {node_err}")
-    k_w = [ctx["window_ms"](lambda: fused.slab_launch(s_tc, pmat, hod), 2)
+    k_w = [ctx["window_ms"](lambda: fused.slab_launch(s_half, pmat, hod), 2)
            for _ in range(3)]
     k_ms = float(np.median(k_w))
     print(f"timing (wide grid elementwise): slab kernel {k_ms:.4f} ms per "
           f"{SLAB_BATCH}-vector batch (windows {k_w}) on {ctx['card']}")
     record(kernels, "slab", launched["slab"], max_abs_err=err, ms=k_ms,
-           plain_ms=p_ms, **bound(flop, quad + nbytes(s_tc.b) + out_bytes),
+           plain_ms=p_ms, **bound(flop, quad + nbytes(s_half.b) + out_bytes),
            library_ms=lib_ms)
+
+
+def slab_tc_ragged_pass(ctx):
+    """slab_tc against its plain version off the wide grid's shapes: 156
+    bins (not a multiple of 8) over 64 nodes at a batch that is no multiple
+    of the block rows, then 400 bins over 8 nodes, whose densities leave
+    room for one consumer warpgroup (64-row blocks).  Limits: ngal 1e-6
+    relative, per-node xi 1e-6 scaled."""
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
+    from tabcorr_tpu_torch import AssembiasZheng07Model, occupation_functions
+
+    def synthetic_stack(n_nodes, n_prim):
+        """The wide grid's tables (utils.synthetic's draws) for n_nodes
+        nodes of 4 n_prim bins, stacked as stacked_grid stacks them."""
+        from tabcorr_tpu_torch.utils.synthetic import synthetic_tabcorr
+        tables = []
+        for j in range(n_nodes):
+            t = synthetic_tabcorr(np.random.default_rng(42), n_prim, 2, 42,
+                                  "auto")
+            t.tpcf_matrix = t.tpcf_matrix * (1.0 + 0.1 * np.random.default_rng(
+                1000 + j).normal(size=t.tpcf_matrix.shape))
+            tables.append(t.table_data(device="cuda"))
+        return dataclasses.replace(
+            tables[0], tpcf_dense=torch.cat([t.tpcf_dense for t in tables]),
+            tpcf_shape=(n_nodes * tables[0].tpcf_dense.shape[0],))
+
+    model = AssembiasZheng07Model(threshold=-20, redshift=0.0)
+    hod = fused.KernelModel.of(model)
+    occ = occupation_functions(model)
+    for n_nodes, n_prim, batch in ((64, 39, SLAB_BATCH - 77),
+                                   (8, 100, 4096 + 37)):
+        stacked = synthetic_stack(n_nodes, n_prim)
+        s = fused.slab_table_constants(stacked, n_nodes)
+        s_tc = fused.slab_split_table_constants(stacked, n_nodes)
+        params = bench_params(model, np.random.default_rng(SEED + 5), batch,
+                              "cuda")
+        pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
+        want = fused.slab_predict_plain(s, params, *occ)
+        wgs, stages = fused.slab_tc_config(s.n_bins, s.n_xi)
+        got = fused.slab_tc_launch(s_tc, pmat, hod)
+        torch.cuda.synchronize()
+        ngal_err = rel(got[0], want[0])
+        node_err = scaled(got[1].reshape(-1, s.n_xi),
+                          want[1].reshape(-1, s.n_xi))
+        label = (f"slab_tc ragged: {s.n_bins} bins, {n_nodes} nodes, "
+                 f"B={batch}, block {64 * wgs} rows, {stages} slots")
+        print(f"{label}: kernel vs plain ngal max rel {ngal_err:.3e} "
+              f"(<= 1e-6), per-node xi max scaled {node_err:.3e} (<= 1e-6)")
+        check(ngal_err <= 1e-6, f"{label}: ngal {ngal_err}")
+        check(node_err <= 1e-6, f"{label}: xi {node_err}")
+        del got, s, s_tc, want
 
 
 # ----------------------------------------------------------------------
@@ -1956,16 +2048,17 @@ def slab_family_phase(ctx, kernels):
           f"{label} elementwise: NaN rows")
     # ---- both tiers against the plain version, same densities ---------------
     stacked, n_nodes, _ = stacked_grid(interp, device="cuda")
-    s_tc = fused.slab_tc_table_constants(stacked, n_nodes)
+    s_tc = fused.slab_split_table_constants(stacked, n_nodes)
+    s_half = fused.slab_tc_table_constants(stacked, n_nodes)
     s = fused.slab_table_constants(stacked, n_nodes)
     table64 = interp.tabcorr_list[0].table_data(device="cuda",
                                                 dtype=torch.float64)
     (dens,), _ = occupation_check(ctx, label, s_tc.occupation_plan, [s_tc],
                                   [stacked], [table64], model, params)
     want = fused.slab_contract_plain(s, dens.t())
-    for tier, launch in (("slab_tc", fused.slab_tc_launch),
-                         ("slab", fused.slab_launch)):
-        total, nodes = launch(s_tc, dens, code2)
+    for tier, launch, consts in (("slab_tc", fused.slab_tc_launch, s_tc),
+                                 ("slab", fused.slab_launch, s_half)):
+        total, nodes = launch(consts, dens, code2)
         kernel_vs_plain(f"{label} {tier} vs plain (same densities)",
                         [(total, nodes.reshape(-1, s.n_xi))],
                         [(want[0], want[1].reshape(-1, s.n_xi))], (False,))
@@ -1982,7 +2075,7 @@ def slab_family_phase(ctx, kernels):
         lambda: fused.occupation_density(stacked, model, params), 3, 1,
         rounds=2)
     tc_ms = median_ms(ctx, lambda: fused.slab_tc_launch(s_tc, dens, code2))
-    fp32_ms = median_ms(ctx, lambda: fused.slab_launch(s_tc, dens, code2))
+    fp32_ms = median_ms(ctx, lambda: fused.slab_launch(s_half, dens, code2))
     e2e_ms = median_ms(ctx, lambda: predict(params))
     print(f"timing ({label}): occupation kernel {occ_ms:.4f} ms, its plain "
           f"version (tensor ops) {plain_occ_ms:.4f} ms, slab_tc (code 2) "
@@ -2054,15 +2147,18 @@ def density_in_cross_check(ctx):
     hod = fused.KernelModel.of(model)
     pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
     stacked, n_nodes, _ = stacked_grid(interp, device="cuda")
-    s_tc = fused.slab_tc_table_constants(stacked, n_nodes)
     dens = fused.occupation_density(stacked, model, params).t().contiguous()
-    for tier, launch in (("slab_tc", fused.slab_tc_launch),
-                         ("slab", fused.slab_launch)):
-        a = launch(s_tc, dens, code2)
-        b = launch(s_tc, pmat, hod)
+    for tier, launch, consts in (
+            ("slab_tc", fused.slab_tc_launch,
+             fused.slab_split_table_constants(stacked, n_nodes)),
+            ("slab", fused.slab_launch,
+             fused.slab_tc_table_constants(stacked, n_nodes))):
+        a = launch(consts, dens, code2)
+        b = launch(consts, pmat, hod)
         kernel_vs_plain(f"cross-check wide grid {tier}: code 2 against "
-                        f"code 1", [(a[0], a[1].reshape(-1, s_tc.n_xi))],
-                        [(b[0], b[1].reshape(-1, s_tc.n_xi))], (False,))
+                        f"code 1", [(a[0], a[1].reshape(-1, consts.n_xi))],
+                        [(b[0], b[1].reshape(-1, consts.n_xi))], (False,))
+        del consts
 
 
 # ----------------------------------------------------------------------

@@ -10,9 +10,8 @@
 // tabcorr_tpu/ops/fused.py:make_fused_bundle_predictor.  Every table runs
 // in FP32 on the CUDA cores, under both accuracy contracts: the Pallas
 // kernel drops MXU passes for rows under the 'scaled' contract, but here a
-// 3xTF32 tensor-core contraction (contract.cuh:contract_tc, which the slab
-// kernels keep) was slower than the FP32 one at these shapes, and less
-// exact.
+// 3xTF32 mma.sync contraction (the one slab_tc ran before it moved to
+// wgmma) was slower than the FP32 one at these shapes, and less exact.
 //
 // contraction_kernel: the FP32 contraction for one table, with the
 // per-bin densities n[b, i] read from device memory instead of computed

@@ -5,10 +5,11 @@
 //     cross: xi[b, node, k] = (F_node n_b)_k / sum_i n_bi
 //
 // for the TB batch rows of one block, from their densities n[b, i] in
-// shared memory, for every node of one table (a bundle table is one node),
-// in two tiers: contract_fp32() on the CUDA cores (the 'elementwise'
-// contract) and contract_tc() in 3xTF32 on the tensor cores (the 'scaled'
-// contract; tf32x3.cuh).  Both read one layout of the constants.
+// shared memory, for every node of one table (a bundle table is one node):
+// contract_fp32() on the CUDA cores, which the bundle, contraction and
+// FP32 slab kernels run under every contract.  (The 'scaled' slab kernel,
+// slab_tc in slab.cu, reads the same columns split into TF32 halves,
+// ops/fused.py:slab_split_table_constants.)
 //
 // The layout (ops/fused.py:slab_tc_table_constants).  Auto mode, the
 // block-triangular half: the bins are cut into tiles of width w; the
@@ -26,14 +27,13 @@
 // still runs over at most nb terms.  Cross mode keeps the matrix-vector
 // layout: column k takes F[k, j], xi = t / sum_i n_i.
 //
-// Both tiers stream the column tiles through a 2-stage cp.async ring, one
-// block barrier per stage, as one sequence over (node, column tile, stage),
-// so the ring runs on across tile and node boundaries.  Both reduce
-// n_i t[b, (k, i)] over each n8 tile's 8 bins in registers and add it to
-// the node's statistics in shared memory once per column tile: the 3xTF32
-// tier from a running sum of its chunks of 32 K rows, the FP32 tier from a
-// sum it carries in 8 registers and feeds after every ring stage, so that
-// no fmaf chain runs over more than the stage's 32 K rows either
+// It streams the column tiles through a 2-stage cp.async ring, one block
+// barrier per stage, as one sequence over (node, column tile, stage), so
+// the ring runs on across tile and node boundaries.  It reduces
+// n_i t[b, (k, i)] over each n8 tile's 8 bins in registers and adds it to
+// the node's statistics in shared memory once per column tile, from a sum
+// it carries in 8 registers and feeds after every ring stage, so that no
+// fmaf chain runs over more than the stage's 32 K rows
 // (tests/test_torch_contract_half.py emulates this order and one chain over
 // all of a column's rows, which lands farther from the float64 contraction
 // of xi_ell).  The layout puts a statistic at most
@@ -57,7 +57,7 @@ namespace tabcorr {
 
 constexpr int kCT = 128;          // columns per column tile
 constexpr int kSlots = kCT / 8;   // n8 column tiles per column tile
-constexpr int kStages = 2;        // ring stages of both tiers
+constexpr int kStages = 2;        // ring stages
 // contract_fp32: a thread owns 8 rows x the 8 columns of one n8 tile; a
 // block of TB rows has TB / 8 row groups x 16 column groups = 2 TB threads.
 constexpr int kRM = 8;
@@ -145,7 +145,7 @@ __device__ __forceinline__ void row_totals(const float* sN, int nb,
 }
 
 // ----------------------------------------------------------------------
-// The FP32 tier.
+// The FP32 contraction.
 //
 // What bounds it: FP32 FMA issue.  What the design does about it: each of
 // the 2 TB threads owns an 8 x 8 register tile (8 rows x one n8 column
@@ -348,211 +348,6 @@ __device__ __forceinline__ void contract_fp32(const HalfTable& h,
 inline size_t fp32_smem_floats(int tb, int stage_steps, int nb8, int n_xi) {
   return (size_t)nb8 * tb + (size_t)kStages * stage_steps * 8 * kCT +
          (size_t)tb * n_xi + (kParTerms + 1) * tb;
-}
-
-// ----------------------------------------------------------------------
-// The 3xTF32 tier.
-//
-// What bounds it: the tensor cores' issue rate through mma.sync, and the
-// instructions around it (fragment loads, each B fragment's split, the
-// epilogue).
-//
-// A block of tc::kThreads = 512 threads owns TB = 64 batch rows (2 x 8
-// warps of 32 rows x 16 columns) and keeps their float32 densities (the
-// epilogue's n_i) bin-major at a row stride of TB + 4 (conflict-free
-// fragment and epilogue reads).  At 64 rows the densities are also split
-// into hi/lo fragments once per table (PRESPLIT).  Where those copies do
-// not fit in shared memory, the block takes 32 rows (2 x 8 warps of 16
-// rows) and splits each A fragment as it is loaded (tc::SplitOnLoadA): one
-// copy of 32 rows' densities.  The B tiles stream through the ring in
-// stages of up to 64 K rows.  Each chunk (<= 32 K rows, two per stage)
-// accumulates into fresh fragments, added to a float32 running sum (sums
-// of <= nb terms, as contract_fp32's).  The epilogue reduces n_i
-// t[b, (k, i)] over each n8 tile's 8 bins with quad shuffles; a warp's two
-// n8 tiles are one aligned pair, added by the same lane in order.  The
-// column tables (a few ints per tile) are read through the read-only
-// cache, not shared memory, whose size would grow with the column count.
-constexpr int kTcStageSteps = 8;   // 64 K rows: two accumulation chunks
-constexpr int kTcStageFloats = kTcStageSteps * 8 * tc::kBS;
-
-// Shared-memory layout of contract_tc (floats), per block of TB rows:
-//   sN   [nb8][TB + 4]         float32 densities, bin-major
-//   sAh, sAl [nb8 * TB]        (PRESPLIT) their hi/lo, fragment order
-//   sB   [2][64][kBS]          the cp.async ring of B tiles
-//   sXi  [TB][n_xi]            one node's statistics (auto)
-//   sPar [kParTerms][TB], sTot [TB]
-template <int TB, bool PRESPLIT>
-struct TcBlock {
-  static constexpr int kStride = TB + 4;
-  static constexpr int kWM = 2, kWN = tc::kWarps / kWM;   // warps
-  static constexpr int kMT = TB / 32;                   // m16 tiles
-  static constexpr int kNT = tc::kCT / (8 * kWN);       // n8 tiles
-  static size_t smem_floats(int nb8, int n_xi) {
-    return (size_t)nb8 * kStride + (PRESPLIT ? 2 * (size_t)nb8 * TB : 0) +
-           kStages * kTcStageFloats + (size_t)TB * n_xi +
-           (kParTerms + 1) * TB;
-  }
-};
-
-// contract_fp32's function on every thread of a block of tc::kThreads.
-// On entry sN holds n[b, i] at sN[i * (TB + 4) + b] for i < nb8 and a
-// barrier has passed since it was written; on exit the outputs are stored
-// and the block is synchronised.  sAh and sAl (PRESPLIT) hold nb8 * TB
-// floats each, sB the ring, sXi TB * n_xi, sTot TB.
-template <int TB, bool PRESPLIT>
-__device__ __forceinline__ void contract_tc(const HalfTable& h,
-                                            const TableOut& out, int batch,
-                                            int row0, const float* sN,
-                                            float* sAh, float* sAl, float* sB,
-                                            float* sXi, float* sTot) {
-  using S = TcBlock<TB, PRESPLIT>;
-  constexpr int NST = kStages, MT = S::kMT, NT = S::kNT, SN = S::kStride;
-  constexpr int kM16 = TB / 16;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / S::kWN, wn = warp % S::kWN;
-  const int n0 = wn * NT * 8;      // the warp's first column in the tile
-  const int m0 = wm * MT;          // and its first m16 tile
-
-  for (int item = tid; item < TB * h.n_xi; item += tc::kThreads)
-    sXi[item] = 0.f;
-  row_totals<TB, SN>(sN, h.nb, sTot);
-  if constexpr (PRESPLIT) {
-    // The densities' hi/lo in fragment order (slot l holds row `row`, bin
-    // kk): consecutive threads store consecutive words.
-    for (int l = tid; l < h.nb8 * TB; l += tc::kThreads) {
-      const int e = l & 3, ln = (l >> 2) & 31, ms = l >> 7;
-      const int row = (ms % kM16) * 16 + (ln >> 2) + 8 * (e & 1);
-      const int kk = (ms / kM16) * 8 + (ln & 3) + 4 * (e >> 1);
-      uint32_t hi, lo;
-      tc::split_tf32(sN[kk * SN + row], hi, lo);
-      sAh[l] = __uint_as_float(hi);
-      sAl[l] = __uint_as_float(lo);
-    }
-  }
-
-  const int n_stages = h.n_nodes * stages_per_node(h, kTcStageSteps);
-  TileCursor prod = {0, 0, 0}, cons = {0, 0, 0};
-  int issued = 0;
-  auto issue = [&]() {
-    if (issued < n_stages) {
-      const int n_rows =
-          8 * min(kTcStageSteps,
-                  __ldg(h.ct_steps + prod.ct) - kTcStageSteps * prod.q);
-      tc::stage_b(sB + (issued % NST) * kTcStageFloats,
-                  h.b + (size_t)prod.node * h.node_stride +
-                      __ldg(h.ct_off + prod.ct) +
-                      (size_t)prod.q * kTcStageSteps * 8 * tc::kCT,
-                  tc::kCT, n_rows);
-      prod.advance(h.ct_steps, h.n_ct, kTcStageSteps);
-    }
-    ++issued;
-    cp_async_commit();
-  };
-  for (int s = 0; s < NST - 1; ++s) issue();
-
-  float run[MT][NT][4];
-  float acc[MT][NT][4], acc_lo[MT][NT][4];
-  for (int s = 0; s < n_stages; ++s) {
-    const int ct = cons.ct;
-    const int steps = __ldg(h.ct_steps + ct);
-    const int step0 = __ldg(h.ct_step0 + ct);
-    cp_async_wait<NST - 2>();
-    __syncthreads();   // stage s is in; slot s - 1 is free
-    issue();
-    const int n_steps = min(kTcStageSteps, steps - kTcStageSteps * cons.q);
-    if (cons.q == 0) {
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) run[mi][ni][e] = 0.f;
-    }
-    // The stage's K rows in chunks of at most kKT, each into fresh
-    // accumulators.
-    for (int c0 = 0; c0 < n_steps; c0 += tc::kKT / 8) {
-      const int s0 = step0 + kTcStageSteps * cons.q + c0;
-      const float* stage = sB + (s % NST) * kTcStageFloats + c0 * 8 * tc::kBS;
-      const int n_chunk = min(tc::kKT / 8, n_steps - c0);
-      if constexpr (PRESPLIT)
-        tc::chunk_mma<MT, NT, true>(
-            acc, acc_lo,
-            tc::FragOrderA{reinterpret_cast<const float4*>(sAh),
-                           reinterpret_cast<const float4*>(sAl), kM16, s0,
-                           m0},
-            stage, n0, n_chunk);
-      else
-        tc::chunk_mma<MT, NT, true>(acc, acc_lo,
-                                    tc::SplitOnLoadA<SN>{sN, s0, m0}, stage,
-                                    n0, n_chunk);
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            run[mi][ni][e] += acc[mi][ni][e] + acc_lo[mi][ni][e];
-    }
-    const int node = cons.node;
-    const bool tile_done = kTcStageSteps * (cons.q + 1) >= steps;
-    const bool node_done = tile_done && ct == h.n_ct - 1;
-    cons.advance(h.ct_steps, h.n_ct, kTcStageSteps);
-    if (!tile_done) continue;
-
-    // Epilogue of column tile ct: fragment element e of (mi, ni) is row
-    // (m0 + mi)*16 + g + 8*(e / 2), column n0 + ni*8 + 2t + e % 2.
-    if (!h.is_auto) {
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int b = (m0 + mi) * 16 + g + 8 * (e >> 1);
-            const int k = ct * tc::kCT + n0 + ni * 8 + 2 * t + (e & 1);
-            if (row0 + b < batch && k < h.n_xi)
-              out.xi[(size_t)(row0 + b) * out.stride +
-                     (size_t)node * h.n_xi + k] = run[mi][ni][e] / sTot[b];
-          }
-      continue;
-    }
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      const int c = ct * kSlots + wn * NT + ni;
-      const int k = __ldg(h.col_k + c);
-      const int i = __ldg(h.col_i0 + c) + 2 * t;
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int b = (m0 + mi) * 16 + g + 8 * hh;
-          float v = sN[i * SN + b] * run[mi][ni][2 * hh];
-          v = fmaf(sN[(i + 1) * SN + b], run[mi][ni][2 * hh + 1], v);
-          v += __shfl_xor_sync(0xffffffffu, v, 1);
-          v += __shfl_xor_sync(0xffffffffu, v, 2);
-          if (t == 0 && k >= 0) sXi[b * h.n_xi + k] += v;
-        }
-    }
-    if (!node_done) continue;
-    __syncthreads();   // the node's statistics are complete
-    for (int item = tid; item < TB * h.n_xi; item += tc::kThreads) {
-      const int b = item / h.n_xi;
-      const int k = item - b * h.n_xi;
-      if (row0 + b < batch) {
-        const float tot = sTot[b];
-        out.xi[(size_t)(row0 + b) * out.stride + (size_t)node * h.n_xi + k] =
-            sXi[item] / (tot * tot);
-      }
-      sXi[item] = 0.f;
-    }
-    // The next node adds to sXi only after the __syncthreads() of its
-    // first stage.
-  }
-  if (out.total != nullptr && tid < TB && row0 + tid < batch)
-    out.total[row0 + tid] = sTot[tid];
-  __syncthreads();   // before the caller reuses sN, sAh, sAl, sXi and sTot
 }
 
 }  // namespace tabcorr

@@ -1,5 +1,6 @@
 // 3xTF32 tensor-core building blocks of the 'scaled' tier: the grid_tc
-// kernel (grid.cu) and the slab_tc kernel (slab.cu).
+// kernel (grid.cu) on mma.sync, and the TF32 split that the slab_tc kernel
+// (slab.cu, on wgmma) applies to its densities as it loads them.
 //
 // A float32 x is split into two TF32 values, hi = rna(x) and lo =
 // rna(x - hi) (round to nearest, ties away from zero, to 10 explicit
@@ -10,7 +11,7 @@
 // tests/test_torch_tf32x3.py emulates these kernels on the host with the
 // same rounding (bit for bit on finite values).
 //
-// Both kernels share one block shape: 512 threads (16 warps) own a tile of
+// grid_tc's block: 512 threads (16 warps) own a tile of
 // TB batch rows x kCT = 128 columns of a GEMM T = A B, A = the block's
 // density-side operand (densities or pair weights, float32, split into
 // hi/lo fragments in shared memory once per staged tile, or split as each

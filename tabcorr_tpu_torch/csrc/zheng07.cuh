@@ -145,10 +145,22 @@ __device__ __forceinline__ float decorate(float base, float strength,
                : base - __fmul_rn(delta, h.frac_above) / h.split;
 }
 
-// sN[i * STRIDE + b] = n[b, i] for i < n_rows (bins past q.nb and rows past
-// the batch end get 0), for the model code MODEL (== h.model): computed
-// (codes 0 and 1) or loaded (code 2).
-template <int TB, int NT, int MODEL, int STRIDE = TB>
+// Where slab_tc (slab.cu) keeps n[b, i] of its TB rows: bin-major at a
+// row stride of TB, the row index's bits 3-4 flipped by the bin's last two
+// bits.  A warp's loads of the wgmma A fragments (lane (g, t) reads bin
+// 8s + t (+ 4) of row g (+ 8)) and of the row totals (lane t reads bins t,
+// t + 4, ...) then hit 32 banks without padding the rows, and a lane's
+// flip is the same at every k-step.
+template <int TB>
+__device__ __forceinline__ int swizzled_index(int i, int b) {
+  return i * TB + (b ^ ((i & 3) << 3));
+}
+
+// sN[i * STRIDE + b] = n[b, i] (SWIZZLED: sN[swizzled_index<TB>(i, b)]) for
+// i < n_rows (bins past q.nb and rows past the batch end get 0), for the
+// model code MODEL (== h.model): computed (codes 0 and 1) or loaded (code
+// 2).
+template <int TB, int NT, int MODEL, int STRIDE = TB, bool SWIZZLED = false>
 __device__ void occupation_phase(const QuadArgs& q, int n_rows, int batch,
                                  int row0, const HodArgs& h,
                                  const float* sPar, float* sN) {
@@ -156,7 +168,7 @@ __device__ void occupation_phase(const QuadArgs& q, int n_rows, int batch,
     for (int item = threadIdx.x; item < n_rows * TB; item += NT) {
       const int i = item / TB;
       const int b = item % TB;
-      sN[i * STRIDE + b] =
+      sN[SWIZZLED ? swizzled_index<TB>(i, b) : i * STRIDE + b] =
           (i < q.nb && row0 + b < batch)
               ? __ldg(q.dens + (size_t)i * batch + row0 + b)
               : 0.f;
@@ -209,7 +221,9 @@ __device__ void occupation_phase(const QuadArgs& q, int n_rows, int batch,
         }
       }
     }
-    if constexpr (STRIDE == TB)
+    if constexpr (SWIZZLED)
+      sN[swizzled_index<TB>(i, b)] = acc;
+    else if constexpr (STRIDE == TB)
       sN[item] = acc;   // item == i * TB + b
     else
       sN[i * STRIDE + b] = acc;

@@ -63,20 +63,23 @@ none of these kernels.
   node's matrix, without the spline fold.  :func:`slab_launch`
   (``csrc/slab.cu``) and :func:`slab_predict_plain`.
 
-B2 and B4 have a second kernel each, in 3xTF32 on the tensor cores
-(``csrc/tf32x3.cuh``): :func:`grid_tc_launch` and :func:`slab_tc_launch`.
-B4 picks its kernel by the contract, the counterpart of tabcorr_tpu's MXU
-pass classes: slab_tc under 'scaled'.  B2's grid kernel contracts in
-float64 on the tensor cores and is faster than grid_tc, so it serves both
-contracts, as B1's and B3's FP32 kernels do (:func:`grid_kernel_for`);
+B2 and B4 have a second kernel each, in 3xTF32 on the tensor cores:
+:func:`grid_tc_launch` (``mma.sync``, ``csrc/tf32x3.cuh``) and
+:func:`slab_tc_launch` (``wgmma`` fed by TMA, ``csrc/slab.cu`` and
+``csrc/hopper.cuh``).  B4 picks its kernel by the contract, the
+counterpart of tabcorr_tpu's MXU pass classes: slab_tc under 'scaled'.
+B2's grid kernel contracts in float64 on the tensor cores and is faster
+than grid_tc, so it serves both contracts, as B1's and B3's FP32 kernels
+do (:func:`grid_kernel_for`);
 grid_tc stays reachable through its wrapper.  The plain versions serve
 every kernel.
 
-On the card B1, B3 and both tiers of B4 read their matrices in one
+On the card B1, B3 and the FP32 tier of B4 read their matrices in one
 layout, the block-triangular half of each symmetric matrix
 (:class:`SlabTcTable`, a bundle table as one node; ``csrc/contract.cuh``);
-the dense layouts (:class:`BundleTable`, :class:`SlabTable`) serve the
-plain versions.
+slab_tc reads the same columns split into TF32 halves once on the host
+(:class:`SlabSplitTable`); the dense layouts (:class:`BundleTable`,
+:class:`SlabTable`) serve the plain versions.
 """
 
 from __future__ import annotations
@@ -164,26 +167,31 @@ _OCC_TARGET_BLOCKS = 8192
 # stages of its cp.async ring.
 _GRID_BLOCK_ROWS = (64, 32, 16)
 _GRID_STAGES = {64: 2, 32: 3, 16: 3}
-# Tile geometry of csrc/tf32x3.cuh: a staged B tile is _KT (grid_tc) or
-# 64 (contract.cuh's contract_tc) rows of _CT columns at a row stride of
-# _TC_BS floats; the cp.async ring stages of grid_tc (by block rows) and
-# of both tiers of contract.cuh.
+# Tile geometry of csrc/tf32x3.cuh: a staged B tile of grid_tc is _KT rows
+# of _CT columns at a row stride of _TC_BS floats; the cp.async ring stages
+# of grid_tc (by block rows) and of contract.cuh's FP32 contraction.
 _TC_BS = _CT + 8
 _GRID_TC_STAGES = {64: 3, 32: 2, 16: 2}
 _RING_STAGES = 2
-_TC_STAGE_ROWS = 64
-# The blocks of slab_tc, first choice first: (rows, densities split once
-# per block); the fallback splits each fragment as it is loaded.
-_TC_CONFIGS = ((64, True), (32, False))
+# slab_tc (csrc/slab.cu, namespace stc): a ring slot holds one stage, one
+# k-step (8 K rows) of a 128-column tile, TF32 hi and lo (8 KB), plus its
+# two mbarriers.  A block has 1 or 2 consumer warpgroups of 64 rows; two
+# take at least 3 slots, one at least 2; 4 where they fit (on the wide
+# grid 4, 8 and 15 slots time within 1.5% of each other, 4 fastest;
+# scripts/torch_slab_probe.py).
+_SPLIT_STEP_FLOATS = 2 * _CT * 8
+_SLAB_TC_SLOT_BYTES = 4 * _SPLIT_STEP_FLOATS + 16
+_SLAB_TC_STAGES = 4
+_SLAB_TC_MIN_STAGES = {2: 3, 1: 2}
 # The FP32 contraction (bundle, contraction, slab): rows per block, and the
 # K steps of 8 rows per ring stage, first choice first; the second is the
 # smaller ring, where the first does not fit in shared memory.
 _FP32_ROWS = 64
 _FP32_STAGE_STEPS = (4, 2)
-# Bin-tile width of slab_tc's block-triangular layout, and the n8 column
-# tiles of one warp in its column tiles (csrc/slab.cu: 16 warps, 2 x 8).
+# Bin-tile width of the block-triangular half layout, and the n8 column
+# tiles whose sums one lane pair of contract.cuh's FP32 epilogue combines.
 SLAB_TC_WIDTH = 8
-_SLAB_TC_WARP_SLOTS = 2
+_PAIR_SLOTS = 2
 
 
 def _round_up(n, m):
@@ -1521,10 +1529,11 @@ def _slab_lib():
     """Build (first call only) and bind the entry points of slab.cu."""
     lib = load_library("slab", KERNEL_SOURCES["slab"])
     vp, i = ctypes.c_void_p, ctypes.c_int
-    table = ([vp, i, i, i, ctypes.c_double, vp, vp, vp, vp, i, i, i, vp,
-              ctypes.c_longlong] + [vp] * 5 + [i] * 4)
-    lib.tabcorr_slab.argtypes = table + [i, vp, vp, i, vp]
-    lib.tabcorr_slab_tc.argtypes = table + [i, i, vp, vp, i, vp]
+    quad = [vp, i, i, i, ctypes.c_double, vp, vp, vp, vp, i, i, i, vp]
+    lib.tabcorr_slab.argtypes = (quad + [ctypes.c_longlong] + [vp] * 5 +
+                                 [i] * 5 + [vp, vp, i, vp])
+    lib.tabcorr_slab_tc.argtypes = (quad + [i] + [vp] * 4 + [i] * 6 +
+                                    [vp, vp, i, vp])
     lib.tabcorr_slab.restype = lib.tabcorr_slab_tc.restype = i
     lib.tabcorr_cuda_error_string.argtypes = [i]
     lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
@@ -1532,9 +1541,8 @@ def _slab_lib():
 
 
 def _slab_entry_args(s: SlabTcTable, pmat, hod, block, what):
-    """The arguments of slab.cu's entry points (``block``: the ring stage
-    of slab, the rows and the split of slab_tc) and the allocated outputs
-    (total (B,), xi (B, n_nodes, n_xi))."""
+    """The arguments of slab.cu's tabcorr_slab (``block``: its ring stage)
+    and the allocated outputs (total (B,), xi (B, n_nodes, n_xi))."""
     batch = _check_params(pmat, hod, s.n_bins)
     device = pmat.device
     _check_half(s, device, what)
@@ -1553,7 +1561,7 @@ def _slab_entry_args(s: SlabTcTable, pmat, hod, block, what):
 
 def slab_launch(s: SlabTcTable, pmat, hod=KernelModel()):
     """Launch the CUDA slab kernel (FP32) once, over the block-triangular
-    half of each node matrix (the constants of slab_tc).
+    half of each node matrix (:func:`slab_tc_table_constants`).
 
     ``pmat`` is the float32 parameter matrix of the model ``hod`` (zheng07
     by default; see :func:`bundle_launch`) on the grid's CUDA device, or
@@ -1572,15 +1580,14 @@ def slab_launch(s: SlabTcTable, pmat, hod=KernelModel()):
 
 
 # ----------------------------------------------------------------------
-# The block-triangular half layout of contract.cuh, and slab_tc: B4 on
-# the tensor cores ('scaled' tier)
+# The block-triangular half layout of contract.cuh
 # ----------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class SlabTcTable:
-    """Host-built constants of a stacked Interpolator grid for the slab and
-    slab_tc kernels (csrc/slab.cu), and of one table (``n_nodes`` = 1) for
+    """Host-built constants of a stacked Interpolator grid for the FP32
+    slab kernel (csrc/slab.cu), and of one table (``n_nodes`` = 1) for
     the bundle and contraction kernels (csrc/bundle.cu), as tensors on one
-    device.
+    device; :class:`SlabSplitTable` holds the same columns for slab_tc.
 
     ``logm``, ``logm_res``, ``sec`` and ``weight`` are the quadrature as in
     :class:`BundleTable` (the contraction kernel reads none of them).  ``b`` (n_nodes, node_stride) float32 holds each
@@ -1635,16 +1642,17 @@ def _slab_tc_columns(nb, n_xi, auto, width):
     slots = _CT // 8
     if auto:
         # n8 tiles in column order; a column tile is closed early where a
-        # statistic would appear in it twice outside one warp's slot pair
-        # (csrc/slab.cu's epilogue adds each tile's sums without a barrier).
+        # statistic would appear in it twice outside one aligned pair of
+        # n8 tiles (contract.cuh's FP32 epilogue adds each tile's sums
+        # without a barrier).
         k, i0, start = [], [], []
         for tile0 in range(0, nb, width):
             for kk in range(n_xi):
                 for h in range(tile0, min(tile0 + width, nb), 8):
                     pos = len(k) % slots
                     ct_k = k[len(k) - pos:]
-                    if any(c == kk and j // _SLAB_TC_WARP_SLOTS !=
-                           pos // _SLAB_TC_WARP_SLOTS
+                    if any(c == kk and j // _PAIR_SLOTS !=
+                           pos // _PAIR_SLOTS
                            for j, c in enumerate(ct_k)):
                         pad_n = slots - pos
                         k += [-1] * pad_n
@@ -1672,20 +1680,11 @@ def _slab_tc_columns(nb, n_xi, auto, width):
             np.full(n8, -1, np.int32), np.zeros(n8, np.int32))
 
 
-def slab_tc_table_constants(table: TableData, n_nodes,
-                            width=SLAB_TC_WIDTH) -> SlabTcTable:
-    """Constants of the stacked grid ``table`` for the kernels built on
-    csrc/contract.cuh (slab, slab_tc, bundle, contraction).
-
-    Auto mode, the block-triangular half: the bins are cut into tiles of
-    ``width`` (a multiple of 8); the columns are grouped by bin tile I as
-    (I, k, i in I), and column (k, i) holds, at row j, F[k, i, j] for j in
-    i's own tile, 2 F[k, i, j] for j in a later tile and 0 for an earlier
-    one (F symmetric, as every auto table's dense matrix is), so that
-    sum_i n_i (n B)[(k, i)] = n^T F_k n.  Cross mode: column k holds F[k,
-    j].  Only the rows from each column tile's first nonzero row are
-    stored; bins and rows past the table are zero.
-    """
+def _half_columns(table: TableData, n_nodes, width):
+    """The block-triangular half's columns of a stacked grid (see
+    :func:`slab_tc_table_constants`): the shape and column tables, and a
+    function of the node giving its (n_ct * 128, nb8) float32 columns
+    (column c's value at row j), zero above each tile's first row."""
     if width % 8 or width < 8:
         raise ValueError("the bin-tile width must be a positive multiple "
                          "of 8.")
@@ -1699,10 +1698,6 @@ def slab_tc_table_constants(table: TableData, n_nodes,
     dense = dense.reshape((n_nodes, n_xi) + dense.shape[1:])
     cols_k, cols_i, cols_start, step0, col_k, col_i0 = _slab_tc_columns(
         nb, n_xi, auto, width)
-    n_ct = step0.shape[0]
-    steps = nb8 // 8 - step0
-    off = np.concatenate([[0], np.cumsum(8 * steps * _CT)[:-1]])
-    node_stride = int(np.sum(8 * steps * _CT))
     j = np.arange(nb8)
     valid = (cols_k >= 0) & (cols_i < nb)
     if auto:
@@ -1714,19 +1709,47 @@ def slab_tc_table_constants(table: TableData, n_nodes,
     mult *= (valid[:, None] & (j < nb)[None, :])
     kc = np.maximum(cols_k, 0)
     ic = np.minimum(cols_i, nb - 1)
-    b = np.zeros((n_nodes, node_stride), np.float32)
-    for m in range(n_nodes):
+
+    def node_columns(m):
         fpad = np.zeros(dense.shape[1:-1] + (nb8,), np.float32)
         fpad[..., :nb] = dense[m]                 # [k, (i,) j]
-        cols = (fpad[kc, ic] if auto else fpad[kc]) * mult   # [col, j]
+        return (fpad[kc, ic] if auto else fpad[kc]) * mult   # [col, j]
+
+    shape = dict(auto=auto, n_bins=nb, n_centrals=table.n_centrals,
+                 n_nodes=n_nodes, n_xi=n_xi, width=width)
+    steps = nb8 // 8 - step0
+    return shape, step0, steps, col_k, col_i0, node_columns
+
+
+def slab_tc_table_constants(table: TableData, n_nodes,
+                            width=SLAB_TC_WIDTH) -> SlabTcTable:
+    """Constants of the stacked grid ``table`` for the FP32 kernels built
+    on csrc/contract.cuh (slab, bundle, contraction).
+
+    Auto mode, the block-triangular half: the bins are cut into tiles of
+    ``width`` (a multiple of 8); the columns are grouped by bin tile I as
+    (I, k, i in I), and column (k, i) holds, at row j, F[k, i, j] for j in
+    i's own tile, 2 F[k, i, j] for j in a later tile and 0 for an earlier
+    one (F symmetric, as every auto table's dense matrix is), so that
+    sum_i n_i (n B)[(k, i)] = n^T F_k n.  Cross mode: column k holds F[k,
+    j].  Only the rows from each column tile's first nonzero row are
+    stored; bins and rows past the table are zero.
+    """
+    shape, step0, steps, col_k, col_i0, node_columns = _half_columns(
+        table, n_nodes, width)
+    n_ct = step0.shape[0]
+    off = np.concatenate([[0], np.cumsum(8 * steps * _CT)[:-1]])
+    node_stride = int(np.sum(8 * steps * _CT))
+    b = np.zeros((n_nodes, node_stride), np.float32)
+    for m in range(n_nodes):
+        cols = node_columns(m)
         for ct in range(n_ct):
             blk = cols[ct * _CT:(ct + 1) * _CT, 8 * step0[ct]:].T
             b[m, off[ct]:off[ct] + blk.size] = blk.ravel()
     device = table.n_h.device
     return SlabTcTable(
-        auto=auto, n_bins=nb, n_centrals=table.n_centrals, n_nodes=n_nodes,
-        n_xi=n_xi, width=width,
-        b=_tensor(b, device), ct_step0=_tensor(step0, device, np.int32),
+        **shape, b=_tensor(b, device),
+        ct_step0=_tensor(step0, device, np.int32),
         ct_steps=_tensor(steps, device, np.int32),
         ct_off=_tensor(off, device, np.int32),
         col_k=_tensor(col_k, device, np.int32),
@@ -1734,38 +1757,175 @@ def slab_tc_table_constants(table: TableData, n_nodes,
         **_quadrature_arrays(table))
 
 
-def _tc_smem_bytes(tb, presplit, n_bins, n_xi) -> int:
-    """Dynamic shared memory of one block of slab_tc with ``tb`` rows (the
-    layout ``TcBlock::smem_floats`` sizes)."""
-    return 4 * (_round_up(n_bins, 8) * (tb + 4 + (2 * tb if presplit else 0))
-                + _RING_STAGES * _TC_STAGE_ROWS * _TC_BS + tb * n_xi +
-                _ROW_TERMS * tb)
+# ----------------------------------------------------------------------
+# slab_tc: B4 on the tensor cores ('scaled' tier), 3xTF32 on wgmma
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SlabSplitTable:
+    """Host-built constants of a stacked Interpolator grid for the slab_tc
+    kernel (csrc/slab.cu), as tensors on one device: the columns of
+    :class:`SlabTcTable` split once into TF32 halves and cut into the
+    kernel's stages (:func:`slab_split_table_constants`).
+
+    ``b`` (n_nodes, node_steps * 2048) float32 holds each node's stages in
+    the order the kernel consumes them: column tile ``ct`` (128 columns)
+    from K step ``ct_step0[ct]`` for ``ct_steps[ct]`` K steps of 8 rows,
+    tile after tile; a stage is the step's TF32 hi (1024 floats), then its
+    lo, each K-major in the 32-byte swizzle (:func:`split_stage_offsets`).
+    ``col_k``, ``col_i0`` and the quadrature are :class:`SlabTcTable`'s.
+    """
+
+    auto: bool
+    n_bins: int
+    n_centrals: int
+    n_nodes: int
+    n_xi: int
+    width: int
+    logm: torch.Tensor
+    logm_res: torch.Tensor
+    sec: torch.Tensor
+    weight: torch.Tensor
+    b: torch.Tensor
+    ct_step0: torch.Tensor
+    ct_steps: torch.Tensor
+    col_k: torch.Tensor
+    col_i0: torch.Tensor
+
+    @property
+    def n_gauss(self):
+        return self.logm.shape[1]
+
+    @property
+    def n_ct(self):
+        return self.ct_step0.shape[0]
+
+    @property
+    def node_steps(self):
+        return self.b.shape[1] // _SPLIT_STEP_FLOATS
+
+    @functools.cached_property
+    def occupation_plan(self):
+        """The occupation kernel's node plan of this table
+        (:func:`occupation_plan`), built at its first use."""
+        return occupation_plan([self])
+
+
+def split_tf32(x):
+    """float32 ``x`` split into TF32 halves ``(hi, lo)`` as
+    csrc/tf32x3.cuh's split_tf32 does: ``hi`` rounded to 10 explicit
+    mantissa bits, to nearest with ties away from zero (cvt.rna.tf32.f32,
+    for finite values), ``lo`` = ``x - hi`` (exact in float32) rounded the
+    same way; ``|x - hi - lo| <= 2**-22 |x|`` for normal ``x``."""
+    def rna(v):
+        bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+        return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+            np.float32)
+    hi = rna(x)
+    return hi, rna(np.asarray(x, np.float32) - hi)
+
+
+def split_stage_offsets():
+    """(128, 8) int: the float offset of element (column n, K row k) in a
+    stage half, K-major in the 32-byte swizzle that the kernel's wgmma
+    descriptors read (csrc/hopper.cuh:desc_kmajor_sw32): 32 bytes a
+    column, 8-column groups 256 bytes apart, the 16-byte halves of a
+    column swapped where bit 2 of its index is set."""
+    n = np.arange(_CT)[:, None]
+    k = np.arange(8)[None, :]
+    return ((n >> 3) * 64 + (n & 7) * 8 + ((k >> 2) ^ ((n >> 2) & 1)) * 4 +
+            (k & 3))
+
+
+def slab_split_table_constants(table: TableData, n_nodes,
+                               width=SLAB_TC_WIDTH) -> SlabSplitTable:
+    """Constants of the stacked grid ``table`` for the slab_tc kernel: the
+    block-triangular half of :func:`slab_tc_table_constants` (the same
+    columns, tiles and rows), every element split into TF32 hi and lo
+    (:func:`split_tf32`) and stored as the kernel's stages
+    (:class:`SlabSplitTable`), twice the bytes of the FP32 layout."""
+    shape, step0, steps, col_k, col_i0, node_columns = _half_columns(
+        table, n_nodes, width)
+    tile = np.repeat(np.arange(step0.shape[0]), steps)
+    kstep = np.concatenate([np.arange(s, s + n)
+                            for s, n in zip(step0, steps)])
+    cols = (tile[:, None] * _CT + np.arange(_CT))[:, :, None]
+    rows = (8 * kstep[:, None] + np.arange(8))[:, None, :]
+    pos = split_stage_offsets().ravel()
+    b = np.zeros((n_nodes, tile.shape[0], 2, _SPLIT_STEP_FLOATS // 2),
+                 np.float32)
+    for m in range(n_nodes):
+        hi, lo = split_tf32(node_columns(m)[cols, rows])   # (steps, 128, 8)
+        b[m][:, 0, pos] = hi.reshape(tile.shape[0], -1)
+        b[m][:, 1, pos] = lo.reshape(tile.shape[0], -1)
+    device = table.n_h.device
+    return SlabSplitTable(
+        **shape, b=_tensor(b.reshape(n_nodes, -1), device),
+        ct_step0=_tensor(step0, device, np.int32),
+        ct_steps=_tensor(steps, device, np.int32),
+        col_k=_tensor(col_k, device, np.int32),
+        col_i0=_tensor(col_i0, device, np.int32),
+        **_quadrature_arrays(table))
+
+
+def _slab_tc_smem_bytes(wgs, stages, n_bins, n_xi) -> int:
+    """Dynamic shared memory of one block of slab_tc with ``wgs`` consumer
+    warpgroups and ``stages`` ring slots (csrc/slab.cu stc::smem_bytes):
+    the ring and its barriers, then sN, sXi and sPar of 64 wgs rows."""
+    tb = 64 * wgs
+    return (stages * _SLAB_TC_SLOT_BYTES +
+            4 * tb * (_round_up(n_bins, 8) + n_xi + _ROW_TERMS - 1))
 
 
 def slab_tc_config(n_bins, n_xi):
-    """(rows per block, densities split once per block) of the slab_tc
-    kernel: the first of ``_TC_CONFIGS`` whose block fits in shared
-    memory; None where none fits, which is never where the slab kernel's
-    does."""
-    for tb, presplit in _TC_CONFIGS:
-        if _tc_smem_bytes(tb, presplit, n_bins, n_xi) <= _SMEM_LIMIT:
-            return tb, presplit
+    """(consumer warpgroups, ring slots) of the slab_tc kernel: two
+    warpgroups (128-row blocks) where at least 3 slots fit in shared
+    memory beside them, else one (64 rows) with at least 2; 4 slots where
+    they fit.  None where nothing fits, which is never where the FP32 slab
+    kernel's block fits (its 64 rows carry a 16 KB ring and 64 row totals
+    more)."""
+    for wgs in (2, 1):
+        free = _SMEM_LIMIT - _slab_tc_smem_bytes(wgs, 0, n_bins, n_xi)
+        stages = min(_SLAB_TC_STAGES, free // _SLAB_TC_SLOT_BYTES)
+        if stages >= _SLAB_TC_MIN_STAGES[wgs]:
+            return wgs, stages
     return None
 
 
-def slab_tc_launch(s: SlabTcTable, pmat, hod=KernelModel()):
+def _check_split(s, device):
+    if not isinstance(s, SlabSplitTable):
+        raise ValueError("the slab_tc kernel reads the split layout "
+                         "(slab_split_table_constants).")
+    for a in (s.logm, s.logm_res, s.sec, s.weight, s.b):
+        _check_tensor(a, device, torch.float32, "slab_tc constants")
+    for a in (s.ct_step0, s.ct_steps, s.col_k, s.col_i0):
+        _check_tensor(a, device, torch.int32, "slab_tc column tables")
+
+
+def slab_tc_launch(s: SlabSplitTable, pmat, hod=KernelModel()):
     """Launch the slab_tc kernel once: :func:`slab_launch`'s function, in
-    3xTF32 on the tensor cores (the 'scaled' tier), from the same
-    constants.  Returns (total (B,), xi (B, n_nodes, n_xi)).  Raises on
-    any input the kernel does not take and on any launch error."""
+    3xTF32 on wgmma (the 'scaled' tier), from the split constants
+    (:func:`slab_split_table_constants`), in :func:`slab_tc_config`'s
+    block.  Returns (total (B,), xi (B, n_nodes, n_xi)).  Raises on any
+    input the kernel does not take and on any launch error."""
     global SLAB_TC_LAUNCHES
-    block = _check_smem(slab_tc_config(s.n_bins, s.n_xi), "slab_tc")
-    args, outs = _slab_entry_args(s, pmat, hod, block, "slab_tc")
+    config = _check_smem(slab_tc_config(s.n_bins, s.n_xi), "slab_tc")
+    batch = _check_params(pmat, hod, s.n_bins)
+    device = pmat.device
+    _check_split(s, device)
+    total = torch.empty(batch, device=device, dtype=torch.float32)
+    xi = torch.empty((batch, s.n_nodes, s.n_xi), device=device,
+                     dtype=torch.float32)
     lib = _slab_lib()
-    code = lib.tabcorr_slab_tc(*args)
+    code = lib.tabcorr_slab_tc(
+        pmat.data_ptr(), batch, *hod.launch_args(), s.logm.data_ptr(),
+        s.logm_res.data_ptr(), s.sec.data_ptr(), s.weight.data_ptr(),
+        s.n_bins, s.n_centrals, s.n_gauss, s.b.data_ptr(), s.node_steps,
+        *(a.data_ptr() for a in (s.ct_step0, s.ct_steps, s.col_k, s.col_i0)),
+        s.n_ct, s.n_nodes, s.n_xi, int(s.auto), *map(int, config),
+        total.data_ptr(), xi.data_ptr(), *_stream_args(device))
     _raise_on_error(code, "slab_tc", lib.tabcorr_cuda_error_string)
     SLAB_TC_LAUNCHES += 1
-    return outs
+    return total, xi
 
 
 def grid_kernel_takes(n_bins, mode, n_xi) -> bool:
@@ -1788,8 +1948,8 @@ def grid_kernel_for(layout, accuracy):
     packed layout runs the grid kernel (FP64 tensor cores) under both
     contracts: it is faster than grid_tc at every grid measured and more
     exact.  The slab layout picks by the contract, the counterpart of
-    tabcorr_tpu's MXU pass classes: 'scaled' runs slab_tc (3xTF32 on the
-    tensor cores), 'elementwise' the FP32 slab kernel.  grid_tc is reached
+    tabcorr_tpu's MXU pass classes: 'scaled' runs slab_tc (3xTF32 on
+    wgmma), 'elementwise' the FP32 slab kernel.  grid_tc is reached
     through :func:`grid_tc_launch` only."""
     if layout == "packed":
         return "grid"
@@ -1800,13 +1960,15 @@ def grid_constants(table: TableData, n_nodes, layout, accuracy,
                    device_type):
     """The constants :func:`make_fused_grid_predictor` builds: for the
     packed layout the :class:`GridTable` (every route); for the slab
-    layout the :class:`SlabTcTable` on CUDA (both tiers' kernels read the
-    block-triangular half), else the dense :class:`SlabTable` (the plain
-    version), never both."""
+    layout on CUDA the split :class:`SlabSplitTable` under 'scaled'
+    (slab_tc) and the :class:`SlabTcTable` under 'elementwise' (slab),
+    else the dense :class:`SlabTable` (the plain version); one set."""
     check_accuracy([accuracy], 1)
     if layout == "packed":
         return grid_table_constants(table, n_nodes)
     if device_type == "cuda":
+        if grid_kernel_for(layout, accuracy) == "slab_tc":
+            return slab_split_table_constants(table, n_nodes)
         return slab_tc_table_constants(table, n_nodes)
     return slab_table_constants(table, n_nodes)
 

@@ -373,7 +373,7 @@ def test_fp32_blocks_fit_wherever_the_former_block_did():
 
 
 def test_slab_tc_takes_every_shape_the_fp32_blocks_take():
-    taken = presplit = 0
+    taken = two = 0
     for n_xi in N_XI:
         for n_bins in range(1, 1000, 5):
             if fused.fp32_stage_steps(n_bins, n_xi) is None:
@@ -381,11 +381,12 @@ def test_slab_tc_takes_every_shape_the_fp32_blocks_take():
             taken += 1
             block = fused.slab_tc_config(n_bins, n_xi)
             assert block is not None, (n_bins, n_xi)
-            presplit += block == (64, True)
-    assert taken > 500 and 0 < presplit < taken
-    # The wide grid: 64-row blocks, the densities split once per block; 32
-    # rows, split at each fragment load, take more bins than the FP32
-    # kernels' 64-row blocks.
-    assert fused.slab_tc_config(160, 42) == (64, True)
-    assert fused.slab_tc_config(1000, 5) == (32, False)
+            two += block[0] == 2
+    assert taken > 500 and 0 < two < taken
+    # The wide grid: 128-row blocks of two consumer warpgroups.  slab_tc's
+    # 64-row block needs less shared memory than the FP32 kernels' (a
+    # smaller ring at the limit, no row totals), and no more bins: past the
+    # FP32 block's 1000 bins neither fits.
+    assert fused.slab_tc_config(160, 42)[0] == 2
+    assert fused.slab_tc_config(1000, 5) is None
     assert fused.slab_tc_config(1600, 5) is None

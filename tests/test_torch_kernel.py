@@ -10,6 +10,8 @@ imports no JAX, so on a GPU machine without JAX it runs on its own:
 """
 
 import dataclasses
+import re
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +29,7 @@ from tabcorr_tpu_torch.io import ColumnTable
 from tabcorr_tpu_torch.ops import fused
 from tabcorr_tpu_torch.ops.predict import TableData, quadrature_grid
 from tabcorr_tpu_torch.predictor import stacked_grid
+from tabcorr_tpu_torch.utils import build
 from tabcorr_tpu_torch.utils.synthetic import synthetic_tabcorr
 
 pytestmark = pytest.mark.gpu
@@ -651,18 +654,19 @@ def test_grid_tc_takes_the_grid_kernels_large_shapes(cuda, shape):
 
 
 @pytest.mark.parametrize("mode,n_prim,n_xi,width,block", [
-    ("auto", 55, 6, 8, (32, False)), ("cross", 55, 5, 8, (32, False)),
-    ("auto", 12, 7, 16, (64, True)), ("auto", 55, 6, 16, (32, False))])
+    ("auto", 100, 6, 8, 1), ("cross", 100, 5, 8, 1), ("auto", 12, 7, 16, 2),
+    ("auto", 55, 6, 16, 2)])
 def test_slab_tc_blocks_and_widths(cuda, mode, n_prim, n_xi, width, block):
-    """slab_tc's 32-row blocks, which split each fragment as it is loaded
-    (220 bins: the split copies of 64 rows do not fit), and the
-    block-triangular layout at 16-bin tiles."""
+    """slab_tc's 64-row blocks of one consumer warpgroup (400 bins: 128
+    rows' densities leave no room for 3 ring slots), its 128-row blocks,
+    and the block-triangular layout at 16-bin tiles."""
     n_nodes = 3
     table = _grid_table(n_nodes, n_prim, 2, n_xi, mode, 13, cuda)
-    assert fused.slab_tc_config(table.n_bins, n_xi) == block
+    wgs, _ = fused.slab_tc_config(table.n_bins, n_xi)
+    assert wgs == block
     model = _model("assembias")
     hod = fused.KernelModel.of(model)
-    s = fused.slab_tc_table_constants(table, n_nodes, width=width)
+    s = fused.slab_split_table_constants(table, n_nodes, width=width)
     params = _params(model, 131, 9, cuda)
     before = fused.SLAB_TC_LAUNCHES
     got = fused.slab_tc_launch(s, fused._param_matrix(params, hod), hod)
@@ -676,8 +680,10 @@ def test_slab_tc_blocks_and_widths(cuda, mode, n_prim, n_xi, width, block):
 def test_tc_wrappers_reject_bad_inputs_and_raise_on_launch_errors(cuda):
     table = _grid_table(3, 8, 1, 3, "auto", 1, cuda)
     g = fused.grid_table_constants(table, 3)
-    s = fused.slab_tc_table_constants(table, 3)
+    s = fused.slab_split_table_constants(table, 3)
     pmat = torch.ones((8, 5), device=cuda)
+    with pytest.raises(ValueError, match="split"):
+        fused.slab_tc_launch(fused.slab_tc_table_constants(table, 3), pmat)
     for launch, consts in ((fused.grid_tc_launch, g),
                            (fused.slab_tc_launch, s)):
         with pytest.raises(ValueError):
@@ -923,10 +929,10 @@ def test_bundle_runs_the_headline_contract(cuda):
 
 def test_fp32_and_tc_kernels_take_768_bins(cuda):
     """Where the FP32 block's 32-row ring does not fit: 16-row stages for
-    bundle, contraction and slab, and 32-row blocks that split at each
-    fragment load for slab_tc."""
+    bundle, contraction and slab, and 64-row blocks of one consumer
+    warpgroup with 3 ring slots for slab_tc."""
     assert fused.fp32_stage_steps(768, 5) == 2
-    assert fused.slab_tc_config(768, 5) == (32, False)
+    assert fused.slab_tc_config(768, 5) == (1, 3)
     grid = _grid_table(2, 192, 2, 5, "auto", 21, cuda)
     assert grid.n_bins == 768
     model = _model("assembias")
@@ -1163,7 +1169,7 @@ def test_grid_density_in_matches_plain(cuda, shape, fold):
 def test_slab_density_in_equals_the_in_kernel_occupation(cuda, accuracy,
                                                          kind):
     table = _grid_table(3, 40, 2, 6, "auto", 5, cuda)
-    s = fused.slab_tc_table_constants(table, 3)
+    s = fused.grid_constants(table, 3, "slab", accuracy, "cuda")
     launch = {"elementwise": fused.slab_launch,
               "scaled": fused.slab_tc_launch}[accuracy]
     pmat, hod, dens = _zheng07_inputs(table, kind, 4096 + 37, cuda)
@@ -1251,11 +1257,13 @@ def test_density_in_wrappers_reject_bad_inputs(cuda):
                             code2)
     table = _grid_table(3, 8, 1, 3, "auto", 1, cuda)
     g = fused.grid_table_constants(table, 3)
-    s = fused.slab_tc_table_constants(table, 3)
     bad = torch.ones((table.n_bins + 1, 8), device=cuda)
     with pytest.raises(ValueError, match="densities must be"):
         fused.grid_launch(g, bad, None, code2)
-    for launch in (fused.slab_launch, fused.slab_tc_launch):
+    for launch, s in ((fused.slab_launch,
+                       fused.slab_tc_table_constants(table, 3)),
+                      (fused.slab_tc_launch,
+                       fused.slab_split_table_constants(table, 3))):
         with pytest.raises(ValueError, match="densities must be"):
             launch(s, bad, code2)
         with pytest.raises(ValueError, match="CUDA"):
@@ -1555,3 +1563,24 @@ def test_occupation_wrapper_rejects_bad_inputs(cuda):
     assert fused.occupation_launch(plan, fam, good[:, :0])[0].shape == (
         c.n_bins, 0)
     assert fused.OCCUPATION_LAUNCHES == before + 1
+
+
+def test_slab_tc_is_wgmma_on_tma_in_every_instantiation(cuda):
+    """cuobjdump -sass of the built slab library: every slab_tc_kernel
+    instantiation issues HGMMA (wgmma) and takes its B tiles through
+    mbarriers (SYNCS); no function of the library issues HMMA
+    (mma.sync).  The two-consumer blocks move registers between their
+    warpgroups (USETMAXREG), the one-consumer blocks do not."""
+    fused._slab_lib()
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path("slab"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s+Function : ", sass)[1:]
+    tc = [f for f in funcs if "slab_tc_kernel" in f.split("\n", 1)[0]]
+    assert len(tc) == 12
+    for f in tc:
+        assert "HGMMA.64x128x8.F32.TF32" in f and "SYNCS" in f
+        two = "slab_tc_kernelILi2E" in f.split("\n", 1)[0]
+        assert ("USETMAXREG" in f) == two
+    assert not any(re.search(r"\bHMMA\.", f) for f in funcs)

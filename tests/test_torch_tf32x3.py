@@ -195,7 +195,8 @@ def test_slab_tc_layout_equals_the_dense_contraction(mode, n_bins, width):
                 if mode == "auto" else n @ dense[node].T)
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
     # A statistic appears in a column tile at most once, or twice within
-    # one warp's slot pair (the kernel's epilogue relies on it).
+    # one aligned pair of n8 tiles (contract.cuh's FP32 epilogue relies on
+    # it).
     for tile in s.col_k.numpy().reshape(-1, 16):
         for c, k in enumerate(tile):
             same = np.flatnonzero(tile == k)
@@ -447,7 +448,7 @@ def test_emulated_slab_tc_agrees_with_the_plain_version(wide):
 # Routing: the contract picks the kernel and its constants
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("layout,accuracy,device_type,kind", [
-    ("slab", "scaled", "cuda", fused.SlabTcTable),
+    ("slab", "scaled", "cuda", fused.SlabSplitTable),
     ("slab", "elementwise", "cuda", fused.SlabTcTable),
     ("slab", "scaled", "cpu", fused.SlabTable),
     ("slab", "elementwise", "cpu", fused.SlabTable),
@@ -468,7 +469,7 @@ def test_predictor_builds_only_its_tiers_constants(monkeypatch, accuracy):
     table = _table("auto", 24, 2, 3, seed=6)
     built = []
     for name in ("slab_table_constants", "slab_tc_table_constants",
-                 "grid_table_constants"):
+                 "slab_split_table_constants", "grid_table_constants"):
         real = getattr(fused, name)
         monkeypatch.setattr(fused, name, lambda *a, _n=name, _r=real, **k:
                             built.append(_n) or _r(*a, **k))
@@ -485,17 +486,17 @@ def test_predictor_builds_only_its_tiers_constants(monkeypatch, accuracy):
 
 def test_tc_wrappers_need_cuda_and_report_their_shapes():
     table = _table("auto", 24, 2, 3, seed=7)
-    s = fused.slab_tc_table_constants(table, 2)
+    s = fused.slab_split_table_constants(table, 2)
     g = fused.grid_table_constants(table, 2)
     with pytest.raises(ValueError, match="CUDA"):
         fused.slab_tc_launch(s, torch.ones((4, 5)))
     with pytest.raises(ValueError, match="CUDA"):
         fused.grid_tc_launch(g, torch.ones((4, 5)))
-    # slab_tc: 64-row blocks with the densities split once at the wide
-    # grid; 32-row blocks splitting at each load where those copies do not
-    # fit (400 bins), as far as the slab kernel goes.
-    assert fused.slab_tc_config(160, 42) == (64, True)
-    assert fused.slab_tc_config(400, 42) == (32, False)
+    # slab_tc: 128-row blocks (two consumer warpgroups) at the wide grid;
+    # 64-row blocks (one) where the densities of 128 rows leave no room
+    # for 3 ring slots (400 bins), as far as the slab kernel goes.
+    assert fused.slab_tc_config(160, 42) == (2, 4)
+    assert fused.slab_tc_config(400, 42) == (1, 4)
     assert fused.contraction_fits(736, 42) and fused.slab_tc_config(736, 42)
     assert not fused.contraction_fits(800, 42)
     assert fused.grid_kernel_takes(400, "auto", 42)
