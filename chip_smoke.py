@@ -97,7 +97,11 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    counts -- within the z cut (no layout read), the kernel's candidates
    (its own count, held equal to its layout's runs) and the kept pairs;
    the kernel's ms by CUDA events around its launch and the wall time
-   with the wrapper's checks; the kept-pair bound (every kept pair's
+   with the wrapper's checks; for (a) the host C++ counter
+   (``strategy="native"``) on the 65,536-tracer subsample on this
+   machine's CPU, its ms beside the kernel's and its unit counts against
+   the plain version's (differing by at most 1e-6 of the pairs: float64
+   against float32 geometry at the edges); the kept-pair bound (every kept pair's
    geometry and bin, ``bound_ops``, at 33.5 T lane-ops/s) and the
    z-slab bound (``bound_ops`` over every pair within the z cut, the
    enumeration of a layout without xy cells), each with its share; the plain
@@ -128,6 +132,25 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    gradients (each step and each gradient in it timed on CUDA events); the log probability and its gradient on 16 chains held to
    the host's float64 at 1e-10, no NaN, accept statistics in [0, 1],
    mean depth >= 1; (d) ``run_hmc_adaptive`` on the same posterior.
+
+11. The table-making pipeline: ``scripts/torch_parse_snapshot.py``
+   writes an AbacusSummit-style snapshot.npz of path 9's catalog and
+   particles (the base simulations' particle mass, so the CLI's
+   299-particle cut keeps the hosts above 6.3e11 Msun/h) into a temporary
+   database; ``scripts/torch_tabulate_snapshot.py``'s ``main`` makes the
+   'efficient' Delta Sigma grid (4 log_eta nodes, cross mode, 300 mass
+   bins, one sweep a node) and wp grid (4 alpha_s x 4 log_eta nodes,
+   three projections a node) with ``--format npz --seed 1`` on the
+   default ``--device cuda``; printed per node: the host's mock,
+   the layout, the kernel (CUDA events) and the write, and per run the
+   Interpolator's assembly, the bytes written and the whole run.  Node 0
+   is held against a direct ``TabCorr.tabulate`` with its arguments
+   (sweeps: unit counts equal, weighted cells within 1e-7), then both
+   Interpolators, read back through ``database.read(format="npz")``,
+   predict through ``make_predictor(engine="fused")`` (the grid kernel)
+   at 262,144 rows: zheng07 on wp, zheng07 and AssembiasLeauthaud11 on
+   Delta Sigma, each within 1e-6 of the float64 ``Interpolator.predict``
+   at 16 probes.
 
 Paths 3-5 and 7 run the 'scaled' contract: the grid kernel and slab_tc;
 the 'elementwise' passes run the grid kernel and the FP32 slab kernel,
@@ -234,6 +257,7 @@ def main():
     family_phases(ctx, kernels)
     sampler_phases(ctx, kernels)
     tabulation_phase(ctx, kernels)
+    pipeline_phase(ctx, kernels)
 
     for name in KERNELS:
         check(kernels[name]["launches"] > 0,
@@ -2944,8 +2968,87 @@ def tabulation_sweep_report(ctx, label, rec):
           f"({pc.candidate_count(sub, sub_layout)} candidates) on "
           f"{ctx['card']}")
     max_abs_err = float((got.double() - want.double()).abs().max())
-    return dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max_abs_err, **sb,
-                main_path_ms=kernel_ms, main_path_bound_ms=b["bound_ms"])
+    out = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max_abs_err, **sb,
+               main_path_ms=kernel_ms, main_path_bound_ms=b["bound_ms"])
+    if label == "wp":
+        out.update(native_comparison(ctx, label, sub, want, k_ms))
+    return out
+
+
+def native_comparison(ctx, label, sub, want, kernel_ms):
+    """The host C++ counter (``strategy="native"``, float64 geometry; the
+    JAX package's CPU production path) on the subsample, on this machine's
+    CPU: its ms (median of 3 calls after the build) beside the kernel's,
+    and its unit counts against the plain version's, which may differ only
+    by pairs whose float32 and float64 geometries bin differently (the
+    edges given as the sweep's own float32 squares): at most 1e-6 of the
+    kept pairs."""
+    import os
+    np, pc = ctx["np"], ctx["paircount"]
+    from tabcorr_tpu_torch import native
+    check(sub.kind == "rppi" and sub.unit_counts,
+          f"{label}: the native comparison takes a unit rppi sweep")
+    t0 = time.perf_counter()
+    native.load_library()
+    build_s = time.perf_counter() - t0
+    args = (sub.pos1.cpu().numpy(), sub.labels1.cpu().numpy(),
+            sub.n_labels_1)
+    kw = dict(period=sub.period, kind="rppi",
+              r_edges=np.sqrt(sub.edges_sq.astype(np.float64)),
+              pi_max=sub.pi_max, strategy="native", device="cpu")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        counts = pc.labeled_pair_count(*args, **kw)
+        times.append((time.perf_counter() - t0) * 1e3)
+    plain = want.cpu().numpy().reshape(counts.shape)
+    kept = int(plain.sum())
+    moved = int(np.abs(counts - plain).sum())
+    native_ms = float(np.median(times))
+    cores = os.cpu_count()
+    print(f"tabulation {label}: host C++ counter (strategy='native', float64 "
+          f"geometry) on the {len(sub.pos1)}-tracer subsample: "
+          f"{native_ms:.1f} ms (median of {[round(t, 1) for t in times]}; "
+          f"g++ build {build_s:.1f} s) on {cores} CPU cores of the card's "
+          f"host, against the kernel's {kernel_ms:.3f} ms on {ctx['card']}; "
+          f"its unit counts differ from the plain version's by {moved} of "
+          f"{kept} pairs, in {int((counts != plain).sum())} cells (<= 1e-6 "
+          f"of the pairs: float32 against float64 geometry at the edges)")
+    check(moved <= 1e-6 * kept, f"{label}: native vs plain {moved} pairs")
+    return dict(native_ms=native_ms, native_cores=cores)
+
+
+def sweep_spy(ctx, records):
+    """A stand-in for ``ops.paircount.paircount`` that runs each sweep as
+    it does on the card (one launch, one progress step) and appends to
+    ``records`` its inputs, layout, histogram and the pairs the kernel
+    evaluated, timed by stage on the host clock (synchronized): the
+    layout, then the launch with its input checks; the kernel alone by
+    CUDA events."""
+    torch, pc = ctx["torch"], ctx["paircount"]
+    from tabcorr_tpu_torch.utils.progress import progress as progress_bar
+
+    def spy(sweep, progress=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        layout = pc.bucket_layout(sweep)
+        visited = torch.zeros(1, dtype=torch.int64, device=sweep.device)
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in progress_bar(range(1), desc="pair counting",
+                              disable=not progress):
+            hist = pc.paircount_launch(sweep, layout, visited, events)
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        records.append(dict(sweep=sweep, hist=hist, layout=layout,
+                            visited=int(visited),
+                            kernel_ms=events[0].elapsed_time(events[1]),
+                            t_call=t0, layout_s=t1 - t0, sweep_s=t2 - t1,
+                            t_return=t2))
+        return hist
+    return spy
 
 
 def tabulation_phase(ctx, kernels):
@@ -2966,30 +3069,7 @@ def tabulation_phase(ctx, kernels):
     default = tp.database.configuration("default")
     efficient = tp.database.configuration("efficient")
     records = []
-
-    def spy(sweep):
-        """The tabulation's sweep, as ``paircount`` runs it on the card,
-        timed by stage on the host clock (synchronized): the layout, then
-        the launch with its input checks; the kernel alone by CUDA events;
-        recorded with its inputs, layout, histogram and the pairs the
-        kernel evaluated."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        layout = pc.bucket_layout(sweep)
-        visited = torch.zeros(1, dtype=torch.int64, device=sweep.device)
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        hist = pc.paircount_launch(sweep, layout, visited, events)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        records.append(dict(sweep=sweep, hist=hist, layout=layout,
-                            visited=int(visited),
-                            kernel_ms=events[0].elapsed_time(events[1]),
-                            t_call=t0, layout_s=t1 - t0, sweep_s=t2 - t1,
-                            t_return=t2))
-        return hist
+    spy = sweep_spy(ctx, records)
 
     common = dict(mode="auto", prim_haloprop_bins=30,
                   sec_haloprop_percentile_bins=0.5,
@@ -3140,11 +3220,277 @@ def tabulation_phase(ctx, kernels):
     wp_report = reports["wp"]
     record(kernels, "paircount", launches, library_ms=None,
            **{k: wp_report[k] for k in ("ms", "plain_ms", "max_abs_err",
-                                        "bound_ms", "bound_by")},
+                                        "bound_ms", "bound_by", "native_ms",
+                                        "native_cores")},
            main_path_ms=sum(r["main_path_ms"] for r in reports.values()),
            main_path_bound_ms=sum(r["main_path_bound_ms"]
                                   for r in reports.values()))
     print(f"tabulation phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ----------------------------------------------------------------------
+# The table-making pipeline: snapshot -> CLI -> Interpolator -> B2
+# ----------------------------------------------------------------------
+# An AbacusSummit-style snapshot of the tabulation phase's catalog: the
+# base simulations' particle mass (6912^3 particles in 2 Gpc/h) and the
+# same resolution's particles per dimension in the 250 Mpc/h box, at z =
+# 0.5 (the published lensing grid's redshift).
+PIPE_REDSHIFT = 0.5
+PIPE_PARTICLE_MASS = 2.109e9
+PIPE_PPD = 864
+PIPE_SO_DENSITY = 200.0
+PIPE_PTCL_REQUIREMENT = 299     # the CLI's AbacusSummit cut
+# (statistic, nodes, sweeps a node) of the 'efficient' grids: Delta Sigma
+# over log_eta; wp over alpha_s x log_eta (alpha_c pruned at pi_max 80),
+# three projections a node.
+PIPE_GRIDS = (("ds", 4, 1), ("wp", 16, 3))
+
+
+def pipeline_phase(ctx, kernels):
+    """The production CLI on the card: ``scripts/torch_parse_snapshot.py``'s
+    ``write_snapshot`` writes snapshot.npz into a temporary database, then
+    ``scripts/torch_tabulate_snapshot.py``'s ``main`` makes the
+    'efficient' Delta Sigma grid (4 nodes, one sweep a node) and wp grid
+    (16 nodes, three projections a node), and each assembled Interpolator
+    predicts through ``make_predictor(engine="fused")`` (the grid kernel)."""
+    import os
+    import tempfile
+    torch, np = ctx["torch"], ctx["np"]
+    import tabcorr_tpu_torch as tp
+    from tabcorr_tpu_torch.utils.synthetic import (synthetic_halocat,
+                                                   synthetic_particles)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import torch_parse_snapshot
+    import torch_tabulate_snapshot
+
+    t_phase = time.perf_counter()
+    halocat = synthetic_halocat(TAB_HALOS, TAB_LBOX)
+    particles = synthetic_particles(TAB_PARTICLES, halocat)
+    h = halocat.halo_table
+    halos = {k: h[k] for k in ("halo_x", "halo_y", "halo_z", "halo_vx",
+                               "halo_vy", "halo_vz")}
+    halos.update(halo_m200m=h["halo_mvir"], halo_r200m=h["halo_rvir"],
+                 halo_rs=h["halo_rvir"] / h["halo_nfw_conc"])
+    meta = {"BoxSize": TAB_LBOX, "SODensityL1": PIPE_SO_DENSITY,
+            "ParticleMassHMsun": PIPE_PARTICLE_MASS, "ppd": PIPE_PPD}
+    pos = particles.positions
+    kept = int(np.sum(h["halo_mvir"] >
+                      PIPE_PTCL_REQUIREMENT * PIPE_PARTICLE_MASS))
+    saved = os.environ.get("TABCORR_DATABASE")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["TABCORR_DATABASE"] = root
+        try:
+            base = tp.database.directory("AbacusSummit", PIPE_REDSHIFT)
+            t0 = time.perf_counter()
+            torch_parse_snapshot.write_snapshot(
+                base / "snapshot.npz", halos, meta,
+                particles={"x": pos[:, 0], "y": pos[:, 1], "z": pos[:, 2]})
+            print(f"pipeline: snapshot.npz ({TAB_HALOS} hosts, {len(pos)} "
+                  f"particles, {TAB_LBOX} Mpc/h, z = {PIPE_REDSHIFT}) "
+                  f"{(base / 'snapshot.npz').stat().st_size / 1e6:.1f} MB "
+                  f"in {time.perf_counter() - t0:.2f} s; particle mass "
+                  f"{PIPE_PARTICLE_MASS:.4g} Msun/h: the "
+                  f"{PIPE_PTCL_REQUIREMENT}-particle cut keeps {kept} of "
+                  f"{TAB_HALOS} hosts (M > "
+                  f"{PIPE_PTCL_REQUIREMENT * PIPE_PARTICLE_MASS:.3g})")
+            interps = {}
+            for tpcf, n_nodes, sweeps in PIPE_GRIDS:
+                interps[tpcf] = pipeline_run(
+                    ctx, kernels, torch_tabulate_snapshot, base, tpcf,
+                    n_nodes, sweeps)
+        finally:
+            if saved is None:
+                os.environ.pop("TABCORR_DATABASE")
+            else:
+                os.environ["TABCORR_DATABASE"] = saved
+    pipeline_predictions(ctx, kernels, interps)
+    print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def pipeline_run(ctx, kernels, cli, base, tpcf, n_nodes, sweeps):
+    """One ``main()`` of the tabulation CLI ('efficient', --format npz,
+    --seed 1, the default --device cuda) with its sweeps, tabulations and
+    writes timed; node 0 held against a direct ``TabCorr.tabulate`` with
+    the same arguments.  Returns the Interpolator read back."""
+    torch, np, pc = ctx["torch"], ctx["np"], ctx["paircount"]
+    import tabcorr_tpu_torch as tp
+    records, calls, writes = [], [], []
+    spy = sweep_spy(ctx, records)
+    tabulate = tp.TabCorr.__dict__["tabulate"]
+    write_npz = tp.TabCorr.write_npz
+    write_interp = tp.Interpolator.write_npz
+
+    def timed_tabulate(cls, *args, **kwargs):
+        t0 = time.perf_counter()
+        tab = tabulate.__func__(cls, *args, **kwargs)
+        calls.append(dict(args=args, kwargs=kwargs, t0=t0,
+                          s=time.perf_counter() - t0,
+                          sweeps=len(records)))
+        return tab
+
+    def timed(write):
+        """``write`` appending (seconds, bytes, end time) to writes."""
+        def run(self, fname, *args, **kwargs):
+            t0 = time.perf_counter()
+            write(self, fname, *args, **kwargs)
+            t1 = time.perf_counter()
+            writes.append((t1 - t0, Path(fname).stat().st_size, t1))
+        return run
+
+    argv = ["AbacusSummit", str(PIPE_REDSHIFT), "--tpcf", tpcf,
+            "--tab_config", "efficient", "--format", "npz", "--seed", "1"]
+    dispatch = pc.paircount
+    pc.paircount = spy
+    tp.TabCorr.tabulate = classmethod(timed_tabulate)
+    tp.TabCorr.write_npz = timed(write_npz)
+    tp.Interpolator.write_npz = timed(write_interp)
+    try:
+        ctx["reset"]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        whole_s = time.perf_counter() - t0
+        launched = ctx["expect"](f"pipeline {tpcf}",
+                                 paircount=n_nodes * sweeps)["paircount"]
+    finally:
+        pc.paircount = dispatch
+        tp.TabCorr.tabulate = tabulate
+        tp.TabCorr.write_npz = write_npz
+        tp.Interpolator.write_npz = write_interp
+    record(kernels, "paircount", launched)
+    check(len(calls) == n_nodes and len(writes) == n_nodes + 1,
+          f"pipeline {tpcf}: {len(calls)} tabulations, {len(writes)} writes")
+    print(f"pipeline {tpcf}: torch_tabulate_snapshot.main({' '.join(argv)}): "
+          f"{n_nodes} nodes, {launched} paircount launches ({sweeps} a node) "
+          f"in {whole_s:.2f} s on {ctx['card']}")
+    node_s = []
+    for i, call in enumerate(calls):
+        recs = records[call["sweeps"] - sweeps:call["sweeps"]]
+        sweep_s = sum(r["layout_s"] + r["sweep_s"] for r in recs)
+        layout_s = sum(r["layout_s"] for r in recs)
+        kernel_s = sum(r["kernel_ms"] for r in recs) / 1e3
+        write_s = writes[i][0]
+        node_s.append((call["s"] - sweep_s, layout_s, kernel_s, write_s,
+                       call["s"] + write_s))
+        print(f"pipeline {tpcf} node {i}: {len(recs[0]['sweep'].pos1)} "
+              f"tracers; mock {call['s'] - sweep_s:.3f} s (binning, the "
+              f"dense mock, RSD, estimators), layout {layout_s:.3f} s, "
+              f"kernel {kernel_s:.4f} s (CUDA events, {sweeps} launch"
+              f"{'es' if sweeps > 1 else ''}), launch wall "
+              f"{sweep_s - layout_s:.3f} s, write {write_s:.3f} s "
+              f"({writes[i][1] / 1e3:.1f} kB)")
+    t = np.array(node_s)
+    assembly_s = t0 + whole_s - writes[n_nodes - 1][2]
+    written = sum(w[1] for w in writes)
+    print(f"pipeline {tpcf}: per node (median [min, max]) mock "
+          f"{np.median(t[:, 0]):.3f} [{t[:, 0].min():.3f}, "
+          f"{t[:, 0].max():.3f}] s, layout {np.median(t[:, 1]):.3f} s, "
+          f"kernel {np.median(t[:, 2]):.4f} s, write {np.median(t[:, 3]):.3f}"
+          f" s, node {np.median(t[:, 4]):.3f} [{t[:, 4].min():.3f}, "
+          f"{t[:, 4].max():.3f}] s; the Interpolator's assembly (read "
+          f"{n_nodes} tables, build, write) {assembly_s:.3f} s, its file "
+          f"{writes[-1][1] / 1e6:.3f} MB; bytes written {written} "
+          f"({written / 1e6:.3f} MB: {n_nodes} node files and the "
+          f"Interpolator); whole run {whole_s:.2f} s on {ctx['card']}")
+
+    # ---- node 0 against a direct TabCorr.tabulate ------------------------
+    node0 = records[:sweeps]
+    direct_records = []
+    pc.paircount = sweep_spy(ctx, direct_records)
+    try:
+        direct = tp.TabCorr.tabulate(*calls[0]["args"], **calls[0]["kwargs"])
+    finally:
+        pc.paircount = dispatch
+    errs = [hist_errors(b["hist"], a["hist"], a["sweep"].unit_counts)
+            for a, b in zip(node0, direct_records)]
+    unit = node0[0]["sweep"].unit_counts
+    path = base / "efficient"
+    written0 = tp.TabCorr.read(path / f"{tpcf}_0.npz")
+    table_err = float(np.max(np.abs(
+        written0.tpcf_matrix - direct.tpcf_matrix.astype(np.float32))) /
+        np.max(np.abs(direct.tpcf_matrix)))
+    same_bins = all(np.array_equal(written0.gal_type[c], direct.gal_type[c])
+                    for c in direct.gal_type.colnames)
+    print(f"pipeline {tpcf}: node 0 against a direct TabCorr.tabulate with "
+          f"its arguments (seed {calls[0]['kwargs']['seed']}): sweeps "
+          f"{errs} {'cells unequal' if unit else 'max rel per cell'} "
+          f"({'0' if unit else '<= 1e-7'}); the written table against the "
+          f"direct one in float32 {table_err:.3e} scaled (unit counts: 0; "
+          f"weighted: <= 1e-6), gal_type equal {same_bins}")
+    check(len(direct_records) == sweeps and same_bins and
+          all(e == 0 if unit else e <= 1e-7 for e in errs),
+          f"pipeline {tpcf}: node 0 vs direct tabulate {errs}")
+    check(table_err == 0 if unit else table_err <= 1e-6,
+          f"pipeline {tpcf}: node 0 table vs direct {table_err}")
+    interp = tp.database.read("AbacusSummit", PIPE_REDSHIFT, tpcf,
+                              tab_config="efficient", format="npz")
+    check(len(interp.tabcorr_list) == n_nodes,
+          f"pipeline {tpcf}: {len(interp.tabcorr_list)} nodes read back")
+    return interp
+
+
+def pipeline_predictions(ctx, kernels, interps):
+    """Both assembled Interpolators through ``make_predictor(engine=
+    "fused")`` at BATCH rows: zheng07 on the wp grid, zheng07 and
+    AssembiasLeauthaud11 on the Delta Sigma grid (the grid kernel; the
+    occupation kernel for the family), each held at 16 probes to the host
+    float64 ``Interpolator.predict`` at 1e-6 (ngal relative, the
+    statistic scaled: an unclustered catalog's wp crosses zero)."""
+    torch, np = ctx["torch"], ctx["np"]
+    from tabcorr_tpu_torch import (AssembiasLeauthaud11Model, Zheng07Model,
+                                   make_predictor)
+    rng = np.random.default_rng(SEED + 100)
+    kw = dict(redshift=PIPE_REDSHIFT, prim_haloprop_key="halo_m200m")
+    cases = [("wp", Zheng07Model(threshold=-20, **kw)),
+             ("ds", Zheng07Model(threshold=-21, **kw)),
+             ("ds", AssembiasLeauthaud11Model(threshold=10.5, **kw))]
+    launches = occ_launches = 0
+    for tpcf, model in cases:
+        interp = interps[tpcf]
+        name = f"pipeline {tpcf} grid, {type(model).__name__}"
+        if isinstance(model, Zheng07Model):
+            params = bench_params(model, rng, BATCH, "cuda")
+        else:
+            params = family_params(model, rng, BATCH)
+        for key, lo, hi in (("alpha_s", 0.85, 1.15), ("log_eta", -0.4, 0.4)):
+            if key in interp.keys:
+                model.param_dict[key] = 0.5 * (lo + hi)
+                v = rng.uniform(lo, hi, BATCH)
+                v[0] = model.param_dict[key]
+                params[key] = torch.tensor(v, dtype=torch.float32,
+                                           device="cuda")
+        predict = make_predictor(interp, model, engine="fused",
+                                 accuracy="scaled", device="cuda")
+        occupation = 0 if isinstance(model, Zheng07Model) else 1
+        ctx["reset"]()
+        ngal, xi = predict(params)
+        torch.cuda.synchronize()
+        got = ctx["expect"](name, grid=1, occupation=occupation)
+        launches += got["grid"]
+        occ_launches += got["occupation"]
+        xi = xi.reshape(BATCH, -1)
+        check(bool(torch.isfinite(ngal).all() and torch.isfinite(xi).all()),
+              f"{name}: non-finite predictions")
+        e_ng = e_xi = 0.0
+        for i in range(N_PROBE):
+            ng64, xi64 = interp.predict(host_model(model, params, i),
+                                        check_consistency=False)
+            got = xi[i].double().cpu().numpy()
+            e_xi = max(e_xi, float(np.max(np.abs(got - np.ravel(xi64))) /
+                                   np.max(np.abs(xi64))))
+            e_ng = max(e_ng, abs(float(ngal[i]) / ng64 - 1))
+        ms = median_ms(ctx, lambda: predict(params))
+        print(f"{name} ({interp.tabcorr_list[0].n_bins} bins, "
+              f"{len(interp.tabcorr_list)} nodes over {interp.keys}, "
+              f"{interp.tabcorr_list[0].mode}): {BATCH} rows, 1 grid "
+              f"launch{', 1 occupation launch' if occupation else ''}; vs "
+              f"float64 Interpolator.predict at {N_PROBE} probes: ngal rel "
+              f"{e_ng:.3e}, statistic scaled {e_xi:.3e} (<= 1e-6); "
+              f"predictor {ms:.3f} ms ({BATCH / ms * 1e3:.6g} predictions/s)"
+              f" on {ctx['card']}")
+        check(e_ng <= 1e-6 and e_xi <= 1e-6, f"{name} vs float64")
+    record(kernels, "grid", launches)
+    record(kernels, "occupation", occ_launches)
 
 
 if __name__ == "__main__":

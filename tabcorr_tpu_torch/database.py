@@ -7,7 +7,7 @@ simulation suites (built from the public release parameter tables copied
 into ``tabcorr_tpu_torch/data/``), the on-disk layout of the published
 tabulation database, and ``read()``, which loads the port's
 :class:`~.interpolator.Interpolator` from HDF5 (h5py is imported there, at
-the read, so the rest needs numpy alone).
+the read, so the rest needs numpy alone) or from its ``.npz`` copy.
 """
 
 from __future__ import annotations
@@ -160,12 +160,19 @@ def directory(suite, redshift, i_cosmo=0, i_phase=0, config=None):
     return path / suite / name / f"{redshift:.2f}".replace(".", "p")
 
 
+FORMATS = ("hdf5", "npz")
+
+
 def read(suite, redshift, tpcf, i_cosmo=0, i_phase=0, sim_config=None,
-         tab_config="default"):
-    """Read a published tabulation (reference: database.py:253-286)."""
+         tab_config="default", format="hdf5"):
+    """Read a published tabulation (reference: database.py:253-286):
+    ``{tpcf}_{tab_config}.hdf5``, or the ``.npz`` copy with
+    ``format="npz"`` (written by ``Interpolator.write_npz``)."""
+    if format not in FORMATS:
+        raise ValueError(f"Unknown format {format!r}; use one of {FORMATS}.")
     path = directory(suite, redshift, i_cosmo=i_cosmo, i_phase=i_phase,
                      config=sim_config)
-    return Interpolator.read(path / f"{tpcf}_{tab_config}.hdf5")
+    return Interpolator.read(path / f"{tpcf}_{tab_config}.{format}")
 
 
 # Backwards-compatible alias (reference: database.py:290).

@@ -14,8 +14,8 @@ cubic-spline-interpolates their predictions across it.
 
 The not-a-knot spline is built per interval in the local shifted basis
 ``(x - x_k)^p``, as tabcorr_tpu builds it.  Files are read from the
-reference HDF5 schema or from the ``.npz`` copy :meth:`write_npz` makes,
-which needs no h5py.
+reference HDF5 schema (and written to it, :meth:`Interpolator.write`) or
+from the ``.npz`` copy :meth:`write_npz` makes, which needs no h5py.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 from scipy.interpolate import CubicSpline
 
 from .io import ColumnTable
-from .table import TabCorr
+from .table import TabCorr, import_h5py
 
 
 def spline_interpolation_matrix(xp):
@@ -178,18 +178,34 @@ class Interpolator:
                             for i in range(len(param_dict_table))]
         return cls(tabcorr_list, param_dict_table)
 
-    def write_npz(self, fname):
+    def write_npz(self, fname, max_args_size=1000000):
         """Write the grid table and every node's tabulation to one
-        uncompressed ``.npz`` (matrices in float32, as the HDF5 schema
-        stores them).  The grid table is stored in node order, without
-        ``tabcorr_index``, as :meth:`read` hands it to the constructor."""
+        uncompressed ``.npz`` (matrices in float32 and tpcf arguments
+        below ``max_args_size`` elements, as :meth:`write` stores them).
+        The grid table is stored in node order, without ``tabcorr_index``,
+        as :meth:`read` hands it to the constructor."""
         table = self.param_dict_table.copy()
         table.sort("tabcorr_index")
         table.remove_column("tabcorr_index")
         arrays = {"param_dict_table": table.as_structured_array()}
         for i, tab in enumerate(self.tabcorr_list):
-            arrays.update(tab.npz_arrays(prefix=f"tabcorr_{i}."))
+            arrays.update(tab.npz_arrays(prefix=f"tabcorr_{i}.",
+                                         max_args_size=max_args_size))
         np.savez(fname, **arrays)
+
+    def write(self, fname, overwrite=False, max_args_size=1000000,
+              matrix_dtype=np.float32):
+        """Write in the reference's HDF5 schema (interpolator.py:98-122):
+        ``param_dict_table`` (with ``tabcorr_index``), then each node's
+        tabulation in group ``tabcorr_i`` (:meth:`TabCorr.write`).  Mode
+        "w-" unless ``overwrite``.  Needs h5py (:meth:`write_npz` does
+        not)."""
+        h5py = import_h5py("Interpolator.write")
+        with h5py.File(fname, "w" if overwrite else "w-") as fstream:
+            self.param_dict_table.write_hdf5(fstream, "param_dict_table")
+            for i, tab in enumerate(self.tabcorr_list):
+                tab.write_hdf5_group(fstream.create_group(f"tabcorr_{i}"),
+                                     max_args_size, matrix_dtype)
 
     # ------------------------------------------------------------------
     def predict(self, model, separate_gal_type=False, n_gauss_prim=10,

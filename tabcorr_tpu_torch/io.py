@@ -3,8 +3,8 @@
 The reference stores tables via ``astropy.table.Table.write(..., path=...)``,
 a plain HDF5 dataset with a numpy structured dtype (reference:
 tabcorr/tabcorr.py:414,463).  Nothing here imports ``h5py``: the HDF5
-reader in ``table.py`` imports it and passes open groups in, so the
-``.npz`` route needs numpy alone.
+reader and writers in ``table.py`` and ``interpolator.py`` import it and
+pass open groups in, so the ``.npz`` route needs numpy alone.
 """
 
 from __future__ import annotations
@@ -97,6 +97,11 @@ class ColumnTable:
         """Read a structured dataset (written by astropy or tabcorr_tpu)
         from an open h5py group."""
         return cls.from_structured_array(group[path][()])
+
+    def write_hdf5(self, group, path: str):
+        """Write as a structured dataset (the reference's astropy layout)
+        into an open h5py group."""
+        group[path] = self.as_structured_array()
 
 
 def vstack(tables) -> ColumnTable:

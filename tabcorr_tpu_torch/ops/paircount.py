@@ -50,6 +50,7 @@ import torch
 
 from ..utils.build import load_library
 from ..utils.device import resolve_device
+from ..utils.progress import progress as progress_bar
 
 CHUNK = 1024
 # i-tracers a block of the kernel (csrc/paircount.cu kTile).
@@ -182,8 +183,9 @@ def check_sweep(sweep: Sweep):
 def labeled_pair_count(pos1, labels1, n_labels_1, pos2=None, labels2=None,
                        n_labels_2=None, weights2=None, period=1.0,
                        kind="rppi", r_edges=None, pi_max=None,
-                       mu_edges=None, mesh=None, sort=True,
-                       pair_weight="unit", *, device="cuda"):
+                       mu_edges=None, progress=False, mesh=None,
+                       strategy=None, sort=True, pair_weight="unit", *,
+                       device="cuda"):
     """Count pairs between labeled tracer sets.
 
     Parameters
@@ -199,7 +201,16 @@ def labeled_pair_count(pos1, labels1, n_labels_1, pos2=None, labels2=None,
     r_edges : radial (rp or s) bin edges.
     pi_max : line-of-sight cut for 'rppi'.
     mu_edges : mu bin edges for 'smu'.
-    mesh : the mesh-sharded sweep is not ported (ROADMAP Queue A item 10).
+    progress : report the sweep's steps (tqdm, else plain lines on
+        stderr): one a launch on the card, one an i-chunk window on the
+        plain version.
+    mesh : the mesh-sharded sweep is not ported (multi-GPU, ROADMAP
+        Queue A).
+    strategy : None (default: the CUDA kernel or its plain version, by
+        ``device``) or 'native': the host C++ counter
+        (:mod:`tabcorr_tpu_torch.native`, float64 geometry, uniform mu
+        bins only), which counts on the host and takes ``device='cpu'``
+        only.  Nothing routes to it unless asked.
     sort : bool, optional
         Sort along z so each i-chunk (each tile on the card) visits only
         the j-tracers within the line-of-sight cut.  No effect on results.
@@ -216,7 +227,21 @@ def labeled_pair_count(pos1, labels1, n_labels_1, pos2=None, labels2=None,
     """
     if mesh is not None:
         raise NotImplementedError(
-            "the mesh-sharded sweep is not ported: ROADMAP Queue A item 10.")
+            "the mesh-sharded sweep is not ported: multi-GPU, ROADMAP "
+            "Queue A.")
+    if strategy not in (None, "native"):
+        raise ValueError(f"Unknown strategy {strategy!r}; use None (the "
+                         "device given by device=) or 'native'.")
+    if strategy == "native":
+        if device is None or torch.device(device).type != "cpu":
+            raise ValueError("strategy='native' counts on the host: pass "
+                             "device='cpu'.")
+        from .. import native
+        return native.labeled_pair_count(
+            pos1, labels1, n_labels_1, pos2=pos2, labels2=labels2,
+            n_labels_2=n_labels_2, weights2=weights2, period=period,
+            kind=kind, r_edges=r_edges, pi_max=pi_max, mu_edges=mu_edges,
+            pair_weight=pair_weight)
     device = resolve_device(device)
     if kind not in KINDS:
         raise ValueError(f"Unknown kind {kind!r}; use one of {KINDS}.")
@@ -271,7 +296,7 @@ def labeled_pair_count(pos1, labels1, n_labels_1, pos2=None, labels2=None,
         mu_edges=mu_edges.astype(np.float32),
         pi_max=float(np.float32(pi_max if pi_max is not None else 0.0)),
         pair_weight=pair_weight, z_cut=z_cut)
-    hist = paircount(sweep)
+    hist = paircount(sweep, progress=progress)
     counts = hist.cpu().numpy().astype(np.float64) * weight_scale
     shape = (n_labels_1, n_labels_2, n_r) if kind != "smu" else \
         (n_labels_1, n_labels_2, n_r, n_mu)
@@ -280,13 +305,17 @@ def labeled_pair_count(pos1, labels1, n_labels_1, pos2=None, labels2=None,
     return counts.reshape(shape)
 
 
-def paircount(sweep: Sweep) -> torch.Tensor:
+def paircount(sweep: Sweep, progress=False) -> torch.Tensor:
     """The flat histogram (n_channels * n_hist,) of ``sweep``: int64 for
     unit counts, else float64, on the sweep's device.  The CUDA kernel for
-    tensors on the card, the plain version for tensors on the CPU."""
+    tensors on the card, the plain version for tensors on the CPU;
+    ``progress`` reports one step a launch, one an i-chunk window."""
     if sweep.device.type == "cuda":
-        return paircount_launch(sweep)
-    return paircount_plain(sweep)
+        for _ in progress_bar(range(1), disable=not progress,
+                              desc="pair counting"):
+            hist = paircount_launch(sweep)
+        return hist
+    return paircount_plain(sweep, progress=progress)
 
 
 def _empty_hist(sweep):
@@ -416,11 +445,12 @@ def accumulate(hist, sub, valid, rp_sq, l1, l2, w2, sweep: Sweep):
             0, flat, vals.double())
 
 
-def paircount_plain(sweep: Sweep) -> torch.Tensor:
+def paircount_plain(sweep: Sweep, progress=False) -> torch.Tensor:
     """The kernel's plain version, in tensor ops on the sweep's device:
     tabcorr_tpu's sweep (z-sorted chunks of ``CHUNK`` and their circular
     windows where the sweep has one), the geometry of
-    :func:`pair_geometry`, and an int64 or float64 scatter."""
+    :func:`pair_geometry`, and an int64 or float64 scatter.  ``progress``
+    reports one step an i-chunk window."""
     check_sweep(sweep)
     hist = _empty_hist(sweep)
     pos2, lab2, w2 = sweep.j_side()
@@ -445,7 +475,9 @@ def paircount_plain(sweep: Sweep) -> torch.Tensor:
     n2c = -(-n2 // CHUNK)
     consts = sweep_constants(sweep)
     j_block = _J_BLOCK[sweep.device.type]
-    for c, a in enumerate(range(0, n1, CHUNK)):
+    chunks = progress_bar(range(0, n1, CHUNK), disable=not progress,
+                          desc="pair counting")
+    for c, a in enumerate(chunks):
         sl = slice(a, min(a + CHUNK, n1))
         window = windows[c] if sweep.z_cut is not None else (0, n2c)
         for ja, jb in _window_ranges(window, n2c, n2):

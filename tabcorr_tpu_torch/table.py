@@ -1,8 +1,9 @@
 """The ``TabCorr`` tabulation container: tabulation, I/O, quadrature,
 prediction.
 
-Reads the reference's HDF5 schema (reference: tabcorr/tabcorr.py:374-463)
-and a numpy ``.npz`` copy of it (:meth:`TabCorr.write_npz`), which needs no
+Reads and writes the reference's HDF5 schema (reference:
+tabcorr/tabcorr.py:374-463; h5py is imported at the call) and a numpy
+``.npz`` copy of it (:meth:`TabCorr.write_npz`), which needs no
 ``h5py``.  :meth:`TabCorr.table_data` builds the tensors the batched paths
 run on; :meth:`TabCorr.predict` is the float64 numpy path that mirrors the
 reference math and serves as the port's accuracy oracle on any machine.
@@ -21,6 +22,35 @@ from .models.protocol import CENTRALS
 from .ops.predict import AUTO, TableData, quadrature_grid
 from .utils.device import numpy_dtype, resolve_device
 from .utils.packing import array_to_symmetric_matrix
+
+
+# The reference schema's attributes, in its order (tabcorr/tabcorr.py:
+# 418-463); extra attributes that are not None follow.
+FILE_ATTRS = ("tpcf", "mode", "simname", "redshift", "Num_ptcl_requirement",
+              "prim_haloprop_key", "sec_haloprop_key")
+
+
+def stored_args(tpcf_args, tpcf_kwargs, max_args_size):
+    """The tpcf arguments a file keeps: every one but an array of
+    ``max_args_size`` elements or more (a Delta Sigma table's particle
+    positions), as the reference writer drops them (tabcorr/tabcorr.py:
+    450-459).  Returns ({"arg_i": value}, {key: value})."""
+    def kept(value):
+        return (not isinstance(value, np.ndarray) or
+                np.prod(value.shape) < max_args_size)
+    return ({f"arg_{i}": a for i, a in enumerate(tpcf_args) if kept(a)},
+            {k: v for k, v in tpcf_kwargs.items() if kept(v)})
+
+
+def import_h5py(what):
+    """h5py, or an ImportError naming it and the ``.npz`` writer."""
+    try:
+        import h5py
+    except ImportError as exc:
+        raise ImportError(
+            f"{what} writes HDF5 and needs h5py, which is not installed; "
+            "write_npz writes the same fields without it.") from exc
+    return h5py
 
 
 def _json_value(value):
@@ -136,10 +166,11 @@ class TabCorr:
                                for k in names("tpcf_kwargs.")}
         return halotab
 
-    def npz_arrays(self, prefix=""):
+    def npz_arrays(self, prefix="", max_args_size=1000000):
         """Every field :meth:`from_npz_arrays` restores, as numpy arrays
-        named ``prefix + field``; the matrix in float32, as the HDF5
-        schema stores it."""
+        named ``prefix + field``; the matrix in float32 and the tpcf
+        arguments below ``max_args_size`` elements only, as :meth:`write`
+        stores them."""
         arrays = {
             "attrs": np.array(json.dumps(
                 {k: _json_value(v) for k, v in self.attrs.items()})),
@@ -147,15 +178,50 @@ class TabCorr:
             "tpcf_shape": np.asarray(self.tpcf_shape, dtype=np.int64),
             "gal_type": self.gal_type.as_structured_array(),
         }
-        for i, arg in enumerate(self.tpcf_args):
-            arrays[f"tpcf_args.arg_{i}"] = np.asarray(arg)
-        for key, value in self.tpcf_kwargs.items():
+        args, kwargs = stored_args(self.tpcf_args, self.tpcf_kwargs,
+                                   max_args_size)
+        for name, arg in args.items():
+            arrays[f"tpcf_args.{name}"] = np.asarray(arg)
+        for key, value in kwargs.items():
             arrays[f"tpcf_kwargs.{key}"] = np.asarray(value)
         return {prefix + k: v for k, v in arrays.items()}
 
-    def write_npz(self, fname):
+    def write_npz(self, fname, max_args_size=1000000):
         """Write :meth:`npz_arrays` to an uncompressed ``.npz``."""
-        np.savez(fname, **self.npz_arrays())
+        np.savez(fname, **self.npz_arrays(max_args_size=max_args_size))
+
+    def write(self, fname, overwrite=False, max_args_size=1000000,
+              matrix_dtype=np.float32):
+        """Write in the reference's HDF5 schema (tabcorr/tabcorr.py:
+        418-463): the reference's attributes, then any other that is not
+        None; the matrix in ``matrix_dtype``; the tpcf arguments below
+        ``max_args_size`` elements; ``gal_type``.  ``fname`` is a path
+        (created with mode "w-" unless ``overwrite``) or an open h5py file
+        or group.  Needs h5py (:meth:`write_npz` does not)."""
+        h5py = import_h5py("TabCorr.write")
+        if isinstance(fname, h5py.Group):
+            self.write_hdf5_group(fname, max_args_size, matrix_dtype)
+            return
+        with h5py.File(fname, "w" if overwrite else "w-") as fstream:
+            self.write_hdf5_group(fstream, max_args_size, matrix_dtype)
+
+    def write_hdf5_group(self, group, max_args_size=1000000,
+                         matrix_dtype=np.float32):
+        """Write the tabulation into an open h5py file or group."""
+        for key in FILE_ATTRS:
+            group.attrs[key] = self.attrs[key]
+        for key, value in self.attrs.items():
+            if key not in FILE_ATTRS and value is not None:
+                group.attrs[key] = value
+        group["tpcf_matrix"] = self.tpcf_matrix.astype(matrix_dtype)
+        args, kwargs = stored_args(self.tpcf_args, self.tpcf_kwargs,
+                                   max_args_size)
+        for name, arg in args.items():
+            group[f"tpcf_args/{name}"] = arg
+        for key, value in kwargs.items():
+            group[f"tpcf_kwargs/{key}"] = value
+        group["tpcf_shape"] = np.asarray(self.tpcf_shape, dtype=np.int64)
+        self.gal_type.write_hdf5(group, "gal_type")
 
     # ------------------------------------------------------------------
     # Derived host-side quantities

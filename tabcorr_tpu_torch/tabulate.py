@@ -21,6 +21,7 @@ per-bin-pair loop.
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.interpolate import interp1d
 
 from .io import ColumnTable, vstack
@@ -29,6 +30,7 @@ from .mock import (NFWPhaseSpace, TrivialPhaseSpace,
 from .ops import paircount
 from .utils.device import resolve_device
 from .utils.packing import symmetric_matrix_to_array
+from .utils.progress import progress as progress_bar
 
 
 def compute_conditional_percentiles(prim_haloprop, sec_haloprop,
@@ -199,9 +201,13 @@ def _ap_stretch(halocat, cosmology_obs, mode):
 class _FastPath:
     """Per-statistic estimator over the labeled count tensor."""
 
-    def __init__(self, tpcf_name, tpcf_args, tpcf_kwargs, device="cuda"):
+    def __init__(self, tpcf_name, tpcf_args, tpcf_kwargs, device="cuda",
+                 backend="device"):
         self.name = tpcf_name
         self.device = device
+        # 'device': the CUDA pair counter or its plain version, by device;
+        # 'native': the host C++ counter (tabcorr_tpu_torch.native).
+        self.strategy = {"device": None, "native": "native"}[backend]
         if tpcf_name == "wp":
             self.rp_bins = np.asarray(tpcf_args[0], dtype=np.float64)
             self.pi_max = float(
@@ -228,10 +234,10 @@ class _FastPath:
             raise ValueError(tpcf_name)
 
     def _count(self, *args, **kwargs):
-        return paircount.labeled_pair_count(*args, **kwargs,
-                                            device=self.device)
+        return paircount.labeled_pair_count(
+            *args, **kwargs, strategy=self.strategy, device=self.device)
 
-    def matrix_auto(self, pos, labels, n_bins, period):
+    def matrix_auto(self, pos, labels, n_bins, period, progress=False):
         """Dense (n_xi, n_bins, n_bins) matrix from one labeled sweep."""
         n_tracers = np.bincount(labels[labels >= 0], minlength=n_bins)
         volume = np.prod(period)
@@ -240,7 +246,7 @@ class _FastPath:
         if self.name == "wp":
             counts = self._count(
                 pos, labels, n_bins, period=period, kind="rppi",
-                r_edges=self.rp_bins, pi_max=self.pi_max)
+                r_edges=self.rp_bins, pi_max=self.pi_max, progress=progress)
             n_exp = (outer[:, :, None] / volume * np.pi *
                      np.diff(self.rp_bins**2) * 2 * self.pi_max)
             with np.errstate(invalid="ignore", divide="ignore"):
@@ -251,7 +257,8 @@ class _FastPath:
         if self.name in ("s_mu_tpcf", "tpcf"):
             counts = self._count(
                 pos, labels, n_bins, period=period, kind="smu",
-                r_edges=self.s_bins, mu_edges=self.mu_bins)
+                r_edges=self.s_bins, mu_edges=self.mu_bins,
+                progress=progress)
             n_mu = len(self.mu_bins) - 1
             n_exp = (outer[:, :, None, None] / volume * 4 * np.pi / 3 *
                      np.diff(self.s_bins**3)[:, None] / n_mu)
@@ -262,7 +269,7 @@ class _FastPath:
 
         raise ValueError(f"{self.name} is a cross statistic.")
 
-    def matrix_cross(self, pos, labels, n_bins, period):
+    def matrix_cross(self, pos, labels, n_bins, period, progress=False):
         """Dense (n_xi, n_bins) matrix for a cross statistic."""
         if self.name != "mean_delta_sigma":
             raise ValueError(f"{self.name} is an auto statistic.")
@@ -282,7 +289,7 @@ class _FastPath:
             both = self._count(
                 pos, labels, n_bins, pos2=self.ptcl_pos, weights2=masses,
                 period=period, kind="proj", r_edges=edges,
-                pair_weight="unit+log_rp")
+                pair_weight="unit+log_rp", progress=progress)
             mass, log_mass = both[0, :, 0, :], both[1, :, 0, :]
             mass_in = np.cumsum(mass, axis=-1)[:, :-1]
             with np.errstate(invalid="ignore", divide="ignore"):
@@ -301,7 +308,7 @@ class _FastPath:
         counts = self._count(
             pos, labels, n_bins, pos2=self.ptcl_pos, weights2=masses,
             period=period, kind="proj", r_edges=all_edges,
-)[:, 0, :]
+            progress=progress)[:, 0, :]
         cum = np.concatenate(
             [np.zeros((n_bins, 1)), np.cumsum(counts, axis=-1)], axis=-1)
 
@@ -353,18 +360,23 @@ def tabulate(cls, halocat, tpcf, *tpcf_args, mode="auto",
     randomness.  ``num_threads`` runs the generic path's callables on a
     thread pool (the fast path ignores it).  ``device``: where the pair
     counts run, 'cuda' (default, the CUDA pair counter) or 'cpu' (its
-    plain version).  Not ported: ``mesh=`` (the mesh-sharded sweep) and
-    ``backend='native'`` (the host C++ counter); both raise.
+    plain version).  ``backend='native'`` counts the fast path's pairs
+    with the host C++ counter (:mod:`tabcorr_tpu_torch.native`, float64
+    geometry) and takes ``device='cpu'`` only.  ``verbose`` prints the
+    tracer count and reports the sweeps' progress.  Not ported: ``mesh=``
+    (the mesh-sharded sweep), which raises.
     """
     if mesh is not None:
         raise NotImplementedError(
             "tabulate(mesh=...): the mesh-sharded sweep is not ported "
-            "(ROADMAP Queue A item 10).")
-    if backend != "device":
-        raise NotImplementedError(
-            f"tabulate(backend={backend!r}): the host C++ counter "
-            "(tabcorr_tpu/native.py) is not ported (ROADMAP Queue A item "
-            "6); the pair counts run on the device given by device=.")
+            "(multi-GPU, ROADMAP Queue A).")
+    if backend not in ("device", "native"):
+        raise ValueError(f"Unknown backend {backend!r}; use 'device' or "
+                         "'native'.")
+    if backend == "native" and (device is None or
+                                torch.device(device).type != "cpu"):
+        raise ValueError("backend='native' counts on the host: pass "
+                         "device='cpu'.")
     device = resolve_device(device)
     if "period" in tpcf_kwargs:
         # The reference warns and overrides (tabcorr/tabcorr.py:134-138).
@@ -495,7 +507,7 @@ def tabulate(cls, halocat, tpcf, *tpcf_args, mode="auto",
     labels = labels_full[keep]
 
     fast_path = _FastPath(tpcf_name, tpcf_args, tpcf_kwargs,
-                          device=device) if fast else None
+                          device=device, backend=backend) if fast else None
     tpcf_matrix = None
     period = halocat.Lbox * lbox_stretch
 
@@ -513,10 +525,10 @@ def tabulate(cls, halocat, tpcf, *tpcf_args, mode="auto",
         if fast:
             if mode == "auto":
                 matrix = fast_path.matrix_auto(pos, labels, n_bins_total,
-                                               period)
+                                               period, progress=verbose)
             else:
                 matrix = fast_path.matrix_cross(pos, labels, n_bins_total,
-                                                period)
+                                                period, progress=verbose)
             shape = fast_path.shape
         else:
             matrix, shape = _generic_tpcf_matrix(
@@ -655,17 +667,12 @@ def _generic_tpcf_matrix(mode, pos, labels, n_bins, tpcf, period,
         shuffled = list(tasks)
         np.random.default_rng(42).shuffle(shuffled)
         with ThreadPoolExecutor(num_threads) as pool:
-            results = pool.map(worker, shuffled)
-            if verbose:
-                import tqdm
-                results = tqdm.tqdm(results, total=len(shuffled))
-            results = list(results)
+            results = list(progress_bar(pool.map(worker, shuffled),
+                                        total=len(shuffled),
+                                        disable=not verbose))
     else:
-        iterator = tasks
-        if verbose:
-            import tqdm
-            iterator = tqdm.tqdm(iterator, total=len(tasks))
-        results = [worker(task) for task in iterator]
+        results = [worker(task) for task in progress_bar(
+            tasks, total=len(tasks), disable=not verbose)]
 
     tpcf_matrix = None
     tpcf_shape = None

@@ -14,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).absolute().parents[1]
 PORT_FILES = sorted((ROOT / "tabcorr_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_parse_snapshot.py",
+    ROOT / "scripts" / "torch_tabulate_snapshot.py"]
 
 
 def _imported_modules(path):
@@ -47,7 +48,8 @@ def test_scan_sees_the_whole_package():
             "functional.py", "nonparametric.py", "inversion.py",
             "special.py", "backend.py", "paircount.py", "multipole.py",
             "tabulate.py", "mock.py", "halocat.py", "cosmology.py",
-            "database.py", "corrfunc.py"} <= names
+            "database.py", "corrfunc.py", "native.py", "progress.py",
+            "torch_parse_snapshot.py", "torch_tabulate_snapshot.py"} <= names
 
 
 def test_port_imports_with_jax_blocked():
@@ -72,9 +74,14 @@ def test_port_imports_with_jax_blocked():
             "import tabcorr_tpu_torch.tabulate, tabcorr_tpu_torch.mock\n"
             "import tabcorr_tpu_torch.halocat, tabcorr_tpu_torch.cosmology\n"
             "import tabcorr_tpu_torch.database, tabcorr_tpu_torch.corrfunc\n"
+            "import tabcorr_tpu_torch.native\n"
+            "sys.path.insert(0, 'scripts')\n"
+            "import torch_parse_snapshot, torch_tabulate_snapshot\n"
             "assert 'h5py' not in sys.modules\n"
             "from tabcorr_tpu_torch.utils.build import load_library\n"
-            "assert load_library.cache_info().currsize == 0\n")
+            "assert load_library.cache_info().currsize == 0\n"
+            "assert tabcorr_tpu_torch.native.load_library.cache_info()"
+            ".currsize == 0\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 

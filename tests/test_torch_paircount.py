@@ -694,7 +694,7 @@ def test_refusals():
     with pytest.raises(ValueError, match="kind"):
         pc.labeled_pair_count(p, labels, 3, kind="xyz", r_edges=R_EDGES,
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
         pc.labeled_pair_count(p, labels, 3, r_edges=R_EDGES, pi_max=5.0,
                               mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="explicitly"):
