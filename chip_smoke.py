@@ -7,8 +7,8 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
 It builds the hand-written CUDA kernels (tabcorr_tpu_torch/csrc: the
 bundle and contraction kernels in bundle.cu, the grid kernels in grid.cu,
 the slab kernels in slab.cu, the occupation kernel of the HOD families in
-occupation.cu, the labeled pair counter in paircount.cu, one nvcc each,
-in parallel) and drives
+occupation.cu, the labeled pair counter in paircount.cu, the bfloat16
+contraction in bf16.cu, one nvcc each, in parallel) and drives
 ``tabcorr_tpu_torch`` through the entry points a user calls, at real
 shapes, 262,144 parameter vectors each unless said otherwise:
 
@@ -152,6 +152,30 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    Delta Sigma, each within 1e-6 of the float64 ``Interpolator.predict``
    at 16 probes.
 
+12. bfloat16: ``make_predictor(..., engine="fused",
+   dtype=torch.bfloat16)``, tabcorr_tpu's bf16 route (parameters rounded
+   to bfloat16, the occupation in tensor ops, densities rounded to
+   bfloat16) into the BF16 tensor-core contraction kernel
+   (``csrc/bf16.cu``, ``mma.sync`` m16n8k16): (a) zheng07 -18 on the
+   bolplanck wp, synthetic xi_ell and bolplanck Delta Sigma tables; (b)
+   the 64-node grid (zheng07 -20, rows outside the grid NaN with their
+   ngal); (c) the 'efficient' Delta Sigma grid (zheng07 -21, z = 0.5);
+   (d) the wide grid at 32,768 rows with path 7's decorated model; (e)
+   ``engine="auto"`` in bfloat16 on the card, which must take the same
+   route (one launch, the same results bit for bit).  Each case: one
+   launch; the kernel against its plain version over the whole batch
+   (each element within one bfloat16 ulp, or on rows that cross zero
+   within 2^-8 of the row's largest |element|); the route and the port's plain
+   bf16 engine against float64 at 16 probes (the bfloat16 parameters the
+   kernel received), the route within max(2 x the plain engine's error,
+   2^-8) plus 2^-8 for each rounding of its results to bfloat16 (one for
+   ngal and a table's xi, two for a grid's xi: the nodes' and the
+   spline's); the kernel's ms (CUDA events, in turns with the plain
+   version) beside its bound (``contraction_flop`` at 989 TFLOP/s BF16
+   against the bytes) and one bf16 ``torch.einsum``.  Then
+   ``examples/torch_example_mcmc.py``'s ``run(device="cuda",
+   n_steps=20)``: the bundle route, 41 launches, no plot.
+
 Paths 3-5 and 7 run the 'scaled' contract: the grid kernel and slab_tc;
 the 'elementwise' passes run the grid kernel and the FP32 slab kernel,
 held against the same plain versions.  No contract routes to grid_tc
@@ -215,6 +239,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     # The z-windowed XLA sweep of the tabulation (not a Pallas kernel).
     "paircount": (CSRC + "paircount.cu",
                   "tabcorr_tpu/ops/paircount.py:130, 276"),
+    "contraction_bf16": (CSRC + "bf16.cu",
+                         "tabcorr_tpu/ops/fused.py:125 (bf16)"),
 }
 # name -> (module of ctx, launch counter)
 COUNTERS = {"bundle": ("fused", "BUNDLE_LAUNCHES"),
@@ -224,7 +250,8 @@ COUNTERS = {"bundle": ("fused", "BUNDLE_LAUNCHES"),
             "slab": ("fused", "SLAB_LAUNCHES"),
             "slab_tc": ("fused", "SLAB_TC_LAUNCHES"),
             "occupation": ("fused", "OCCUPATION_LAUNCHES"),
-            "paircount": ("paircount", "PAIRCOUNT_LAUNCHES")}
+            "paircount": ("paircount", "PAIRCOUNT_LAUNCHES"),
+            "contraction_bf16": ("fused", "CONTRACTION_BF16_LAUNCHES")}
 
 
 def check(ok, message):
@@ -258,6 +285,8 @@ def main():
     sampler_phases(ctx, kernels)
     tabulation_phase(ctx, kernels)
     pipeline_phase(ctx, kernels)
+    bf16_phase(ctx, kernels)
+    examples_phase(ctx, kernels)
 
     for name in KERNELS:
         check(kernels[name]["launches"] > 0,
@@ -3491,6 +3520,274 @@ def pipeline_predictions(ctx, kernels, interps):
         check(e_ng <= 1e-6 and e_xi <= 1e-6, f"{name} vs float64")
     record(kernels, "grid", launches)
     record(kernels, "occupation", occ_launches)
+
+
+# ----------------------------------------------------------------------
+# Path 12: the bfloat16 route (B3 on bfloat16 tables) and the examples
+# ----------------------------------------------------------------------
+PEAK_BF16_FLOPS = 989e12        # dense BF16 on the tensor cores
+BF16_U = 2.0 ** -8              # bfloat16's unit roundoff (half an ulp)
+BF16_ROWS = 16384               # rows per chunk of a whole-batch comparison
+
+
+def bf16_kernel_vs_plain(label, got, want):
+    """The bfloat16 kernel's results against its plain version's, (B, n)
+    bfloat16, in chunks of rows: each element within one bfloat16 ulp (of
+    the larger of the two), or, on a row whose statistics cross zero,
+    within 2^-8 of the row's largest |element|.  Returns max
+    |difference|."""
+    import torch
+    ulps = crossing = worst = 0.0
+    got, want = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    for lo in range(0, got.shape[0], BF16_ROWS):
+        g = got[lo:lo + BF16_ROWS].double()
+        w = want[lo:lo + BF16_ROWS].double()
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()))
+        cross = (w > 0).any(1) & (w < 0).any(1)
+        _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+        ulp = torch.ldexp(torch.ones_like(g), e - 8)
+        if bool((~cross).any()):
+            ulps = max(ulps, float((d[~cross] / ulp[~cross]).max()))
+        if bool(cross.any()):
+            allowed = torch.maximum(
+                ulp[cross], BF16_U * w[cross].abs().amax(1, keepdim=True))
+            crossing = max(crossing, float((d[cross] / allowed).max()))
+    print(f"{label}: bf16 kernel vs plain over the whole batch: max "
+          f"{ulps:.3g} ulp (<= 1) on rows that do not cross zero; on rows "
+          f"that do, max {crossing:.3g} (<= 1) of max(1 ulp, 2^-8 of the "
+          f"row's largest |element|); max abs {worst:.3e}")
+    check(ulps <= 1.0, f"{label}: bf16 kernel vs plain {ulps} ulp")
+    check(crossing <= 1.0, f"{label}: bf16 kernel vs plain {crossing}")
+    return worst
+
+
+def bf16_probe_errors(ngal, xi, host):
+    """Max ngal relative and xi scaled errors of rows 0..N_PROBE-1 against
+    ``host(i) -> (ngal, xi)`` in float64."""
+    import numpy as np
+    e_ng = e_xi = 0.0
+    for i in range(N_PROBE):
+        ng64, xi64 = host(i)
+        x = xi[i].double().cpu().numpy().ravel()
+        want = np.ravel(xi64)
+        e_ng = max(e_ng, abs(float(ngal[i]) / float(ng64) - 1))
+        e_xi = max(e_xi, float(np.max(np.abs(x - want)) /
+                               np.max(np.abs(want))))
+    return e_ng, e_xi
+
+
+def bf16_cases(ctx):
+    """(name, object, model, float32 parameters, rows outside the grid,
+    batch) of path 12: (a) the three tables, (b) the 64-node grid, (c) the
+    'efficient' Delta Sigma grid, (d) the wide grid."""
+    torch, np = ctx["torch"], ctx["np"]
+    from tabcorr_tpu_torch import (AssembiasZheng07Model, Interpolator,
+                                   TabCorr, Zheng07Model)
+    from tabcorr_tpu_torch.utils.synthetic import (grid64_interpolator,
+                                                   wide_grid_interpolator)
+
+    data = Path(__file__).resolve().parent / "tabcorr_tpu_torch" / "data"
+    rng = np.random.default_rng(SEED + 40)
+    cases = []
+    for name, file in (("wp", "bolplanck_wp.npz"),
+                       ("xi_ell", "synthetic_xi_ell.npz"),
+                       ("ds", "bolplanck_ds.npz")):
+        tab = TabCorr.read(data / file)
+        model = Zheng07Model(threshold=-18, redshift=tab.attrs["redshift"])
+        cases.append((name, tab, model, bench_params(model, rng, BATCH,
+                                                     "cuda"), (), BATCH))
+
+    def on_grid(model, batch, out_rows, keys):
+        params = bench_params(model, rng, batch, "cuda")
+        for key, lo, hi, outside in keys:
+            v = rng.uniform(lo, hi, batch)
+            v[0] = model.param_dict[key]
+            if outside is not None:
+                v[list(out_rows)] = outside
+            params[key] = torch.tensor(v, dtype=torch.float32, device="cuda")
+        return params
+
+    grid_keys = (("alpha_c", 0.05, 0.35, 0.5), ("alpha_s", 0.85, 1.15, None),
+                 ("log_eta", -0.3, 0.3, None))
+    model = Zheng07Model(threshold=-20, redshift=0.0)
+    model.param_dict.update(alpha_c=0.2, alpha_s=1.0, log_eta=0.0)
+    cases.append(("grid64", grid64_interpolator(), model,
+                  on_grid(model, BATCH, OUT_ROWS, grid_keys),
+                  OUT_ROWS, BATCH))
+    model = Zheng07Model(threshold=-21, redshift=0.5,
+                         prim_haloprop_key="halo_m258m")
+    model.param_dict.update(log_eta=0.0, alpha_s=1.0, alpha_c=0.0)
+    cases.append(("ds_efficient", Interpolator.read(data / "ds_efficient.npz"),
+                  model, on_grid(model, BATCH, OUT_ROWS,
+                                 (("log_eta", -0.45, 0.45, 0.6),)),
+                  OUT_ROWS, BATCH))
+    model = AssembiasZheng07Model(threshold=-20, redshift=0.0)
+    model.param_dict.update(alpha_c=0.2, alpha_s=1.0, log_eta=0.0)
+    cases.append(("wide grid", wide_grid_interpolator(), model,
+                  on_grid(model, SLAB_BATCH, SLAB_OUT_ROWS, grid_keys),
+                  SLAB_OUT_ROWS, SLAB_BATCH))
+    return cases
+
+
+def bf16_phase(ctx, kernels):
+    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
+    from tabcorr_tpu_torch import TabCorr, make_predictor
+    from tabcorr_tpu_torch.predictor import stacked_grid
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    launches = 0
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flop=0.0,
+                  n_bytes=0.0, err=0.0)
+    wp_route = None
+    for name, obj, model, params, out_rows, batch in bf16_cases(ctx):
+        is_tab = isinstance(obj, TabCorr)
+        predict = make_predictor(obj, model, engine="fused", dtype=bf16,
+                                 device="cuda")
+        # ---- path ------------------------------------------------------
+        ctx["reset"]()
+        t0 = time.perf_counter()
+        ngal, xi = predict(params)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launched = ctx["expect"](f"bf16 {name}", contraction_bf16=1)
+        launches += launched["contraction_bf16"]
+        check(ngal.dtype == xi.dtype == bf16, f"bf16 {name}: output types")
+        xi = xi.reshape(batch, -1)
+        out = torch.zeros(batch, dtype=torch.bool, device="cuda")
+        out[list(out_rows)] = True
+        check(bool(torch.isnan(ngal[out]).all() and
+                   torch.isnan(xi[out]).all()),
+              f"bf16 {name}: out-of-grid rows are not all NaN")
+        check(bool(torch.isfinite(ngal[~out]).all() and
+                   torch.isfinite(xi[~out]).all()),
+              f"bf16 {name}: NaN or inf in rows inside the grid")
+        if name == "wp":
+            wp_route = (obj, model, params, ngal, xi)
+        print(f"bf16 {name}: make_predictor(engine='fused', "
+              f"dtype=torch.bfloat16), {launched['contraction_bf16']} bf16 "
+              f"contraction launch, xi {tuple(xi.shape)} bfloat16"
+              + (f", rows {out_rows} outside the grid NaN (ngal too)"
+                 if out_rows else "") + f"; first call {first_s:.3f} s")
+
+        # ---- the kernel against its plain version, the same inputs -----
+        table = (obj.table_data(dtype=bf16, device="cuda") if is_tab else
+                 stacked_grid(obj, device="cuda", dtype=bf16)[0])
+        c = fused.bf16_table_constants(table)
+        dens = fused.bf16_densities(table, model, params)
+        total_k, xi_k = fused.contraction_bf16_launch(c, dens)
+        total_p, xi_p = fused.contraction_bf16_plain(c, dens)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(total_k[~out], ngal[~out])),
+              f"bf16 {name}: the route's ngal is not the kernel's total")
+        err = max(bf16_kernel_vs_plain(f"bf16 {name} total", total_k[:, None],
+                                       total_p[:, None]),
+                  bf16_kernel_vs_plain(f"bf16 {name} xi", xi_k, xi_p))
+        del xi_p, total_p
+
+        # ---- the route and the plain bf16 engine against float64 -------
+        p16 = {k: v.to(bf16) for k, v in params.items()}
+        probe = {k: v[:N_PROBE] for k, v in p16.items()}
+        plain = make_predictor(obj, model, engine="plain", dtype=bf16,
+                               device="cuda")(probe)
+
+        def host(i):
+            return obj.predict(host_model(model, p16, i),
+                               check_consistency=False)
+
+        r_ng, r_xi = bf16_probe_errors(ngal, xi, host)
+        p_ng, p_xi = bf16_probe_errors(plain[0], plain[1].reshape(
+            N_PROBE, -1), host)
+        roundings = 1 if is_tab else 2
+        bar_ng = max(2 * p_ng, BF16_U) + BF16_U
+        bar_xi = max(2 * p_xi, BF16_U) + roundings * BF16_U
+        print(f"bf16 {name} vs float64 host at {N_PROBE} probes (the "
+              f"bfloat16 parameters the kernel received): route ngal rel "
+              f"{r_ng:.3e} (<= {bar_ng:.3e}), xi scaled {r_xi:.3e} (<= "
+              f"{bar_xi:.3e}); plain bf16 engine ngal {p_ng:.3e}, xi "
+              f"{p_xi:.3e} (bar: max(2 x plain, 2^-8) + 2^-8 for each "
+              f"rounding of the results to bfloat16, {roundings} for xi)")
+        check(r_ng <= bar_ng, f"bf16 {name}: ngal vs float64 {r_ng}")
+        check(r_xi <= bar_xi, f"bf16 {name}: xi vs float64 {r_xi}")
+
+        # ---- timing ----------------------------------------------------
+        k_ms, p_ms, k_w, p_w = ctx["alternate"](
+            lambda: fused.contraction_bf16_launch(c, dens),
+            lambda: fused.contraction_bf16_plain(c, dens), 5, 1)
+        dense = table.tpcf_dense
+        lib_ms = ctx["library_ms"](
+            (lambda: torch.einsum("bi,bj,kij->bk", dens, dens, dense))
+            if c.auto else (lambda: torch.einsum("ki,bi->bk", dense, dens)))
+        flop = batch * contraction_flop(c.n_bins, c.n_xi, c.auto)
+        n_bytes = nbytes(dens, c.bt, total_k, xi_k)
+        ops_ms = flop / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        print(f"timing (bf16 {name}): bf16 contraction kernel {k_ms:.4f} ms "
+              f"per {batch}-row batch (windows {k_w}); bound {bound_ms:.4f} "
+              f"ms ({'operations' if ops_ms >= bytes_ms else 'bytes'}: "
+              f"{flop:.4g} FLOP at 989 TFLOP/s BF16, {n_bytes:.4g} bytes at "
+              f"3.35 TB/s), {bound_ms / k_ms:.1%} of it; plain PyTorch "
+              f"{p_ms:.4f} ms (windows {p_w}); one bf16 torch.einsum("
+              f"{'bi,bj,kij->bk' if c.auto else 'ki,bi->bk'}) {lib_ms:.4f} "
+              f"ms on {ctx['card']}")
+        totals["ms"] += k_ms
+        totals["plain_ms"] += p_ms
+        totals["library_ms"] += lib_ms
+        totals["flop"] += flop
+        totals["n_bytes"] += n_bytes
+        totals["err"] = max(totals["err"], err)
+        del dens, total_k, xi_k, ngal, xi
+        torch.cuda.empty_cache()
+
+    # ---- (e) engine='auto' in bfloat16 on the card: the same route ------
+    tab, model, params, ngal, xi = wp_route
+    ctx["reset"]()
+    ngal_a, xi_a = make_predictor(tab, model, dtype=bf16,
+                                  device="cuda")(params)
+    torch.cuda.synchronize()
+    launched = ctx["expect"]("bf16 auto", contraction_bf16=1)
+    launches += launched["contraction_bf16"]
+    check(bool(torch.equal(ngal_a, ngal) and
+               torch.equal(xi_a.reshape(xi.shape), xi)),
+          "bf16 auto: not the fused route's results")
+    print("bf16 wp, engine='auto': 1 bf16 contraction launch, the fused "
+          "route's results bit for bit")
+    ops_ms = totals["flop"] / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = totals["n_bytes"] / PEAK_HBM_BYTES * 1e3
+    record(kernels, "contraction_bf16", launches, max_abs_err=totals["err"],
+           ms=totals["ms"], plain_ms=totals["plain_ms"],
+           bound_ms=max(ops_ms, bytes_ms),
+           bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+           library_ms=totals["library_ms"])
+    print(f"path 12 (bfloat16): {time.perf_counter() - t_phase:.1f} s")
+
+
+def examples_phase(ctx, kernels):
+    """examples/torch_example_mcmc.py's ``run`` on the card (no plot): the
+    bundle route, 256 walkers, 20 steps."""
+    torch = ctx["torch"]
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    import torch_example_mcmc
+
+    t0 = time.perf_counter()
+    ctx["reset"]()
+    results = torch_example_mcmc.run(device="cuda", n_steps=20, burn=10)
+    torch.cuda.synchronize()
+    launched = ctx["expect"]("mcmc example", bundle=1 + 2 * 20)
+    record(kernels, "bundle", launched["bundle"])
+    samples = results["samples"]
+    check(results["route"] == "bundle", "mcmc example: not the bundle route")
+    check(bool(ctx["np"].isfinite(samples).all()) and
+          0.0 < results["accept"] <= 1.0,
+          f"mcmc example: accept {results['accept']}")
+    print(f"examples/torch_example_mcmc.py run(device='cuda', n_steps=20): "
+          f"{launched['bundle']} bundle launches, acceptance "
+          f"{results['accept']:.3f}, posterior means "
+          f"{samples.mean(0).round(3).tolist()} (truth "
+          f"{list(results['truth'].values())}), "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
 if __name__ == "__main__":

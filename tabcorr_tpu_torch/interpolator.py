@@ -20,6 +20,8 @@ from the ``.npz`` copy :meth:`write_npz` makes, which needs no h5py.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from scipy.interpolate import CubicSpline
@@ -89,7 +91,17 @@ def spline_eval(x, xp, a, yp, extrapolate=True):
     outside [xp[0], xp[-1]] -- the batched analog of the reference's
     out-of-range ValueError, so an MCMC walker outside the grid poisons
     its likelihood instead of silently clamping.
+
+    Operands of mixed types are promoted, as tabcorr_tpu's ``jnp``
+    arithmetic promotes them; the result has the promoted type, computed
+    in float32 where that is bfloat16.  (The conversion is exact, so the
+    interval search and the range test see the values tabcorr_tpu
+    compares.)
     """
+    dtype = functools.reduce(torch.promote_types,
+                             (x.dtype, xp.dtype, a.dtype, yp.dtype))
+    wide = torch.float32 if dtype == torch.bfloat16 else dtype
+    x, xp, a, yp = (v.to(wide) for v in (x, xp, a, yp))
     x = x.contiguous()
     i = torch.clamp(torch.searchsorted(xp, x, right=True) - 1, 0,
                     xp.shape[0] - 2)
@@ -103,7 +115,7 @@ def spline_eval(x, xp, a, yp, extrapolate=True):
         in_range = (x >= xp[0]) & (x <= xp[-1])
         in_range = in_range.reshape(in_range.shape + (1,) * (yp.dim() - 1))
         out = torch.where(in_range, out, torch.nan)
-    return out
+    return out.to(dtype)
 
 
 class Interpolator:

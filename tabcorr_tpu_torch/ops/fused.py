@@ -51,7 +51,11 @@ none of these kernels.
   ``make_fused_predictor``: the same contraction for one table from a
   given density ``n`` -- the occupation runs before it (the occupation
   kernel, or tensor ops), so any model takes this route.  :func:`contraction_launch`
-  (``csrc/bundle.cu``) and :func:`contraction_plain`.
+  (``csrc/bundle.cu``) and :func:`contraction_plain`.  On a bfloat16
+  table (tabcorr_tpu's bf16 route, densities and results bfloat16) the
+  BF16 tensor-core kernel :func:`contraction_bf16_launch`
+  (``csrc/bf16.cu``, ``mma.sync`` m16n8k16, float32 accumulators) and
+  :func:`contraction_bf16_plain`, on :class:`Bf16Table` constants.
 * **Grid (B2)**, port of ``_make_grid_packed_predictor`` behind
   ``make_fused_grid_predictor``: an Interpolator grid of one halo binning,
   every node's statistics from the packed symmetric matrices, optionally
@@ -116,13 +120,15 @@ SLAB_LAUNCHES = 0
 GRID_TC_LAUNCHES = 0
 SLAB_TC_LAUNCHES = 0
 OCCUPATION_LAUNCHES = 0
+CONTRACTION_BF16_LAUNCHES = 0
 
 ACCURACY_CONTRACTS = ("elementwise", "scaled")
 
 # The CUDA sources of each library (one nvcc each); grid.cu and slab.cu
 # hold their _tc kernels too.
 KERNEL_SOURCES = {"bundle": ("bundle.cu",), "grid": ("grid.cu",),
-                  "slab": ("slab.cu",), "occupation": ("occupation.cu",)}
+                  "slab": ("slab.cu",), "occupation": ("occupation.cu",),
+                  "bf16": ("bf16.cu",)}
 
 # The models the kernels evaluate in-kernel, by model code
 # (csrc/zheng07.cuh); every other fused-engine model is DENSITY_IN.
@@ -192,6 +198,14 @@ _FP32_STAGE_STEPS = (4, 2)
 # tiles whose sums one lane pair of contract.cuh's FP32 epilogue combines.
 SLAB_TC_WIDTH = 8
 _PAIR_SLOTS = 2
+# The bfloat16 contraction (csrc/bf16.cu): padded bins up to which a warp
+# holds its A fragments in registers (blocks of 128 rows; wider tables 64
+# rows, A from shared memory), the blocks a launch aims at (the grid's
+# second dimension splits the statistics where the batch gives fewer), and
+# the bytes of the plain version's float64 product per chunk of rows.
+_BF16_REG_BINS = 160
+_BF16_TARGET_BLOCKS = 1056
+_BF16_PLAIN_BYTES = 2 ** 29
 
 
 def _round_up(n, m):
@@ -388,6 +402,7 @@ def load_kernels():
     _grid_lib()
     _slab_lib()
     _occupation_lib()
+    _bf16_lib()
 
 
 def check_accuracy(accuracy, n_tables):
@@ -818,14 +833,31 @@ def _param_matrix(params, hod: KernelModel):
 
 def make_fused_contraction(table: TableData, accuracy="elementwise"):
     """Fused contraction ``ngal (B, n_bins) -> (total (B,), xi (B,
-    n_xi))`` for one float32 table: the kernel for CUDA tensors, the
-    plain version for CPU tensors.  Full FP32 under both contracts."""
+    n_xi))`` for one table: the kernel for CUDA tensors, the plain version
+    for CPU tensors.  A float32 table runs full FP32 under both contracts;
+    a bfloat16 table (bfloat16 densities and results) the BF16 tensor-core
+    kernel under both, as tabcorr_tpu's 'scaled' tier collapses to the
+    same bfloat16 products on a bfloat16 table."""
     check_accuracy([accuracy], 1)
+    if table.tpcf_dense.dtype == torch.bfloat16:
+        c = bf16_table_constants(table)
+        if c.bt.is_cuda:
+            return lambda ngal: contraction_bf16_launch(c, ngal)
+        return lambda ngal: contraction_bf16_plain(c, ngal)
     if table.n_h.device.type == "cuda":
         half = slab_tc_table_constants(table, 1)
         return lambda ngal: contraction_launch(half, ngal)
     dense = bundle_table_constants(table)
     return lambda ngal: contraction_plain(dense, ngal)
+
+
+def bf16_densities(table: TableData, model, params):
+    """The bfloat16 routes' densities (B, n_bins): the parameters rounded
+    to bfloat16, the occupation in tensor ops (float32 on a bfloat16
+    table, :func:`~.predict.mean_occupation`) times n_h, rounded once to
+    bfloat16."""
+    params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    return occupation_density(table, model, params).to(torch.bfloat16)
 
 
 def occupation_density(table: TableData, model, params):
@@ -1086,13 +1118,21 @@ def kernel_densities(c, table: TableData, model, hod: KernelModel, params,
 
 def make_fused_predictor(table: TableData, model, accuracy="elementwise"):
     """Batched predictor ``f(params dict of (B,)) -> (ngal, xi (B,
-    *tpcf_shape))`` for one float32 table and any model: the densities
+    *tpcf_shape))`` for one table and any model.  float32: the densities
     (on the card the occupation kernel's where it evaluates the model,
     else :func:`occupation_density` in tensor ops), then the contraction
-    kernel."""
+    kernel.  bfloat16: tabcorr_tpu's route (``tabcorr_tpu/ops/fused.py:
+    make_fused_predictor``), the parameters rounded to bfloat16, the
+    densities in tensor ops (its XLA occupation) rounded to bfloat16, then
+    the bfloat16 contraction kernel; ngal and xi bfloat16."""
     check_accuracy([accuracy], 1)
     device = table.n_h.device
-    if device.type == "cuda":
+    if table.tpcf_dense.dtype == torch.bfloat16:
+        contract_bf16 = make_fused_contraction(table, accuracy)
+
+        def contract(params):
+            return contract_bf16(bf16_densities(table, model, params))
+    elif device.type == "cuda":
         half = slab_tc_table_constants(table, 1)
         hod = KernelModel(code=DENSITY_IN, family=OccupationFamily.of(model))
         if hod.family is not None:
@@ -1115,6 +1155,141 @@ def make_fused_predictor(table: TableData, model, accuracy="elementwise"):
             params)
 
     return predict_batch
+
+
+# ----------------------------------------------------------------------
+# Contraction (B3) on bfloat16 tables: constants, plain version, kernel
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Bf16Table:
+    """The matrix of one bfloat16 table (or a stacked grid) in the layout
+    of the bfloat16 contraction kernel, which its plain version reads too.
+
+    ``bt`` (n_cols, kp) bfloat16 holds one row of K = bins per column of
+    the product t = n F, K contiguous (the ``.col`` B operand of
+    ``mma.sync``): auto ``bt[k * ni + i, j] = F[k, i, j]`` with ``ni`` the
+    bins rounded up to 8; cross ``bt[k, j] = F[k, j]``, the statistics
+    rounded up to 8.  Bins are padded to ``kp``, a multiple of 16, with
+    zeros.  The values are the table's bfloat16 values, rearranged.
+    """
+
+    auto: bool
+    n_bins: int
+    n_xi: int
+    ni: int
+    kp: int
+    bt: torch.Tensor
+
+
+def bf16_table_constants(table: TableData) -> Bf16Table:
+    """The :class:`Bf16Table` of a bfloat16 table, on its device."""
+    dense = table.tpcf_dense
+    if dense.dtype != torch.bfloat16:
+        raise ValueError("the bfloat16 contraction takes bfloat16 tables.")
+    auto = table.mode == AUTO
+    n_xi, nb = dense.shape[0], table.n_bins
+    kp = _round_up(nb, 16)
+    if auto:
+        ni = _round_up(nb, 8)
+        bt = dense.new_zeros((n_xi, ni, kp))
+        bt[:, :nb, :nb] = dense
+        bt = bt.reshape(n_xi * ni, kp)
+    else:
+        ni = 0
+        bt = dense.new_zeros((_round_up(n_xi, 8), kp))
+        bt[:n_xi, :nb] = dense
+    return Bf16Table(auto=auto, n_bins=nb, n_xi=n_xi, ni=ni, kp=kp,
+                     bt=bt.contiguous())
+
+
+def _bf16_block_rows(kp):
+    return 128 if kp <= _BF16_REG_BINS else 64
+
+
+def contraction_bf16_takes(n_bins, n_xi) -> bool:
+    """Whether the bfloat16 contraction kernel takes a table of this
+    shape (its density tile must fit in shared memory)."""
+    kp = _round_up(n_bins, 16)
+    rows = _bf16_block_rows(kp)
+    return (rows * (2 * (kp + 8) + 4) <= _SMEM_LIMIT and
+            n_xi * _round_up(n_bins, 8) < 2 ** 31)
+
+
+def contraction_bf16_plain(c: Bf16Table, ngal):
+    """The bfloat16 contraction kernel's plain version: ngal (B, n_bins)
+    bfloat16 -> (total (B,), xi (B, n_xi)) bfloat16, the same inputs
+    widened to float64, contracted, and rounded to bfloat16 at the end;
+    chunks of rows keep the float64 product under ``_BF16_PLAIN_BYTES``."""
+    f = c.bt.double()
+    rows = max(1, _BF16_PLAIN_BYTES // (8 * f.shape[0]))
+    totals, xis = [], []
+    for lo in range(0, ngal.shape[0], rows):
+        n = torch.nn.functional.pad(ngal[lo:lo + rows].double(),
+                                    (0, c.kp - c.n_bins))
+        total = n.sum(dim=-1)
+        t = n @ f.T
+        if c.auto:
+            q = torch.sum(t.reshape(-1, c.n_xi, c.ni) *
+                          n[:, None, :c.ni], dim=-1)
+            xi = q / (total * total)[:, None]
+        else:
+            xi = t[:, :c.n_xi] / total[:, None]
+        totals.append(total.to(torch.bfloat16))
+        xis.append(xi.to(torch.bfloat16))
+    return torch.cat(totals), torch.cat(xis)
+
+
+@functools.cache
+def _bf16_lib():
+    """Build (first call only) and bind the entry point of bf16.cu."""
+    lib = load_library("bf16", KERNEL_SOURCES["bf16"])
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.tabcorr_contraction_bf16.argtypes = ([vp] + [i] * 3 + [vp] +
+                                             [i] * 4 + [vp, vp, i, vp])
+    lib.tabcorr_contraction_bf16.restype = i
+    lib.tabcorr_cuda_error_string.argtypes = [i]
+    lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def contraction_bf16_launch(c: Bf16Table, ngal):
+    """Launch the bfloat16 contraction kernel (BF16 ``mma.sync``,
+    ``csrc/bf16.cu``) on ngal (B, n_bins) bfloat16 on the CUDA device of
+    ``c``.  Returns (total (B,), xi (B, n_xi)) bfloat16; raises on any
+    input the kernel does not take and on any launch error."""
+    global CONTRACTION_BF16_LAUNCHES
+    if not ngal.is_cuda:
+        raise ValueError("contraction_bf16_launch needs CUDA tensors.")
+    if not isinstance(c, Bf16Table):
+        raise ValueError("the bfloat16 contraction reads a Bf16Table "
+                         "(bf16_table_constants).")
+    _check_tensor(c.bt, ngal.device, torch.bfloat16, "bfloat16 constants")
+    if ngal.dim() != 2 or ngal.shape[1] != c.n_bins:
+        raise ValueError(f"ngal must be (B, {c.n_bins}), got "
+                         f"{tuple(ngal.shape)}.")
+    _check_tensor(ngal, ngal.device, torch.bfloat16, "ngal")
+    if not contraction_bf16_takes(c.n_bins, c.n_xi):
+        raise ValueError("table too large for the bfloat16 contraction "
+                         "kernel's shared memory.")
+    batch = ngal.shape[0]
+    if batch >= 2 ** 31:
+        raise ValueError("batch too large.")
+    device = ngal.device
+    total = torch.empty(batch, device=device, dtype=torch.bfloat16)
+    xi = torch.empty((batch, c.n_xi), device=device, dtype=torch.bfloat16)
+    units = c.n_xi if c.auto else -(-c.n_xi // 8)
+    row_blocks = max(1, -(-batch // _bf16_block_rows(c.kp)))
+    split = min(units, max(-(-_BF16_TARGET_BLOCKS // row_blocks),
+                           -(-units // 65535)))
+    lib = _bf16_lib()
+    code = lib.tabcorr_contraction_bf16(
+        ngal.data_ptr(), batch, c.n_bins, c.kp, c.bt.data_ptr(), c.n_xi,
+        c.ni, int(c.auto), -(-units // split), total.data_ptr(),
+        xi.data_ptr(), *_stream_args(device))
+    _raise_on_error(code, "bfloat16 contraction",
+                    lib.tabcorr_cuda_error_string)
+    CONTRACTION_BF16_LAUNCHES += 1
+    return total, xi
 
 
 # ----------------------------------------------------------------------

@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..utils.device import numpy_dtype, resolve_device
+from ..utils.device import host_tensor, resolve_device
 
 AUTO = "auto"
 
@@ -71,16 +71,16 @@ class TableData:
 
         ``arrays`` maps ``tpcf_dense``, ``n_h``, ``log_prim_quad``,
         ``quad_weight``, ``sec_perc`` and optionally ``log_prim_quad_lo``
-        (None or absent in float64) to arrays; each is converted to
-        ``dtype`` on the host and copied to ``device``.
+        (None or absent in float64) to arrays; each is rounded to
+        ``dtype`` (bfloat16, float32 or float64) once from float64 on the
+        host and copied to ``device``.
         """
         device = resolve_device(device)
-        np_dtype = numpy_dtype(dtype)
 
         def tensor(a):
             if a is None:
                 return None
-            return torch.tensor(np.asarray(a, dtype=np_dtype), device=device)
+            return host_tensor(a, dtype).to(device)
 
         return cls(**{f: tensor(arrays.get(f)) for f in _FIELDS},
                    mode=mode,
@@ -126,7 +126,24 @@ def mean_occupation(table: TableData, occupation_cen, occupation_sat, params):
 
     ``params`` maps names to tensors of a common batch shape (...) on the
     table's device; they broadcast against the (n_bins, n_gauss) nodes.
+
+    A bfloat16 table's occupation runs in float32, on its bfloat16
+    nodes, residuals and weights and the parameters as given (bfloat16
+    ones widened exactly), and comes out float32, as tabcorr_tpu's does:
+    its transcendentals return float32 for a bfloat16 argument, and XLA
+    keeps the bfloat16 arithmetic around them in float32 (excess
+    precision within a fusion).
     """
+    if table.n_h.dtype == torch.bfloat16:
+        def wide(x):
+            return None if x is None else x.float()
+
+        table = dataclasses.replace(table, **{
+            f: wide(getattr(table, f)) for f in
+            ("log_prim_quad", "log_prim_quad_lo", "quad_weight",
+             "sec_perc")})
+        params = {k: v.float() if v.dtype == torch.bfloat16 else v
+                  for k, v in params.items()}
     params = {k: v[..., None, None] for k, v in params.items()}
     nc = table.n_centrals
     sec = table.sec_perc[:, None]
@@ -144,16 +161,33 @@ def mean_occupation(table: TableData, occupation_cen, occupation_sat, params):
     return torch.sum(table.quad_weight * occ, dim=-1)
 
 
+def promoted_einsum(equation, a, b, out_dtype=None):
+    """``torch.einsum`` over operands of mixed types, as ``jnp.einsum``
+    computes it: in their promoted type (float32 for bfloat16, which
+    accumulates wide), rounded to ``out_dtype`` (its
+    ``preferred_element_type``; default the promoted type).  A bfloat16
+    table and float32 densities contract in float32; bfloat16 densities
+    give a bfloat16 result."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    out_dtype = dtype if out_dtype is None else out_dtype
+    if a.dtype == b.dtype == out_dtype != torch.bfloat16:
+        return torch.einsum(equation, a, b)
+    wide = torch.float32 if dtype == torch.bfloat16 else dtype
+    return torch.einsum(equation, a.to(wide), b.to(wide)).to(out_dtype)
+
+
 def predict_from_occupation(table: TableData, mean_occ):
     """(ngal (...,), xi (..., n_xi)) from a mean-occupation array."""
     ngal = mean_occ * table.n_h
     total = torch.sum(ngal, dim=-1)
     if table.mode == AUTO:
-        t = torch.einsum("kij,...j->...ki", table.tpcf_dense, ngal)
-        xi = torch.einsum("...ki,...i->...k", t, ngal)
+        t = promoted_einsum("kij,...j->...ki", table.tpcf_dense, ngal,
+                            ngal.dtype)
+        xi = promoted_einsum("...ki,...i->...k", t, ngal)
         xi = xi / total[..., None] ** 2
     else:
-        xi = torch.einsum("ki,...i->...k", table.tpcf_dense, ngal)
+        xi = promoted_einsum("ki,...i->...k", table.tpcf_dense, ngal,
+                             ngal.dtype)
         xi = xi / total[..., None]
     return total, xi
 
@@ -177,8 +211,9 @@ def predict_from_occupation_separate(table: TableData, mean_occ):
         denom = total[..., None] ** 2
 
         def quad(a, b):
-            t = torch.einsum("kij,...j->...ki", table.tpcf_dense, b)
-            return torch.einsum("...ki,...i->...k", t, a) / denom
+            t = promoted_einsum("kij,...j->...ki", table.tpcf_dense, b,
+                                b.dtype)
+            return promoted_einsum("...ki,...i->...k", t, a) / denom
 
         xi_dict = {"centrals-centrals": quad(n_cen, n_cen),
                    "centrals-satellites": 2.0 * quad(n_cen, n_sat),
@@ -186,8 +221,8 @@ def predict_from_occupation_separate(table: TableData, mean_occ):
     else:
         denom = total[..., None]
         xi_dict = {
-            "centrals": torch.einsum("ki,...i->...k", table.tpcf_dense,
-                                     n_cen) / denom,
-            "satellites": torch.einsum("ki,...i->...k", table.tpcf_dense,
-                                       n_sat) / denom}
+            "centrals": promoted_einsum("ki,...i->...k", table.tpcf_dense,
+                                        n_cen, n_cen.dtype) / denom,
+            "satellites": promoted_einsum("ki,...i->...k", table.tpcf_dense,
+                                          n_sat, n_sat.dtype) / denom}
     return ngal_dict, xi_dict

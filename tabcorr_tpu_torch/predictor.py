@@ -14,6 +14,10 @@ that evaluates a whole parameter batch.  Its engines:
   for auto tables too wide for its packed layout (more than 127 bins), the
   slab kernel and then the grid spline in tensor ops.  On the CPU the same
   call runs the kernels' plain versions.
+* 'fused' in bfloat16 -- tabcorr_tpu's bf16 route: parameters rounded to
+  bfloat16, the densities in tensor ops rounded to bfloat16, then the
+  bfloat16 contraction kernel (``ops.fused.contraction_bf16_launch``), for
+  an Interpolator over every node's rows and then the grid spline.
 * 'plain' -- tensor ops only: per node mean occupation and contraction,
   then the grid splines (the reference pipeline, heterogeneous node
   binnings included; reference: tabcorr/interpolator.py:124-216).
@@ -51,9 +55,9 @@ from .interpolator import Interpolator, spline_eval
 from .models.protocol import occupation_functions
 from .ops import fused
 from .ops.predict import (TableData, mean_occupation, predict_from_occupation,
-                          predict_from_occupation_separate)
+                          predict_from_occupation_separate, promoted_einsum)
 from .table import TabCorr
-from .utils.device import resolve_device
+from .utils.device import host_tensor, resolve_device
 
 __all__ = ["occupation_functions", "make_predictor", "make_multi_predictor",
            "multi_engine_for", "make_occupation_predictor", "params_batch",
@@ -119,28 +123,38 @@ def _pad_table_data(table: TableData, n_cen, n_sat) -> TableData:
 
 
 def _spline_constants(interp, dtype, device):
-    xp = [torch.tensor(x, dtype=dtype, device=device) for x in interp.xp]
-    a = [torch.tensor(x, dtype=dtype, device=device) for x in interp.a]
+    """The grid's abscissae and spline matrices in ``dtype`` on
+    ``device`` (bfloat16 rounded once from float64, as tabcorr_tpu's
+    ``xp_dev`` and ``a_dev``)."""
+    xp = [host_tensor(x, dtype).to(device) for x in interp.xp]
+    a = [host_tensor(x, dtype).to(device) for x in interp.a]
     return tuple(interp.keys), xp, a
 
 
 def _axis_weights(x, xp, a, extrapolate):
     """(B, len(xp)) weights of one grid axis: the spline applied to the
-    identity ordinates."""
-    eye = torch.eye(xp.shape[0], dtype=xp.dtype, device=xp.device)
+    identity ordinates (float32 at least: bfloat16 weights are not
+    rounded)."""
+    eye = torch.eye(xp.shape[0], device=xp.device,
+                    dtype=torch.promote_types(xp.dtype, torch.float32))
     return spline_eval(x, xp, a, eye, extrapolate=extrapolate)
 
 
 def _spline_over_grid(params, keys, xp_dev, a_dev, grid_shape, values,
                       extrapolate=True):
     """Reduce the grid axes of ``values`` (B, n_nodes, ...), one spline
-    pass per key; returns (B, ...)."""
+    pass per key; returns (B, ...) in tabcorr_tpu's result type (that of
+    the values, parameters and constants together), computed in float32
+    where that is bfloat16."""
+    dtype = values.dtype
     y = values.reshape(values.shape[:1] + tuple(grid_shape) +
                        values.shape[2:])
     for key, xp, a in zip(keys, xp_dev, a_dev):
+        dtype = torch.promote_types(
+            dtype, torch.promote_types(params[key].dtype, xp.dtype))
         w = _axis_weights(params[key], xp, a, extrapolate)
-        y = torch.einsum("bj,bj...->b...", w, y)
-    return y
+        y = promoted_einsum("bj,bj...->b...", w, y)
+    return y.to(dtype)
 
 
 def _grid_node_weights(params, keys, xp_dev, a_dev, extrapolate=True):
@@ -212,16 +226,16 @@ def _interpolator_predict_fn(interp, model, n_gauss, dtype,
     return predict
 
 
-def stacked_grid(interp, n_gauss=10, *, device="cuda"):
-    """An Interpolator whose nodes share one halo binning as one float32
-    TableData: every node's statistic rows stacked in grid order on the
-    statistic axis.  Returns (stacked table, n_nodes, one node's
-    tpcf_shape)."""
+def stacked_grid(interp, n_gauss=10, *, device="cuda", dtype=torch.float32):
+    """An Interpolator whose nodes share one halo binning as one TableData
+    of ``dtype`` (float32 or bfloat16): every node's statistic rows
+    stacked in grid order on the statistic axis.  Returns (stacked table,
+    n_nodes, one node's tpcf_shape)."""
     if len(interp.unique_gal_type_index) != 1:
         raise ValueError("engine='fused' requires all Interpolator nodes "
                          "to share one halo binning.")
     tables = [interp.tabcorr_list[i].table_data(
-        n_gauss=n_gauss, dtype=torch.float32, device=device)
+        n_gauss=n_gauss, dtype=dtype, device=device)
         for i in _grid_order(interp)]
     base = tables[0]
     stacked = dataclasses.replace(
@@ -285,10 +299,45 @@ def _interpolator_fused_predict_fn(interp, model, n_gauss, extrapolate,
     return predict_batch
 
 
-def _fused_kernel_takes(obj):
-    """Whether a CUDA kernel takes ``obj``'s shapes."""
+def _interpolator_bf16_predict_fn(obj, model, n_gauss, extrapolate,
+                                   accuracy, device):
+    """The fused engine in bfloat16 for an Interpolator, tabcorr_tpu's
+    route step for step (``tabcorr_tpu/predictor.py:352-390``): the
+    parameters rounded to bfloat16, the densities in tensor ops on the
+    bfloat16 table, the bfloat16 contraction kernel
+    (``ops.fused.contraction_bf16_launch``) over every node's rows
+    stacked, then the grid spline in bfloat16 over (B, n_nodes, n_xi),
+    NaN outside the grid with ngal poisoned in those rows.  ngal and xi
+    are bfloat16.  (A TabCorr's bfloat16 route is
+    ``ops.fused.make_fused_predictor`` on its bfloat16 table.)"""
+    stacked, n_nodes, tpcf_shape = stacked_grid(
+        obj, n_gauss, device=device, dtype=torch.bfloat16)
+    contract = fused.make_fused_contraction(stacked, accuracy)
+    keys, xp_dev, a_dev = _spline_constants(obj, torch.bfloat16, device)
+    grid_shape = tuple(len(xp) for xp in obj.xp)
+
+    def predict_bf16(params):
+        p = {k: v.to(torch.bfloat16) for k, v in params.items()}
+        total, xi_nodes = contract(fused.bf16_densities(stacked, model, p))
+        batch = total.shape[0]
+        xi = _spline_over_grid(p, keys, xp_dev, a_dev, grid_shape,
+                               xi_nodes.reshape(batch, n_nodes, -1),
+                               extrapolate)
+        total = torch.where(torch.isnan(xi.sum(dim=-1)), torch.nan, total)
+        return fused.refuse_gradient(
+            (total, xi.reshape((batch,) + tuple(tpcf_shape))), params)
+
+    return predict_bf16
+
+
+def _fused_kernel_takes(obj, dtype=torch.float32):
+    """Whether a CUDA kernel takes ``obj``'s shapes in ``dtype``."""
     tab = obj if isinstance(obj, TabCorr) else obj.tabcorr_list[0]
     n_xi = int(np.prod(tab.tpcf_shape))
+    if dtype == torch.bfloat16:
+        rows = n_xi if isinstance(obj, TabCorr) else n_xi * len(
+            obj.tabcorr_list)
+        return fused.contraction_bf16_takes(tab.n_bins, rows)
     if isinstance(obj, TabCorr):
         return fused.contraction_fits(tab.n_bins, n_xi)
     return fused.grid_kernel_takes(tab.n_bins, tab.mode, n_xi)
@@ -296,7 +345,7 @@ def _fused_kernel_takes(obj):
 
 def _fused_eligible(obj, model, dtype, separate_gal_type, vectorized=True):
     return (vectorized and not separate_gal_type and
-            dtype == torch.float32 and
+            dtype in (torch.float32, torch.bfloat16) and
             getattr(model, "supports_fused_engine", True) and
             (isinstance(obj, TabCorr) or
              len(obj.unique_gal_type_index) == 1))
@@ -309,7 +358,7 @@ def _auto_engine(obj, model, dtype, separate_gal_type, device,
     return ("fused" if device.type == "cuda" and
             _fused_eligible(obj, model, dtype, separate_gal_type,
                             vectorized) and
-            _fused_kernel_takes(obj) else "plain")
+            _fused_kernel_takes(obj, dtype) else "plain")
 
 
 def _unbatched(predict, dtype, device):
@@ -347,8 +396,11 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
     n_gauss : int, optional
         Gauss-Legendre nodes per halo bin. Default 10.
     dtype : torch.dtype, optional
-        float32 (the kernels' type) or float64 (plain engine; matches the
-        float64 host path to rounding).
+        float32 (the kernels' type), float64 (plain engine; matches the
+        float64 host path to rounding) or bfloat16 (tabcorr_tpu's bf16
+        routes: bfloat16 tables; the plain engine's occupation in float32
+        and float32 results, the fused engine's bfloat16 contraction
+        kernel and bfloat16 results).
     separate_gal_type : bool, optional
         Per-galaxy-type dicts (plain engine).
     vectorized : bool, optional
@@ -357,11 +409,12 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
         the plain engine; ``torch.vmap`` maps it over a batch.
     engine : str, optional
         'fused', 'plain' or 'auto' (default; see the module docstring).
-        'fused' takes float32, ``vectorized``, no ``separate_gal_type``, a
-        model whose ``supports_fused_engine`` is true, and an Interpolator
-        only if its nodes share one halo binning.  It computes no
-        gradient (``ops.fused.NO_GRADIENT``): autograd runs through the
-        plain engine, in float64 for the samplers of :mod:`.mcmc`.
+        'fused' takes float32 or bfloat16, ``vectorized``, no
+        ``separate_gal_type``, a model whose ``supports_fused_engine`` is
+        true, and an Interpolator only if its nodes share one halo
+        binning.  It computes no gradient (``ops.fused.NO_GRADIENT``):
+        autograd runs through the plain engine, in float64 for the
+        samplers of :mod:`.mcmc`.
     extrapolate : bool, optional
         Interpolators only.  False (default) gives NaN for parameters
         outside the grid -- pair it with a log posterior that maps
@@ -387,10 +440,6 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
         raise ValueError(f"Unknown engine: {engine!r}")
     if not isinstance(obj, (TabCorr, Interpolator)):
         raise TypeError(f"Cannot build a predictor for {type(obj)}.")
-    if engine == "fused" and dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "the bfloat16 fused route (tabcorr_tpu's XLA occupation plus "
-            "bf16 contraction) is not ported; ROADMAP.md lists it.")
     fused_eligible = _fused_eligible(obj, model, dtype, separate_gal_type,
                                      vectorized)
     if engine == "auto":
@@ -399,10 +448,14 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
     if engine == "fused":
         if not fused_eligible:
             raise ValueError(
-                "engine='fused' requires float32, vectorized=True, "
-                "separate_gal_type=False, a model whose "
+                "engine='fused' requires float32 or bfloat16, "
+                "vectorized=True, separate_gal_type=False, a model whose "
                 "supports_fused_engine is true, and a TabCorr or an "
                 "Interpolator whose nodes share one halo binning.")
+        if isinstance(obj, Interpolator) and dtype == torch.bfloat16:
+            return _interpolator_bf16_predict_fn(obj, model, n_gauss,
+                                                 extrapolate, accuracy,
+                                                 device)
         if isinstance(obj, Interpolator):
             return _interpolator_fused_predict_fn(obj, model, n_gauss,
                                                   extrapolate, accuracy,

@@ -20,7 +20,7 @@ import torch
 from .io import ColumnTable, read_attrs
 from .models.protocol import CENTRALS
 from .ops.predict import AUTO, TableData, quadrature_grid
-from .utils.device import numpy_dtype, resolve_device
+from .utils.device import check_dtype, host_tensor, resolve_device
 from .utils.packing import array_to_symmetric_matrix
 
 
@@ -281,18 +281,19 @@ class TabCorr:
         """The tabulation as tensors on ``device`` (cached per arguments
         and per version of ``tpcf_matrix`` and ``gal_type``).
 
-        In float32 the float64 node residual ``log_prim_quad_lo`` is kept,
-        so occupations are evaluated at the float64 node positions.
+        ``dtype`` is bfloat16, float32 or float64.  Below float64 the
+        float64 node residual ``log_prim_quad_lo`` (``log_quad`` less its
+        rounded node, itself rounded to ``dtype``) is kept, so occupations
+        are evaluated at the float64 node positions.
         """
         device = resolve_device(device)
-        key = (n_gauss, dtype, device, self._matrix_version,
+        key = (n_gauss, check_dtype(dtype), device, self._matrix_version,
                self._gal_type_version)
         if key not in self._table_data_cache:
-            np_dtype = numpy_dtype(dtype)
             log_quad, weight = self._quadrature(n_gauss)
             log_quad_lo = None
-            if np.dtype(np_dtype).itemsize < 8:
-                hi64 = log_quad.astype(np_dtype).astype(np.float64)
+            if dtype.itemsize < 8:
+                hi64 = host_tensor(log_quad, dtype).double().numpy()
                 log_quad_lo = log_quad - hi64
             self._table_data_cache[key] = TableData.from_numpy(
                 dict(tpcf_dense=self.dense_matrix(),

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+FLOAT_DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 
 
 def resolve_device(device) -> torch.device:
@@ -30,8 +30,18 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def numpy_dtype(dtype: torch.dtype):
-    """The numpy dtype matching a floating torch dtype."""
-    if dtype not in NUMPY_DTYPES:
-        raise ValueError(f"Unsupported dtype {dtype}; use float32 or float64.")
-    return NUMPY_DTYPES[dtype]
+def check_dtype(dtype: torch.dtype) -> torch.dtype:
+    """``dtype`` if the tables take it (bfloat16, float32, float64)."""
+    if dtype not in FLOAT_DTYPES:
+        raise ValueError(f"Unsupported dtype {dtype}; use bfloat16, float32 "
+                         "or float64.")
+    return dtype
+
+
+def host_tensor(a, dtype: torch.dtype) -> torch.Tensor:
+    """``a`` (array-like) as a new CPU tensor of ``dtype``, rounded once
+    from float64.  numpy has no bfloat16: torch rounds it, as
+    ``jnp.asarray(x64, dtype=jnp.bfloat16)`` does (rounding through
+    float32 first would round twice)."""
+    x64 = np.array(a, dtype=np.float64)
+    return torch.from_numpy(x64).to(check_dtype(dtype))

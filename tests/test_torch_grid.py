@@ -350,9 +350,16 @@ def test_make_predictor_engines_and_dtypes():
     assert ttt.make_predictor(interp, model, device="cpu").__qualname__ == \
         ttt.make_predictor(interp, model, engine="plain",
                            device="cpu").__qualname__
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        ttt.make_predictor(interp, model, engine="fused",
+    # The bfloat16 fused route builds on the CPU (its kernel's plain
+    # version): bfloat16 ngal (B,) and xi (B, *tpcf_shape).
+    f = ttt.make_predictor(interp, model, engine="fused",
                            dtype=torch.bfloat16, device="cpu")
+    ngal, xi = f({k: torch.full((3,), v, dtype=torch.float32)
+                  for k, v in model.param_dict.items()})
+    assert ngal.dtype == xi.dtype == torch.bfloat16
+    assert ngal.shape == (3,)
+    assert xi.shape == (3,) + tuple(interp.tabcorr_list[0].tpcf_shape)
+    assert torch.isfinite(xi).all() and torch.isfinite(ngal).all()
     with pytest.raises(ValueError, match="float32"):
         ttt.make_predictor(interp, model, engine="fused",
                            dtype=torch.float64, device="cpu")
