@@ -156,7 +156,8 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    dtype=torch.bfloat16)``, tabcorr_tpu's bf16 route (parameters rounded
    to bfloat16, the occupation in tensor ops, densities rounded to
    bfloat16) into the BF16 tensor-core contraction kernel
-   (``csrc/bf16.cu``, ``mma.sync`` m16n8k16): (a) zheng07 -18 on the
+   (``csrc/bf16.cu``, ``wgmma`` fed by TMA; each instantiation's HGMMA
+   count read from its SASS at the build): (a) zheng07 -18 on the
    bolplanck wp, synthetic xi_ell and bolplanck Delta Sigma tables; (b)
    the 64-node grid (zheng07 -20, rows outside the grid NaN with their
    ngal); (c) the 'efficient' Delta Sigma grid (zheng07 -21, z = 0.5);
@@ -172,7 +173,7 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    ngal and a table's xi, two for a grid's xi: the nodes' and the
    spline's); the kernel's ms (CUDA events, in turns with the plain
    version) beside its bound (``contraction_flop`` at 989 TFLOP/s BF16
-   against the bytes) and one bf16 ``torch.einsum``.  Then
+   against the bytes) and one bf16 ``torch.einsum`` (their ratio).  Then
    ``examples/torch_example_mcmc.py``'s ``run(device="cuda",
    n_steps=20)``: the bundle route, 41 launches, no plot.
 
@@ -333,6 +334,7 @@ def make_context():
                     "entry function" in line):
                 print(f"ptxas ({name}): {line.strip()}")
     slab_tc_register_budgets(library_path("slab"))
+    bf16_wgmma = bf16_wgmma_counts(library_path("bf16"))
     modules = {"fused": fused, "paircount": paircount}
 
     def reset():
@@ -387,7 +389,7 @@ def make_context():
             torch.backends.cuda.matmul.allow_tf32 = tf32
 
     return dict(torch=torch, np=np, fused=fused, paircount=paircount,
-                card=card, reset=reset,
+                card=card, reset=reset, bf16_wgmma=bf16_wgmma,
                 expect=expect, window_ms=window_ms, alternate=alternate,
                 library_ms=library_ms)
 
@@ -417,6 +419,33 @@ def slab_tc_register_budgets(lib):
             f"{budget('inc')} (ptxas' count above is the launch bound; "
             f"{instr})" if instr else
             "none (ptxas' count above is what it uses)"))
+
+
+def bf16_wgmma_counts(lib):
+    """{instantiation: HGMMA instructions} of the bfloat16 contraction's
+    kernels, from their SASS; prints them and ptxas' reports of wgmmas it
+    serialized (C7510-C7520, "Potential Performance Loss"), and fails if a
+    kernel has no HGMMA."""
+    from tabcorr_tpu_torch.utils.build import nvcc_path
+    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for func in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = func.split("\n", 1)[0].strip()
+        if "contraction_bf16" in name:
+            counts[name] = len(re.findall(r"\bHGMMA\.", func))
+    for name, n in counts.items():
+        print(f"wgmma (bf16, SASS): {name}: {n} HGMMA")
+    log = Path(lib).with_suffix(".log")
+    serialized = [line.strip() for line in (
+        log.read_text().splitlines() if log.exists() else ())
+        if "wgmma.mma_async instructions are serialized" in line]
+    print(f"wgmma (bf16, ptxas): {len(serialized)} reports of serialized "
+          f"wgmmas {serialized}")
+    check(counts and all(counts.values()),
+          f"bf16 kernels without HGMMA: {counts}")
+    return counts
 
 
 def record(kernels, name, launches, **numbers):
@@ -3724,6 +3753,11 @@ def bf16_phase(ctx, kernels):
         ops_ms = flop / PEAK_BF16_FLOPS * 1e3
         bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
         bound_ms = max(ops_ms, bytes_ms)
+        kernel = ("contraction_bf16_stream_kernel" if c.streamed else
+                  "contraction_bf16_kernel")
+        hgmma = {k: v for k, v in ctx["bf16_wgmma"].items() if kernel in k
+                 and f"ILi{c.cols if c.streamed else c.kp}ELb"
+                 f"{int(c.auto)}E" in k}
         print(f"timing (bf16 {name}): bf16 contraction kernel {k_ms:.4f} ms "
               f"per {batch}-row batch (windows {k_w}); bound {bound_ms:.4f} "
               f"ms ({'operations' if ops_ms >= bytes_ms else 'bytes'}: "
@@ -3731,7 +3765,10 @@ def bf16_phase(ctx, kernels):
               f"3.35 TB/s), {bound_ms / k_ms:.1%} of it; plain PyTorch "
               f"{p_ms:.4f} ms (windows {p_w}); one bf16 torch.einsum("
               f"{'bi,bj,kij->bk' if c.auto else 'ki,bi->bk'}) {lib_ms:.4f} "
-              f"ms on {ctx['card']}")
+              f"ms, kernel / einsum {k_ms / lib_ms:.3f}; kp {c.kp}, "
+              f"{c.cols}-column tiles, SASS {hgmma} on {ctx['card']}")
+        check(len(hgmma) == 1 and all(hgmma.values()),
+              f"bf16 {name}: its kernel's HGMMA count {hgmma}")
         totals["ms"] += k_ms
         totals["plain_ms"] += p_ms
         totals["library_ms"] += lib_ms

@@ -79,7 +79,7 @@ def capture_sweeps(clustered):
     sweeps = {}
     dispatch = pc.paircount
 
-    def catch(sweep):
+    def catch(sweep, **_):      # the sweep alone; progress= is not kept
         sweeps[label] = sweep
         raise _Captured
 

@@ -15,7 +15,14 @@ and tabulations once): bundle and contraction on the bench tables at
 262,144 rows, grid and grid_tc on the 64-node grid, slab on the wide grid
 at 32,768 rows, the occupation kernel on the 'efficient' Delta Sigma grid
 for AssembiasLeauthaud11, the pair counter on the wp, xi(s, mu) and Delta
-Sigma sweeps and on chip_smoke's 65,536-tracer wp subsample.  Times are
+Sigma sweeps and on chip_smoke's 65,536-tracer wp subsample.  The
+bfloat16 contraction (bf16.cu), whose C entry point changed with its
+wgmma redesign, is timed on path 12's six inputs (the bf16 route's
+densities of wp, xi_ell, Delta Sigma, the 64-node grid, ds 'efficient'
+and the wide grid): this tree's through its wrapper, the parent's
+mma.sync kernel through its own layout (the zero-padded (n_xi ni, kp)
+matrix, kp the bins rounded up to 16, ni to 8) and launch arithmetic; the
+two results are compared in bfloat16 ulps.  Times are
 CUDA-event windows in turns (parent, this tree, this tree, parent, for
 ``--rounds`` rounds), each kernel's median printed beside the card's name
 and power limit.  It also prints which source files differ between the
@@ -44,6 +51,7 @@ from tabcorr_tpu_torch import (AssembiasLeauthaud11Model,  # noqa: E402
                                Zheng07Model, make_multi_predictor,
                                make_predictor)
 from tabcorr_tpu_torch.ops import fused  # noqa: E402
+from tabcorr_tpu_torch.predictor import stacked_grid  # noqa: E402
 from tabcorr_tpu_torch.ops import paircount as pc  # noqa: E402
 from tabcorr_tpu_torch.utils import build  # noqa: E402
 from tabcorr_tpu_torch.utils.synthetic import (  # noqa: E402
@@ -228,6 +236,77 @@ def capture_inputs():
     return cases
 
 
+def bf16_cases():
+    """{label: (this tree's constants, the parent's layout, densities)} on
+    chip_smoke.py's path 12 inputs."""
+    bf16 = torch.bfloat16
+    cases = {}
+    for name, obj, model, params, _, _ in cs.bf16_cases(
+            {"torch": torch, "np": np}):
+        table = (obj.table_data(dtype=bf16, device="cuda")
+                 if isinstance(obj, TabCorr) else
+                 stacked_grid(obj, device="cuda", dtype=bf16)[0])
+        dense, nb = table.tpcf_dense, table.n_bins
+        n_xi, auto = dense.shape[0], table.mode == "auto"
+        kp = -(-nb // 16) * 16
+        if auto:
+            ni = -(-nb // 8) * 8
+            bt = dense.new_zeros((n_xi, ni, kp))
+            bt[:, :nb, :nb] = dense
+            bt = bt.reshape(n_xi * ni, kp)
+        else:
+            ni = 0
+            bt = dense.new_zeros((-(-n_xi // 8) * 8, kp))
+            bt[:n_xi, :nb] = dense
+        parent = dict(bt=bt.contiguous(), kp=kp, ni=ni, n_xi=n_xi,
+                      auto=auto, nb=nb)
+        cases[f"contraction_bf16 ({name})"] = (
+            fused.bf16_table_constants(table), parent,
+            fused.bf16_densities(table, model, params))
+        torch.cuda.synchronize()
+    return cases
+
+
+def bind_parent_bf16(path):
+    """The parent's bf16 library: tabcorr_contraction_bf16(ngal, batch,
+    nb, kp, bt, n_xi, ni, is_auto, units_per_block, total, xi, device,
+    stream)."""
+    lib = ctypes.CDLL(str(path))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.tabcorr_contraction_bf16.argtypes = ([vp] + [i] * 3 + [vp] +
+                                             [i] * 4 + [vp, vp, i, vp])
+    lib.tabcorr_contraction_bf16.restype = i
+    return lib
+
+
+def parent_bf16_launch(lib, lay, ngal):
+    """The parent's wrapper: 128-row blocks up to 160 padded bins, else
+    64; the grid's second dimension splits the statistics (auto) or
+    8-column tiles (cross) so that a launch has ~1056 blocks."""
+    batch = ngal.shape[0]
+    total = torch.empty(batch, device="cuda", dtype=torch.bfloat16)
+    xi = torch.empty((batch, lay["n_xi"]), device="cuda",
+                     dtype=torch.bfloat16)
+    units = lay["n_xi"] if lay["auto"] else -(-lay["n_xi"] // 8)
+    row_blocks = max(1, -(-batch // (128 if lay["kp"] <= 160 else 64)))
+    split = min(units, max(-(-1056 // row_blocks), -(-units // 65535)))
+    code = lib.tabcorr_contraction_bf16(
+        ngal.data_ptr(), batch, lay["nb"], lay["kp"], lay["bt"].data_ptr(),
+        lay["n_xi"], lay["ni"], int(lay["auto"]), -(-units // split),
+        total.data_ptr(), xi.data_ptr(), *fused._stream_args(ngal.device))
+    if code != 0:
+        raise RuntimeError(f"the parent's bf16 kernel failed: {code}")
+    return total, xi
+
+
+def max_ulps(a, b):
+    """Largest |a - b| in bfloat16 ulps of the larger of the two."""
+    a, b = a.double(), b.double()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return float(((a - b).abs() / torch.ldexp(torch.ones_like(a),
+                                              e - 8)).max())
+
+
 def window_ms(fn, n_iter):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -257,7 +336,10 @@ def main():
     pc.load_kernels()
     parent_paths = build_parent(parent_csrc)
     libs = {"change": {n: getattr(m, b)() for n, (m, b) in LIBRARIES.items()},
-            "parent": {n: bind(n, p) for n, p in parent_paths.items()}}
+            "parent": {n: bind(n, p) for n, p in parent_paths.items()
+                       if n in LIBRARIES}}
+    parent_bf16 = (bind_parent_bf16(parent_paths["bf16"])
+                   if "bf16" in parent_paths else None)
     summary = {"card": name, "changed": changed, "sass": {}, "ms": {}}
     for lib_name, path in parent_paths.items():
         mine = sass_functions(build.library_path(lib_name))
@@ -309,6 +391,38 @@ def main():
               f"{[round(t, 4) for t in times['change']]} / "
               f"{[round(t, 4) for t in times['parent']]}) on {name}",
               flush=True)
+    if parent_bf16 is not None:
+        for label, (c, lay, dens) in bf16_cases().items():
+            runs = {"parent": lambda: parent_bf16_launch(parent_bf16, lay,
+                                                         dens),
+                    "change": lambda: fused.contraction_bf16_launch(c,
+                                                                    dens)}
+            outs = {tree: run() for tree, run in runs.items()}
+            torch.cuda.synchronize()
+            ulps = max(max_ulps(outs["parent"][k], outs["change"][k])
+                       for k in range(2))
+            del outs
+            times = {"parent": [], "change": []}
+            for _ in range(args.rounds):
+                for tree in ("parent", "change", "change", "parent"):
+                    times[tree].append(window_ms(runs[tree], 5))
+            med = {t: float(np.median(v)) for t, v in times.items()}
+            summary["ms"][label] = {"median": med, "windows": times,
+                                    "max_ulps": ulps}
+            print(f"{label}: this tree {med['change']:.4f} ms, parent "
+                  f"{med['parent']:.4f} ms (ratio "
+                  f"{med['change'] / med['parent']:.4f}; windows of 5: "
+                  f"{[round(t, 4) for t in times['change']]} / "
+                  f"{[round(t, 4) for t in times['parent']]}); results "
+                  f"within {ulps:.3g} bf16 ulp of each other, on {name}",
+                  flush=True)
+            del dens
+            torch.cuda.empty_cache()
+        bf16 = [v["median"] for k, v in summary["ms"].items()
+                if k.startswith("contraction_bf16")]
+        print(f"contraction_bf16 over the six inputs: this tree "
+              f"{sum(m['change'] for m in bf16):.4f} ms, parent "
+              f"{sum(m['parent'] for m in bf16):.4f} ms on {name}")
     (OUT / "parent_turns.json").write_text(json.dumps(summary, indent=1))
     return 0
 

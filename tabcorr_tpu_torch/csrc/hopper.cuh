@@ -1,13 +1,17 @@
-// Hopper (sm_90a) building blocks of the slab_tc kernel (slab.cu), one
-// or two PTX instructions each (PTX ISA 8.0):
+// Hopper (sm_90a) building blocks of the slab_tc kernel (slab.cu) and the
+// bfloat16 contraction (bf16.cu), one or two PTX instructions each (PTX
+// ISA 8.0):
 //
 // * mbarriers: a phase completes when its expected arrivals have arrived
 //   and the bytes a TMA copy announced (expect_tx) have landed;
 // * TMA bulk copies (cp.async.bulk) from device to shared memory that
-//   report to an mbarrier;
-// * register reallocation between warpgroups (setmaxnreg);
+//   report to an mbarrier, and 2-D tiled TMA loads through a tensor map;
+// * register reallocation between warpgroups (setmaxnreg); named
+//   barriers over part of a block;
 // * warpgroup MMAs in TF32 (wgmma.mma_async m64n128k8, A from registers,
-//   B from shared memory by descriptor), their fences, groups and waits.
+//   B from shared memory by descriptor) and in BF16 (m64nNk16, A from
+//   registers or shared memory), their fences, groups and waits, and the
+//   descriptors of K-major operands in the 32-, 64- and 128-byte swizzles.
 
 #pragma once
 
@@ -169,6 +173,129 @@ __device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
 }
+
+// ---- 2-D tensor copies, named barriers, prefetch ---------------------
+// Copy the box at (c0, c1) (innermost coordinate first) of the tensor
+// map at generic address `tmap` (a __grid_constant__ kernel parameter)
+// to shared memory at `dst`; the box's bytes, out-of-range elements
+// included as zeros, complete on `bar`.
+__device__ __forceinline__ void tensor_load_2d(uint32_t dst, const void* tmap,
+                                               int c0, int c1,
+                                               uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(tmap), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Barrier `id` (1..15) over `threads` threads of the block (whole warps).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// ---- BF16 warpgroup MMAs ---------------------------------------------
+// Descriptor of a K-major operand at shared address `addr` in the swizzle
+// of `row_bytes` (128 or 64): each row (an M or N index) holds row_bytes
+// of K, the 16-byte units of its address XORed with the row's index
+// within its 8-row group (Swizzle<3 or 2, 4, 3> of the absolute address:
+// the group must be 8 row_bytes aligned); 8-row groups 8 row_bytes apart
+// (the stride byte offset); the leading byte offset is unused.  A k16
+// step further along K within a row is `addr` + 32 bytes.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr,
+                                                int row_bytes) {
+  const uint64_t layout = row_bytes == 128 ? 1 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>((8 * row_bytes) >> 4) << 32) |
+         (layout << 62);
+}
+
+// Operand lists of an accumulator of 4 Q floats d[0 .. 4 Q), Q <= 16:
+// TC_SQ its "%0, ..., %(4 Q - 1)", TC_CQ its "+f" constraints.
+#define TC_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define TC_S1 "%0, %1, %2, %3"
+#define TC_C1 TC_D4(0)
+#define TC_S2 TC_S1 ", %4, %5, %6, %7"
+#define TC_C2 TC_C1, TC_D4(4)
+#define TC_S3 TC_S2 ", %8, %9, %10, %11"
+#define TC_C3 TC_C2, TC_D4(8)
+#define TC_S4 TC_S3 ", %12, %13, %14, %15"
+#define TC_C4 TC_C3, TC_D4(12)
+#define TC_S5 TC_S4 ", %16, %17, %18, %19"
+#define TC_C5 TC_C4, TC_D4(16)
+#define TC_S6 TC_S5 ", %20, %21, %22, %23"
+#define TC_C6 TC_C5, TC_D4(20)
+#define TC_S7 TC_S6 ", %24, %25, %26, %27"
+#define TC_C7 TC_C6, TC_D4(24)
+#define TC_S8 TC_S7 ", %28, %29, %30, %31"
+#define TC_C8 TC_C7, TC_D4(28)
+#define TC_S9 TC_S8 ", %32, %33, %34, %35"
+#define TC_C9 TC_C8, TC_D4(32)
+#define TC_S10 TC_S9 ", %36, %37, %38, %39"
+#define TC_C10 TC_C9, TC_D4(36)
+#define TC_S11 TC_S10 ", %40, %41, %42, %43"
+#define TC_C11 TC_C10, TC_D4(40)
+#define TC_S12 TC_S11 ", %44, %45, %46, %47"
+#define TC_C12 TC_C11, TC_D4(44)
+#define TC_S13 TC_S12 ", %48, %49, %50, %51"
+#define TC_C13 TC_C12, TC_D4(48)
+#define TC_S14 TC_S13 ", %52, %53, %54, %55"
+#define TC_C14 TC_C13, TC_D4(52)
+#define TC_S15 TC_S14 ", %56, %57, %58, %59"
+#define TC_C15 TC_C14, TC_D4(56)
+#define TC_S16 TC_S15 ", %60, %61, %62, %63"
+#define TC_C16 TC_C15, TC_D4(60)
+
+template <int N>
+__device__ void wgmma_bf16_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                              uint64_t desc_b, int scale_d);
+template <int N>
+__device__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t desc_a,
+                              uint64_t desc_b, int scale_d);
+
+// d (+)= a b on one m64nNk16 tile, float32 accumulators: A (bf16) from
+// registers, the m16n8k16 fragment of each warp's 16 rows; B (bf16)
+// K-major from shared memory by descriptor.  Q = N / 8; A0..P are the
+// operand numbers that follow the accumulator's 4 Q.
+#define TC_WGMMA_RS(N, Q, A0, A1, A2, A3, B, P)                             \
+  template <>                                                               \
+  __device__ __forceinline__ void wgmma_bf16_rs<N>(                         \
+      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t desc_b,             \
+      int scale_d) {                                                        \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"           \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                     \
+                 "k16.f32.bf16.bf16 {" TC_S##Q "}, {%" #A0 ", %" #A1        \
+                 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1, 0;\n}\n"         \
+                 : TC_C##Q                                                  \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),              \
+                   "l"(desc_b), "r"(scale_d));                              \
+  }
+TC_WGMMA_RS(64, 8, 32, 33, 34, 35, 36, 37)
+TC_WGMMA_RS(80, 10, 40, 41, 42, 43, 44, 45)
+TC_WGMMA_RS(96, 12, 48, 49, 50, 51, 52, 53)
+TC_WGMMA_RS(128, 16, 64, 65, 66, 67, 68, 69)
+#undef TC_WGMMA_RS
+
+// d (+)= a b on one m64nNk16 tile, float32 accumulators: A and B (bf16)
+// K-major from shared memory by descriptor.
+#define TC_WGMMA_SS(N, Q, A, B, P)                                          \
+  template <>                                                               \
+  __device__ __forceinline__ void wgmma_bf16_ss<N>(                         \
+      float(&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d) {    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"           \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                     \
+                 "k16.f32.bf16.bf16 {" TC_S##Q "}, %" #A ", %" #B           \
+                 ", p, 1, 1, 0, 0;\n}\n"                                    \
+                 : TC_C##Q                                                  \
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));                 \
+  }
+TC_WGMMA_SS(64, 8, 32, 33, 34)
+TC_WGMMA_SS(128, 16, 64, 65, 66)
+#undef TC_WGMMA_SS
 
 }  // namespace hopper
 }  // namespace tabcorr

@@ -54,7 +54,7 @@ none of these kernels.
   (``csrc/bundle.cu``) and :func:`contraction_plain`.  On a bfloat16
   table (tabcorr_tpu's bf16 route, densities and results bfloat16) the
   BF16 tensor-core kernel :func:`contraction_bf16_launch`
-  (``csrc/bf16.cu``, ``mma.sync`` m16n8k16, float32 accumulators) and
+  (``csrc/bf16.cu``, ``wgmma`` fed by TMA, float32 accumulators) and
   :func:`contraction_bf16_plain`, on :class:`Bf16Table` constants.
 * **Grid (B2)**, port of ``_make_grid_packed_predictor`` behind
   ``make_fused_grid_predictor``: an Interpolator grid of one halo binning,
@@ -198,13 +198,20 @@ _FP32_STAGE_STEPS = (4, 2)
 # tiles whose sums one lane pair of contract.cuh's FP32 epilogue combines.
 SLAB_TC_WIDTH = 8
 _PAIR_SLOTS = 2
-# The bfloat16 contraction (csrc/bf16.cu): padded bins up to which a warp
-# holds its A fragments in registers (blocks of 128 rows; wider tables 64
-# rows, A from shared memory), the blocks a launch aims at (the grid's
-# second dimension splits the statistics where the batch gives fewer), and
-# the bytes of the plain version's float64 product per chunk of rows.
+# The bfloat16 contraction (csrc/bf16.cu): padded bins up to which the
+# registers kernel holds a row's densities in registers (bins padded to a
+# multiple of 32; wider tables run the streamed kernel, bins padded to a
+# multiple of 64), the widest table it takes (the widest its tests hold it
+# to the plain version at), the consumer warpgroups of a block, the
+# statistics of a staging window, the ring's most slots, the shared memory
+# of a streamed block when two share an SM, and the bytes of the plain
+# version's float64 product per chunk of rows.
 _BF16_REG_BINS = 160
-_BF16_TARGET_BLOCKS = 1056
+_BF16_MAX_BINS = 1792
+_BF16_CONSUMERS = 2
+_BF16_WIN = 64
+_BF16_MAX_STAGES = 8
+_BF16_HALF_SM = 115712
 _BF16_PLAIN_BYTES = 2 ** 29
 
 
@@ -1162,15 +1169,21 @@ def make_fused_predictor(table: TableData, model, accuracy="elementwise"):
 # ----------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class Bf16Table:
-    """The matrix of one bfloat16 table (or a stacked grid) in the layout
-    of the bfloat16 contraction kernel, which its plain version reads too.
+    """The matrix of one bfloat16 table (or a stacked grid) for the
+    bfloat16 contraction kernel and its plain version.
 
     ``bt`` (n_cols, kp) bfloat16 holds one row of K = bins per column of
-    the product t = n F, K contiguous (the ``.col`` B operand of
-    ``mma.sync``): auto ``bt[k * ni + i, j] = F[k, i, j]`` with ``ni`` the
-    bins rounded up to 8; cross ``bt[k, j] = F[k, j]``, the statistics
-    rounded up to 8.  Bins are padded to ``kp``, a multiple of 16, with
-    zeros.  The values are the table's bfloat16 values, rearranged.
+    the product t = n F: auto ``bt[k * ni + i, j] = F[k, i, j]`` with
+    ``ni = kp``; cross ``bt[k, j] = F[k, j]``, the statistics rounded up
+    to 8.  Bins are padded to ``kp`` with zeros: a multiple of 32 up to
+    160 bins (the registers kernel), else of 64 (the streamed kernel).
+    ``image`` (n_tiles, cols * kp) is what the kernel copies: column tiles
+    of ``cols`` columns (:func:`bf16_geometry`), each tile's bins K-major
+    in the swizzle its wgmma descriptors read (:func:`bf16_tile_offsets`).
+    The registers kernel's tiles are consecutive columns of ``bt``; the
+    streamed kernel's start with a column of ones (sum_j n_j), then the
+    statistics (cross) or, from column 64, ``bt`` (auto).  The values are
+    the table's bfloat16 values, rearranged.
     """
 
     auto: bool
@@ -1179,6 +1192,52 @@ class Bf16Table:
     ni: int
     kp: int
     bt: torch.Tensor
+    cols: int
+    n_tiles: int
+    image: torch.Tensor
+
+    @property
+    def streamed(self):
+        return self.kp > _BF16_REG_BINS
+
+
+def bf16_geometry(auto, n_bins, n_xi):
+    """(kp, cols, n_tiles) of the bfloat16 contraction on a table: padded
+    bins, columns of a tile (the wgmma N) and column tiles.  Registers
+    kernel (n_bins <= 160): auto tiles of 128 / kp statistics up to 64
+    bins, one at 96, half a statistic at 128 and 160; cross tiles of 64
+    statistics.  Streamed kernel: cross tiles of 64 or 128 columns (the
+    ones column and the statistics), auto tiles of 64 (one for the ones
+    column, kp / 64 a statistic)."""
+    if n_bins <= _BF16_REG_BINS:
+        kp = _round_up(n_bins, 32)
+        if not auto:
+            return kp, 64, -(-n_xi // 64)
+        if kp >= 128:
+            return kp, kp // 2, 2 * n_xi
+        per = max(1, 128 // kp)
+        return kp, per * kp, -(-n_xi // per)
+    kp = _round_up(n_bins, 64)
+    if auto:
+        return kp, 64, 1 + n_xi * (kp // 64)
+    cols = 64 if n_xi + 1 <= 64 else 128
+    return kp, cols, -(-(n_xi + 1) // cols)
+
+
+def bf16_tile_offsets(cols, kp):
+    """(cols, kp) int64: the element offset of (column n, bin j) in a
+    column tile's image, as the kernel's wgmma descriptors read it
+    (csrc/hopper.cuh:desc_kmajor): 64-bin chunks, chunk c at cols * 64 c
+    elements, each column 128 bytes of K in the 128-byte swizzle (the
+    16-byte units of a byte address XORed with bits 7-9); a last 32-bin
+    chunk in the 64-byte swizzle (64 bytes a column, bits 7-8)."""
+    n = np.arange(cols)[:, None]
+    j = np.arange(kp)[None, :]
+    start = (j // 64) * 64
+    row_bytes = 2 * np.minimum(64, kp - start)
+    byte = n * row_bytes + 2 * (j - start)
+    byte = byte ^ (((byte >> 7) & (row_bytes // 16 - 1)) << 4)
+    return (cols * start + byte // 2).astype(np.int64)
 
 
 def bf16_table_constants(table: TableData) -> Bf16Table:
@@ -1188,9 +1247,9 @@ def bf16_table_constants(table: TableData) -> Bf16Table:
         raise ValueError("the bfloat16 contraction takes bfloat16 tables.")
     auto = table.mode == AUTO
     n_xi, nb = dense.shape[0], table.n_bins
-    kp = _round_up(nb, 16)
+    kp, cols, n_tiles = bf16_geometry(auto, nb, n_xi)
     if auto:
-        ni = _round_up(nb, 8)
+        ni = kp
         bt = dense.new_zeros((n_xi, ni, kp))
         bt[:, :nb, :nb] = dense
         bt = bt.reshape(n_xi * ni, kp)
@@ -1198,21 +1257,54 @@ def bf16_table_constants(table: TableData) -> Bf16Table:
         ni = 0
         bt = dense.new_zeros((_round_up(n_xi, 8), kp))
         bt[:n_xi, :nb] = dense
+    columns = bt.new_zeros((n_tiles * cols, kp))
+    if kp <= _BF16_REG_BINS:
+        used = min(bt.shape[0], columns.shape[0])
+        columns[:used] = bt[:used]
+    else:
+        columns[0, :nb] = 1
+        first, used = (64, n_xi * ni) if auto else (1, n_xi)
+        columns[first:first + used] = bt[:used]
+    offsets = torch.as_tensor(bf16_tile_offsets(cols, kp).ravel(),
+                              device=bt.device)
+    image = bt.new_zeros((n_tiles, cols * kp))
+    image[:, offsets] = columns.reshape(n_tiles, cols * kp)
     return Bf16Table(auto=auto, n_bins=nb, n_xi=n_xi, ni=ni, kp=kp,
-                     bt=bt.contiguous())
+                     bt=bt.contiguous(), cols=cols, n_tiles=n_tiles,
+                     image=image)
 
 
-def _bf16_block_rows(kp):
-    return 128 if kp <= _BF16_REG_BINS else 64
+def bf16_launch_config(c: Bf16Table):
+    """(ring slots, statistics a staging window, dynamic shared memory
+    bytes) of a launch of the bfloat16 contraction on ``c``
+    (csrc/bf16.cu:smem_bytes).  A slot holds a column tile (registers
+    kernel) or a 64-bin chunk of 128 density rows and of a tile
+    (streamed); each consumer warpgroup stages its 128 (64) rows' results
+    in two windows.  A streamed block takes at most half an SM's shared
+    memory where that leaves 3 slots."""
+    rows = 64 if c.streamed else 128
+    if c.streamed:
+        slot = 128 * 128 + c.cols * 128
+        win = (c.n_xi if c.n_tiles == 1 else c.cols) if not c.auto else \
+            min(c.n_xi, _BF16_WIN)
+    else:
+        slot = _round_up(c.cols * c.kp * 2, 1024)
+        win = min(c.n_xi, _BF16_WIN)
+    staging = 2 * _BF16_CONSUMERS * rows * win * 2
+
+    def slots(budget):
+        return min(_BF16_MAX_STAGES, (budget - 1024 - staging) // (slot + 16))
+    stages = slots(_SMEM_LIMIT)
+    if c.streamed and slots(_BF16_HALF_SM) >= 3:
+        stages = slots(_BF16_HALF_SM)
+    return stages, win, 1024 + stages * (slot + 16) + staging
 
 
 def contraction_bf16_takes(n_bins, n_xi) -> bool:
     """Whether the bfloat16 contraction kernel takes a table of this
-    shape (its density tile must fit in shared memory)."""
-    kp = _round_up(n_bins, 16)
-    rows = _bf16_block_rows(kp)
-    return (rows * (2 * (kp + 8) + 4) <= _SMEM_LIMIT and
-            n_xi * _round_up(n_bins, 8) < 2 ** 31)
+    shape."""
+    return (n_bins <= _BF16_MAX_BINS and
+            n_xi * _round_up(n_bins, 64) < 2 ** 31)
 
 
 def contraction_bf16_plain(c: Bf16Table, ngal):
@@ -1245,7 +1337,7 @@ def _bf16_lib():
     lib = load_library("bf16", KERNEL_SOURCES["bf16"])
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.tabcorr_contraction_bf16.argtypes = ([vp] + [i] * 3 + [vp] +
-                                             [i] * 4 + [vp, vp, i, vp])
+                                             [i] * 6 + [vp, vp, i, vp])
     lib.tabcorr_contraction_bf16.restype = i
     lib.tabcorr_cuda_error_string.argtypes = [i]
     lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
@@ -1253,39 +1345,49 @@ def _bf16_lib():
 
 
 def contraction_bf16_launch(c: Bf16Table, ngal):
-    """Launch the bfloat16 contraction kernel (BF16 ``mma.sync``,
+    """Launch the bfloat16 contraction kernel (BF16 ``wgmma`` fed by TMA,
     ``csrc/bf16.cu``) on ngal (B, n_bins) bfloat16 on the CUDA device of
     ``c``.  Returns (total (B,), xi (B, n_xi)) bfloat16; raises on any
-    input the kernel does not take and on any launch error."""
+    input the kernel does not take and on any launch error.  The streamed
+    kernel reads the densities through a TMA tensor map, whose rows must
+    be 16-byte aligned: a table whose bins are not a multiple of 8 has
+    its densities padded with zero bins first."""
     global CONTRACTION_BF16_LAUNCHES
-    if not ngal.is_cuda:
-        raise ValueError("contraction_bf16_launch needs CUDA tensors.")
     if not isinstance(c, Bf16Table):
         raise ValueError("the bfloat16 contraction reads a Bf16Table "
                          "(bf16_table_constants).")
-    _check_tensor(c.bt, ngal.device, torch.bfloat16, "bfloat16 constants")
+    if c.image.shape != (c.n_tiles, c.cols * c.kp) or (
+            c.kp, c.cols, c.n_tiles) != bf16_geometry(c.auto, c.n_bins,
+                                                      c.n_xi):
+        raise ValueError("bfloat16 constants not in the kernel's layout "
+                         "(bf16_table_constants).")
+    if not ngal.is_cuda:
+        raise ValueError("contraction_bf16_launch needs CUDA tensors.")
+    _check_tensor(c.image, ngal.device, torch.bfloat16, "bfloat16 constants")
     if ngal.dim() != 2 or ngal.shape[1] != c.n_bins:
         raise ValueError(f"ngal must be (B, {c.n_bins}), got "
                          f"{tuple(ngal.shape)}.")
     _check_tensor(ngal, ngal.device, torch.bfloat16, "ngal")
     if not contraction_bf16_takes(c.n_bins, c.n_xi):
         raise ValueError("table too large for the bfloat16 contraction "
-                         "kernel's shared memory.")
+                         f"kernel (at most {_BF16_MAX_BINS} bins).")
     batch = ngal.shape[0]
     if batch >= 2 ** 31:
         raise ValueError("batch too large.")
     device = ngal.device
     total = torch.empty(batch, device=device, dtype=torch.bfloat16)
     xi = torch.empty((batch, c.n_xi), device=device, dtype=torch.bfloat16)
-    units = c.n_xi if c.auto else -(-c.n_xi // 8)
-    row_blocks = max(1, -(-batch // _bf16_block_rows(c.kp)))
-    split = min(units, max(-(-_BF16_TARGET_BLOCKS // row_blocks),
-                           -(-units // 65535)))
+    if c.streamed and c.n_bins % 8:
+        ngal = torch.nn.functional.pad(ngal, (0, _round_up(c.n_bins, 8) -
+                                              c.n_bins))
+    elif ngal.data_ptr() % 16:
+        ngal = ngal.clone()
+    stages, win, _ = bf16_launch_config(c)
     lib = _bf16_lib()
     code = lib.tabcorr_contraction_bf16(
-        ngal.data_ptr(), batch, c.n_bins, c.kp, c.bt.data_ptr(), c.n_xi,
-        c.ni, int(c.auto), -(-units // split), total.data_ptr(),
-        xi.data_ptr(), *_stream_args(device))
+        ngal.data_ptr(), batch, ngal.shape[1], c.kp, c.image.data_ptr(),
+        c.n_xi, int(c.auto), c.cols, c.n_tiles, stages, win,
+        total.data_ptr(), xi.data_ptr(), *_stream_args(device))
     _raise_on_error(code, "bfloat16 contraction",
                     lib.tabcorr_cuda_error_string)
     CONTRACTION_BF16_LAUNCHES += 1

@@ -1,6 +1,7 @@
 """The bfloat16 contraction kernel (``csrc/bf16.cu``) against its plain
-version on the card: ragged batches, auto tables of 60, 121 and 160 bins
-and a cross table of 1104, 1 to 2688 statistics.  Each element within one
+version on the card: ragged batches, auto tables of 60, 121, 160 and 400
+bins (the 64-node and the wide grid's stacked rows among them) and cross
+tables of 60, 1104 and 1792, 1 to 2688 statistics.  Each element within one
 bfloat16 ulp of the plain one; rows whose statistics cross zero within
 2^-8 of the row's largest |element|.
 
@@ -23,7 +24,9 @@ BATCHES = (1, 63, 64, 65, 4097)
 # (n_bins, n_xi, mode, signed matrix)
 SHAPES = ((60, 19, "auto", False), (121, 42, "auto", True),
           (160, 1, "auto", False), (60, 2688, "auto", False),
-          (1104, 52, "cross", False))
+          (160, 2688, "auto", False), (400, 3, "auto", True),
+          (60, 19, "cross", False), (1104, 52, "cross", False),
+          (1790, 130, "cross", True))
 
 
 @pytest.fixture
