@@ -175,7 +175,23 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    version) beside its bound (``contraction_flop`` at 989 TFLOP/s BF16
    against the bytes) and one bf16 ``torch.einsum`` (their ratio).  Then
    ``examples/torch_example_mcmc.py``'s ``run(device="cuda",
-   n_steps=20)``: the bundle route, 41 launches, no plot.
+   n_steps=20)``: the bundle route, 41 launches, no plot; and
+   ``examples/torch_example_multichip.py``'s as a one-rank NCCL world.
+
+13. Multi-GPU (``tabcorr_tpu_torch.parallel``, one process a rank,
+   spawned by ``run_world``): (a) a one-rank NCCL world, the production
+   backend: ``make_multi_predictor([wp, xi_ell], mesh=)`` through B1 at
+   262,144 rows, the grid64 Interpolator through B2 and the wide grid
+   through slab_tc with ``mesh=``, and ``labeled_pair_count(mesh=)`` on
+   path 9's 65,536-tracer wp and Delta Sigma subsamples; (b) two gloo
+   ranks sharing the card (NCCL refuses two ranks on one device):
+   ``make_sharded_predict`` with the wp table over tp = 2, then B1 on
+   each rank's half of the batch and both sweeps in two shards, the
+   collectives through the host.  Each rank holds every result against
+   the unsharded call on the same rows (bit for bit; unit counts equal,
+   weighted cells within 1e-12; the table-parallel predict within
+   tabcorr_tpu's dry-run tolerances), times both, and returns its launch
+   counts, which must be above 0.
 
 Paths 3-5 and 7 run the 'scaled' contract: the grid kernel and slab_tc;
 the 'elementwise' passes run the grid kernel and the FP32 slab kernel,
@@ -242,6 +258,10 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                   "tabcorr_tpu/ops/paircount.py:130, 276"),
     "contraction_bf16": (CSRC + "bf16.cu",
                          "tabcorr_tpu/ops/fused.py:125 (bf16)"),
+    # The pair counter on each rank of a sharded sweep, one all-reduce
+    # after it (labeled_pair_count(mesh=)).
+    "paircount_sharded": (CSRC + "paircount.cu",
+                          "tabcorr_tpu/ops/paircount.py:324"),
 }
 # name -> (module of ctx, launch counter)
 COUNTERS = {"bundle": ("fused", "BUNDLE_LAUNCHES"),
@@ -288,6 +308,7 @@ def main():
     pipeline_phase(ctx, kernels)
     bf16_phase(ctx, kernels)
     examples_phase(ctx, kernels)
+    multi_gpu_phase(ctx, kernels)
 
     for name in KERNELS:
         check(kernels[name]["launches"] > 0,
@@ -3006,6 +3027,7 @@ def tabulation_sweep_report(ctx, label, rec):
         "mock, RSD, the AP stretch, tensors to the card; estimator: "
         "everything after it)")
     sub = subsample(ctx, sweep, TAB_SUBSAMPLE, SEED + 91)
+    ctx.setdefault("subsamples", {})[label] = sub
     sub_layout = pc.bucket_layout(sub)
     got = pc.paircount_launch(sub, layout=sub_layout)
     want = pc.paircount_plain(sub)
@@ -3803,7 +3825,8 @@ def bf16_phase(ctx, kernels):
 
 def examples_phase(ctx, kernels):
     """examples/torch_example_mcmc.py's ``run`` on the card (no plot): the
-    bundle route, 256 walkers, 20 steps."""
+    bundle route, 256 walkers, 20 steps; then
+    examples/torch_example_multichip.py's as a one-rank NCCL world."""
     torch = ctx["torch"]
     sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
     import torch_example_mcmc
@@ -3826,6 +3849,306 @@ def examples_phase(ctx, kernels):
           f"{list(results['truth'].values())}), "
           f"{time.perf_counter() - t0:.2f} s")
 
+    # The multi-GPU example as a one-rank NCCL world (a spawned process;
+    # its launches are its own and come back in its results).
+    import torch_example_multichip
+    t0 = time.perf_counter()
+    [rank] = torch_example_multichip.run(device="cuda", n_ranks=1,
+                                         n_steps=20)
+    check(rank["launches"] == 1 and rank["rows"] == len(rank["ngal"]) and
+          ctx["np"].isfinite(rank["log_prob"]).all() and
+          0.0 < rank["accept"] <= 1.0,
+          f"multichip example: launches {rank['launches']}, accept "
+          f"{rank['accept']}")
+    record(kernels, "bundle", rank["launches"])
+    print(f"examples/torch_example_multichip.py run(device='cuda', "
+          f"n_ranks=1, n_steps=20): one NCCL rank, {rank['rows']} rows "
+          f"through {rank['launches']} dp-sharded bundle launch, "
+          f"{len(rank['walkers'])} walkers, acceptance "
+          f"{rank['accept']:.3f}, {time.perf_counter() - t0:.2f} s with the "
+          f"spawn")
+
+
+
+# ----------------------------------------------------------------------
+# Multi-GPU: one process a rank, the kernels under mesh=
+# ----------------------------------------------------------------------
+MG_TIMED = 3
+
+
+def sweep_kwargs(sweep):
+    """``labeled_pair_count``'s arguments (numpy, picklable) that make
+    ``sweep`` again: its tracers, labels, float32 weights (already scaled
+    to a largest magnitude of 1, so they pass unscaled), period, kind,
+    radial edges (whose float32 squares are the sweep's), cut and
+    channels."""
+    import numpy as np
+
+    def host(t):
+        return None if t is None else t.cpu().numpy()
+
+    return dict(pos1=host(sweep.pos1), labels1=host(sweep.labels1),
+                n_labels_1=sweep.n_labels_1, pos2=host(sweep.pos2),
+                labels2=host(sweep.labels2), n_labels_2=sweep.n_labels_2,
+                weights2=host(sweep.weights2), period=sweep.period,
+                kind=sweep.kind,
+                r_edges=np.sqrt(sweep.edges_sq.astype(np.float64)),
+                pi_max=sweep.pi_max if sweep.kind == "rppi" else None,
+                mu_edges=(sweep.mu_edges.astype(np.float64)
+                          if sweep.kind == "smu" else None),
+                pair_weight=sweep.pair_weight)
+
+
+def wall_ms(torch, fn, n=MG_TIMED):
+    """Median host-clock ms of ``fn`` to a synchronized card (after one
+    call not timed)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def leaves(x):
+    """The tensors of nested tuples and lists, in order."""
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in leaves(y)]
+    return [x]
+
+
+def sweep_to(sweep, device):
+    """``sweep`` with its tensors on ``device``."""
+    return dataclasses.replace(sweep, **{
+        f.name: getattr(sweep, f.name).to(device)
+        for f in dataclasses.fields(sweep)
+        if hasattr(getattr(sweep, f.name), "to")})
+
+
+def multi_gpu_rank(world, sweeps, wp_sweep):
+    """One rank of the multi-GPU phase (run by ``run_world`` in a spawned
+    process).  World "a" (one NCCL rank, mesh (1, 1)): B1, B2 and B4
+    (slab_tc) under ``mesh=`` at the main path's widths and the two
+    tabulation sweeps through ``labeled_pair_count(mesh=)``.  World "b"
+    (two gloo ranks on one card): ``make_sharded_predict`` with the wp
+    table split over tp = 2, then mesh (2, 1): B1 on each rank's half of
+    the batch and both sweeps in two shards.  Counters are zeroed just
+    before the sharded calls and read just after; then each result is
+    held against the unsharded call on the same rows and both are timed.
+    ``wp_sweep``: the wp subsample's Sweep on the CPU, whose shard's
+    kernel, plain version and bound rank 0 of world "b" measures.
+    Returns the counts, the checks' numbers and the times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import tabcorr_tpu_torch as tp
+    from tabcorr_tpu_torch.ops import fused
+    from tabcorr_tpu_torch.ops import paircount as pc
+    from tabcorr_tpu_torch.parallel import make_mesh, make_sharded_predict
+    from tabcorr_tpu_torch.parallel.mesh import batch_sharding
+    from tabcorr_tpu_torch.utils.synthetic import (grid64_interpolator,
+                                                   wide_grid_interpolator)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, size = dist.get_rank(), dist.get_world_size()
+    data = Path(__file__).resolve().parent / "tabcorr_tpu_torch" / "data"
+    wp_tab = tp.TabCorr.read(data / "bolplanck_wp.npz")
+    xi_tab = tp.TabCorr.read(data / "synthetic_xi_ell.npz")
+    model = tp.Zheng07Model(threshold=-18,
+                            redshift=wp_tab.attrs["redshift"])
+    rng = np.random.default_rng(SEED + 300)
+    params = bench_params(model, rng, BATCH, "cuda")
+    accuracy = ("elementwise", "scaled")
+    cases = {}     # name -> (sharded call, unsharded call, rows, kind)
+    if world == "a":
+        mesh = make_mesh(1)
+        cases["bundle"] = [tp.make_multi_predictor(
+            [wp_tab, xi_tab], model, device="cuda", accuracy=accuracy,
+            mesh=mesh), tp.make_multi_predictor(
+                [wp_tab, xi_tab], model, device="cuda", accuracy=accuracy),
+            params, "exact"]
+        for name, make_interp, kind, batch in (
+                ("grid", grid64_interpolator, tp.Zheng07Model, BATCH),
+                ("slab_tc", wide_grid_interpolator,
+                 tp.AssembiasZheng07Model, SLAB_BATCH)):
+            interp = make_interp()
+            m = kind(threshold=-20, redshift=0.0)
+            m.param_dict.update(alpha_c=0.2, alpha_s=1.0, log_eta=0.0)
+            p = bench_params(m, rng, batch, "cuda")
+            for key, lo, hi in (("alpha_c", 0.05, 0.35),
+                                ("alpha_s", 0.85, 1.15),
+                                ("log_eta", -0.3, 0.3)):
+                p[key] = torch.tensor(rng.uniform(lo, hi, batch),
+                                      dtype=torch.float32, device="cuda")
+            cases[name] = [tp.make_predictor(
+                interp, m, engine="fused", accuracy="scaled", device="cuda",
+                mesh=mesh), tp.make_predictor(
+                    interp, m, engine="fused", accuracy="scaled",
+                    device="cuda"), p, "exact"]
+    else:
+        mesh_tp = make_mesh(2, table_parallel=2)
+        table = wp_tab.table_data(dtype=torch.float32, device="cuda")
+        cases["tp predict"] = [
+            make_sharded_predict(mesh_tp, table, model)[0],
+            tp.make_predictor(wp_tab, model, engine="plain", device="cuda"),
+            params, "dryrun"]
+        mesh = make_mesh(2)
+        cases["bundle"] = [tp.make_multi_predictor(
+            [wp_tab, xi_tab], model, device="cuda", accuracy=accuracy,
+            mesh=mesh), tp.make_multi_predictor(
+                [wp_tab, xi_tab], model, device="cuda", accuracy=accuracy),
+            params, "exact"]
+    for name, kw in sweeps.items():
+        cases[f"paircount {name}"] = [
+            (lambda kw=kw: pc.labeled_pair_count(**kw, mesh=mesh,
+                                                 device="cuda")),
+            (lambda kw=kw: pc.labeled_pair_count(**kw, device="cuda")),
+            None, "sweep"]
+
+    # ---- the path: every sharded call once, counted -----------------------
+    for attr in ("BUNDLE_LAUNCHES", "GRID_LAUNCHES", "SLAB_TC_LAUNCHES"):
+        setattr(fused, attr, 0)
+    pc.PAIRCOUNT_LAUNCHES = 0
+    got = {name: (c[0](c[2]) if c[2] is not None else c[0]())
+           for name, c in cases.items()}
+    torch.cuda.synchronize()
+    counts = {"bundle": fused.BUNDLE_LAUNCHES, "grid": fused.GRID_LAUNCHES,
+              "slab_tc": fused.SLAB_TC_LAUNCHES,
+              "paircount_sharded": pc.PAIRCOUNT_LAUNCHES}
+
+    # ---- against the unsharded call on the same rows ----------------------
+    out = {"rank": rank, "size": size, "counts": counts, "cases": {}}
+    for name, (sharded, unsharded, p, kind) in cases.items():
+        want = unsharded(p) if p is not None else unsharded()
+        if p is not None:
+            rows = batch_sharding(mesh if name != "tp predict" else mesh_tp,
+                                  len(next(iter(p.values()))))
+            pairs = list(zip(*[(g, w[rows]) for g, w in zip(
+                leaves(got[name]), leaves(want))]))
+        else:
+            pairs = [(torch.as_tensor(got[name]),), (torch.as_tensor(want),)]
+        errs = [float((a.double() - b.double()).abs().max())
+                for a, b in zip(*pairs)]
+        if kind == "exact":
+            ok = all(torch.equal(a, b) for a, b in zip(*pairs))
+            bar = "bit for bit (the same kernel on the same rows)"
+        elif kind == "dryrun":
+            ok = all(bool(torch.allclose(
+                a.double(), b.double(), rtol=tol,
+                atol=atol * float(b.double().abs().max())))
+                for (a, b), (tol, atol) in zip(zip(*pairs),
+                                               ((1e-5, 0.0), (1e-4, 1e-6))))
+            bar = ("ngal 1e-5, xi 1e-4 + 1e-6 max|xi| (tabcorr_tpu's "
+                   "dry run: float32 sums split over the shards)")
+        else:
+            a, b = pairs[0][0], pairs[1][0]
+            unit = sweeps[name.split()[1]]["weights2"] is None and \
+                sweeps[name.split()[1]]["pair_weight"] == "unit"
+            ok = (torch.equal(a, b) if unit else bool(torch.allclose(
+                a, b, rtol=1e-12, atol=1e-12 * float(b.abs().max()))))
+            bar = ("unit counts equal" if unit else
+                   "1e-12 of the largest cell (float64 sums in another "
+                   "order)")
+        check(ok, f"multi-GPU world {world} rank {rank}: {name} differs "
+                  f"from the unsharded call ({errs})")
+        sharded_ms = wall_ms(torch, (lambda s=sharded, p=p: s(p)) if p
+                             is not None else sharded)
+        unsharded_ms = wall_ms(torch, (lambda u=unsharded, p=p: u(p)) if p
+                               is not None else unsharded)
+        out["cases"][name] = dict(max_abs_err=max(errs), bar=bar,
+                                  sharded_ms=sharded_ms,
+                                  unsharded_ms=unsharded_ms)
+
+    # ---- the sharded pair counter on this rank's shard (world b) ----------
+    if world == "b":
+        sweep = pc.shard_sweep(sweep_to(wp_sweep, "cuda"), mesh)
+        layout = pc.bucket_layout(sweep)
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        times = []
+        for _ in range(MG_TIMED):
+            hist = pc.paircount_launch(sweep, layout, events=events)
+            torch.cuda.synchronize()
+            times.append(events[0].elapsed_time(events[1]))
+        t0 = time.perf_counter()
+        plain = pc.paircount_plain(sweep)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(hist, plain), "sharded paircount vs plain")
+        b, _, _ = paircount_bounds(sweep, valid_pairs(sweep, hist))
+        out["shard"] = dict(
+            ms=sorted(times)[len(times) // 2], plain_ms=plain_ms,
+            max_abs_err=float((hist.double() - plain.double()).abs().max()),
+            j_range=sweep.j_range, **b)
+    return out
+
+
+def multi_gpu_phase(ctx, kernels):
+    """Multi-GPU through ``tabcorr_tpu_torch.parallel``: (a) a one-rank
+    NCCL world, the production backend, runs B1 (wp + xi_ell, 262,144
+    rows), B2 (grid64, 262,144 rows) and B4's slab_tc (the wide grid,
+    32,768 rows) under ``mesh=`` and ``labeled_pair_count(mesh=)`` on the
+    tabulation phase's 65,536-tracer wp and Delta Sigma subsamples; (b) a
+    two-rank gloo world on the same card (NCCL refuses two ranks on one
+    device): ``make_sharded_predict`` with the wp table over tp = 2, B1
+    on each rank's half of the batch, and both sweeps in two shards, the
+    collectives through the host.  Each rank holds every result against
+    the unsharded call on the same rows (``multi_gpu_rank``) and returns
+    its launch counts, which must be above 0."""
+    torch = ctx["torch"]
+    from tabcorr_tpu_torch.parallel.mesh import run_world
+
+    t_phase = time.perf_counter()
+    sweeps = {label: sweep_kwargs(ctx["subsamples"][label])
+              for label in ("wp", "ds")}
+    wp_sweep = sweep_to(ctx["subsamples"]["wp"], "cpu")
+    torch.cuda.empty_cache()
+    results = {}
+    for world, size, backend in (("a", 1, "nccl"), ("b", 2, "gloo")):
+        t0 = time.perf_counter()
+        results[world] = run_world(multi_gpu_rank, size, backend, "cuda",
+                                   args=(world, sweeps, wp_sweep))
+        print(f"multi-GPU world {world}: {size} {backend} rank(s) on "
+              f"{ctx['card']}, {time.perf_counter() - t0:.1f} s with the "
+              f"spawn")
+    expected = {"a": ("bundle", "grid", "slab_tc", "paircount_sharded"),
+                "b": ("bundle", "paircount_sharded")}
+    totals = {}
+    for world, ranks in results.items():
+        for r in ranks:
+            for name in expected[world]:
+                check(r["counts"][name] > 0, f"multi-GPU world {world} "
+                      f"rank {r['rank']}: {name} never launched")
+            for name, n in r["counts"].items():
+                totals[name] = totals.get(name, 0) + n
+            for name, c in r["cases"].items():
+                print(f"multi-GPU world {world} rank {r['rank']}/{r['size']}"
+                      f": {name}: sharded {c['sharded_ms']:.3f} ms, "
+                      f"unsharded {c['unsharded_ms']:.3f} ms (host clock, "
+                      f"synchronized, median of {MG_TIMED}); max |diff| "
+                      f"{c['max_abs_err']:.3e}, held {c['bar']}")
+        print(f"multi-GPU world {world}: launches " + ", ".join(
+            f"rank {r['rank']} {r['counts']}" for r in ranks))
+    for name in ("bundle", "grid", "slab_tc"):
+        record(kernels, name, totals[name])
+    shard = results["b"][0]["shard"]
+    print(f"multi-GPU: paircount on rank 0's shard of the wp sweep (j "
+          f"{shard['j_range']}): kernel {shard['ms']:.3f} ms (CUDA events), "
+          f"plain {shard['plain_ms']:.1f} ms, kept-pair bound "
+          f"{shard['bound_ms']:.3f} ms ({shard['bound_by']}), equal to the "
+          f"plain version on {ctx['card']}")
+    record(kernels, "paircount_sharded", totals["paircount_sharded"],
+           ms=shard["ms"], plain_ms=shard["plain_ms"],
+           max_abs_err=max(r["cases"][f"paircount {label}"]["max_abs_err"]
+                           for ranks in results.values() for r in ranks
+                           for label in ("wp", "ds")),
+           bound_ms=shard["bound_ms"], bound_by=shard["bound_by"],
+           library_ms=None)
+    print(f"multi-GPU phase: {time.perf_counter() - t_phase:.1f} s")
 
 if __name__ == "__main__":
     sys.exit(main())

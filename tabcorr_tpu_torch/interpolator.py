@@ -221,10 +221,11 @@ class Interpolator:
 
     # ------------------------------------------------------------------
     def predict(self, model, separate_gal_type=False, n_gauss_prim=10,
-                extrapolate=False, check_consistency=True):
+                extrapolate=False, check_consistency=True, **occ_kwargs):
         """Interpolated float64 prediction (reference:
         interpolator.py:124-216); the grid coordinates are read from
-        ``model.param_dict``."""
+        ``model.param_dict``, and ``occ_kwargs`` go to the model's
+        occupation methods."""
         x_model = np.empty(len(self.keys))
         for i, key in enumerate(self.keys):
             try:
@@ -237,7 +238,7 @@ class Interpolator:
         mean_occupation = [
             self.tabcorr_list[i].mean_occupation(
                 model, n_gauss_prim=n_gauss_prim,
-                check_consistency=check_consistency)
+                check_consistency=check_consistency, **occ_kwargs)
             for i in self.unique_gal_type_index]
 
         results = []

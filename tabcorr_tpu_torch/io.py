@@ -85,6 +85,10 @@ class ColumnTable:
             out[name] = col
         return out
 
+    def as_array(self):
+        """The table as a numpy structured array (astropy's name)."""
+        return self.as_structured_array()
+
     @classmethod
     def from_structured_array(cls, arr: np.ndarray) -> "ColumnTable":
         out = cls()

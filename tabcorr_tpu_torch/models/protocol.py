@@ -95,6 +95,12 @@ class HodModel:
         """halotools-signature wrapper (reference: tabcorr/tabcorr.py:560)."""
         return self._mean_occupation(SATELLITES, **kwargs)
 
+    def param_array(self, names):
+        """The ``param_dict`` values of ``names``, in that order, as a
+        float64 array."""
+        return np.array([self.param_dict[name] for name in names],
+                        dtype=np.float64)
+
 
 def occupation_functions(model):
     """The pure ``(params, logM, sec_percentile)`` occupation pair.

@@ -758,7 +758,31 @@ def refuse_gradient(out, params, *extra):
     return tie(out)
 
 
-def make_fused_bundle_predictor(tables, model, accuracy=None):
+def rank_rows(fn, mesh, batch_axis="dp"):
+    """``fn(params, *per_row)`` over this rank's rows of a global batch:
+    the counterpart of tabcorr_tpu's ``jax.shard_map`` of a kernel over
+    ``batch_axis`` (``tabcorr_tpu/ops/fused.py:1009-1020, 1403-1410,
+    1971-1978``), with one process per GPU.  Every rank holds the same
+    global batch and the tables whole; the wrapper cuts the rank's rows of
+    the parameters and of any per-row tensor (None passes through) by
+    :func:`~tabcorr_tpu_torch.parallel.mesh.batch_sharding` and calls
+    ``fn`` on them, so each rank launches its kernel on its own rows and
+    returns them, with no collective.  ``fn`` itself for ``mesh=None``."""
+    if mesh is None:
+        return fn
+    from ..parallel.mesh import batch_sharding
+
+    def on_rank_rows(params, *per_row):
+        batch = next(iter(params.values())).shape[0]
+        rows = batch_sharding(mesh, batch, batch_axis)
+        return fn({k: v[rows] for k, v in params.items()},
+                  *(None if x is None else x[rows] for x in per_row))
+
+    return on_rank_rows
+
+
+def make_fused_bundle_predictor(tables, model, accuracy=None, mesh=None,
+                                batch_axis="dp"):
     """One-kernel multi-statistic predictor.
 
     Parameters
@@ -777,6 +801,10 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
         run at full float32 precision, which meets the stricter of the two:
         at the bundle's shapes a 3xTF32 tensor-core contraction was slower
         and less exact than the FP32 one.
+    mesh : DeviceMesh, optional
+        Split the batch over ``batch_axis`` (:func:`rank_rows`): ``f``
+        takes the global batch and returns this rank's rows, one launch a
+        call and no collective.
 
     Returns
     -------
@@ -825,7 +853,7 @@ def make_fused_bundle_predictor(tables, model, accuracy=None):
             results = bundle_launch(consts, _param_matrix(params, hod), hod)
         return refuse_gradient(shaped(tables, results), params)
 
-    return predict_batch
+    return rank_rows(predict_batch, mesh, batch_axis)
 
 
 def _check_params_device(params, device):
@@ -2252,7 +2280,8 @@ def grid_constants(table: TableData, n_nodes, layout, accuracy,
 
 def make_fused_grid_predictor(table: TableData, n_nodes, model,
                               accuracy="elementwise", layout="auto",
-                              fold_spline=False):
+                              fold_spline=False, mesh=None,
+                              batch_axis="dp"):
     """Predictor over a stacked Interpolator grid of one halo binning.
 
     Parameters
@@ -2279,6 +2308,10 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
         n_nodes))`` and returns ``(ngal (B,), xi (B, n_xi))``, the nodes
         reduced by the weights inside the kernel.  False: ``f(params) ->
         (ngal, xi (B, n_nodes, n_xi))``.
+    mesh : DeviceMesh, optional
+        Split the batch over ``batch_axis`` (:func:`rank_rows`): ``f``
+        takes the global batch (and node weights) and returns this rank's
+        rows, one launch a call and no collective.
     """
     check_accuracy([accuracy], 1)
     if layout == "auto":
@@ -2314,7 +2347,9 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
                     consts, occupation_density(table, model, params))
             return slab_predict_plain(consts, params, occ_cen, occ_sat)
 
-        return lambda params: refuse_gradient(slab_outputs(params), params)
+        return rank_rows(
+            lambda params: refuse_gradient(slab_outputs(params), params),
+            mesh, batch_axis)
 
     def outputs(params, node_weights):
         _check_params_device(params, device)
@@ -2332,5 +2367,5 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
                                node_weights)
 
     if fold_spline:
-        return run
-    return lambda params: run(params, None)
+        return rank_rows(run, mesh, batch_axis)
+    return rank_rows(lambda params: run(params, None), mesh, batch_axis)

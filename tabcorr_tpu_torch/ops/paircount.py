@@ -32,7 +32,9 @@ separations, and only a pair within one float32 ulp of a bin edge can
 classify differently from a float64 counter (tabcorr_tpu measured ~1
 unordered pair per 10^6.5).  Accumulation is exact: int64 counts, float64
 sums of float32 pair weights (no TwoSum: the 1e-8 relative contract of
-tabcorr_tpu's ``paircount.py:24-40`` is met by float64 sums).
+tabcorr_tpu's ``paircount.py:24-40`` is met by float64 sums).  A sweep
+sharded over a mesh (``labeled_pair_count(mesh=)``) counts each rank's
+block of j-tracers and sums the ranks' histograms in one all-reduce.
 
 The halotools-signature statistics (``wp``, ``s_mu_tpcf``, ``tpcf``,
 ``mean_delta_sigma``; reference: tabcorr/corrfunc.py) close the counts
@@ -47,6 +49,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils.build import load_library
 from ..utils.device import resolve_device
@@ -81,6 +84,10 @@ class Sweep:
     ``mu_edges``: float32 (smu; else ``[0, 0]``).  ``z_cut``: the
     line-of-sight window (pi_max for rppi, the largest s for smu), or None
     where the sweep has none (proj, or ``2 * z_cut >= period_z``).
+    ``j_range``: (start, stop), the j-tracers this sweep pairs the
+    i-tracers with -- one rank's block of a sharded sweep, whose tracers
+    keep their index in the whole j-side (the self-pair test of auto mode
+    compares them with the i-tracers') -- or None for every j-tracer.
     """
 
     pos1: torch.Tensor
@@ -97,6 +104,7 @@ class Sweep:
     pi_max: float
     pair_weight: str
     z_cut: float | None
+    j_range: tuple | None = None
 
     @property
     def auto(self):
@@ -131,13 +139,22 @@ class Sweep:
     def device(self):
         return self.pos1.device
 
+    @property
+    def j_first(self):
+        """The index of the sweep's first j-tracer in the whole j-side."""
+        return 0 if self.j_range is None else self.j_range[0]
+
     def j_side(self):
-        """(pos2, labels2, weights2 or ones) of the j-tracers."""
+        """(pos2, labels2, weights2 or ones) of the j-tracers the sweep
+        pairs with (those of ``j_range``)."""
         pos = self.pos1 if self.auto else self.pos2
         labels = self.labels1 if self.auto else self.labels2
         w = (torch.ones(len(pos), dtype=torch.float32, device=pos.device)
              if self.weights2 is None else self.weights2)
-        return pos, labels, w
+        if self.j_range is None:
+            return pos, labels, w
+        js = slice(*self.j_range)
+        return pos[js], labels[js], w[js]
 
 
 def check_sweep(sweep: Sweep):
@@ -175,6 +192,9 @@ def check_sweep(sweep: Sweep):
     if w is not None and (w.shape != (n2,) or w.dtype != torch.float32 or
                           w.device != device):
         raise ValueError(f"weights2 must be ({n2},) float32 on {device}.")
+    if sweep.j_range is not None and not (
+            0 <= sweep.j_range[0] <= sweep.j_range[1] <= n2):
+        raise ValueError(f"j_range {sweep.j_range} must lie in [0, {n2}].")
 
 
 # ----------------------------------------------------------------------
@@ -204,8 +224,14 @@ def labeled_pair_count(pos1, labels1, n_labels_1, pos2=None, labels2=None,
     progress : report the sweep's steps (tqdm, else plain lines on
         stderr): one a launch on the card, one an i-chunk window on the
         plain version.
-    mesh : the mesh-sharded sweep is not ported (multi-GPU, ROADMAP
-        Queue A).
+    mesh : DeviceMesh, optional
+        Shard the sweep over the mesh's first dimension
+        (:mod:`tabcorr_tpu_torch.parallel`; tabcorr_tpu's
+        ``_sweep_block_sharded``): every rank of the world calls with the
+        same tracers, counts the i-tracers against its contiguous block of
+        the j-tracers (:func:`shard_sweep`), and one all-reduce over that
+        dimension sums the histograms (int64 unit counts, else float64),
+        so every rank returns the whole counts.
     strategy : None (default: the CUDA kernel or its plain version, by
         ``device``) or 'native': the host C++ counter
         (:mod:`tabcorr_tpu_torch.native`, float64 geometry, uniform mu
@@ -225,14 +251,13 @@ def labeled_pair_count(pos1, labels1, n_labels_1, pos2=None, labels2=None,
     counts : (n_labels_1, n_labels_2, n_r[, n_mu]) float64 array, with a
         leading channel axis of size 2 for 'unit+log_rp'.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded sweep is not ported: multi-GPU, ROADMAP "
-            "Queue A.")
     if strategy not in (None, "native"):
         raise ValueError(f"Unknown strategy {strategy!r}; use None (the "
                          "device given by device=) or 'native'.")
     if strategy == "native":
+        if mesh is not None:
+            raise ValueError("strategy='native' counts on one host and "
+                             "takes no mesh.")
         if device is None or torch.device(device).type != "cpu":
             raise ValueError("strategy='native' counts on the host: pass "
                              "device='cpu'.")
@@ -296,13 +321,31 @@ def labeled_pair_count(pos1, labels1, n_labels_1, pos2=None, labels2=None,
         mu_edges=mu_edges.astype(np.float32),
         pi_max=float(np.float32(pi_max if pi_max is not None else 0.0)),
         pair_weight=pair_weight, z_cut=z_cut)
-    hist = paircount(sweep, progress=progress)
+    if mesh is None:
+        hist = paircount(sweep, progress=progress)
+    else:
+        hist = paircount(shard_sweep(sweep, mesh), progress=progress)
+        dist.all_reduce(hist, group=mesh.get_group(0))
     counts = hist.cpu().numpy().astype(np.float64) * weight_scale
     shape = (n_labels_1, n_labels_2, n_r) if kind != "smu" else \
         (n_labels_1, n_labels_2, n_r, n_mu)
     if sweep.n_channels == 2:
         return counts.reshape((2,) + shape)
     return counts.reshape(shape)
+
+
+def shard_sweep(sweep: Sweep, mesh) -> Sweep:
+    """This rank's share of ``sweep`` over the first dimension of
+    ``mesh``: the j-tracers cut into that dimension's size of contiguous
+    blocks (``ceil(N2 / n)`` each, the last ones shorter or empty), the
+    rank's block as ``j_range``.  The blocks' histograms sum to the
+    sweep's."""
+    n = mesh.size(0)
+    rank = mesh.get_local_rank(0)
+    n2 = len(sweep.pos1 if sweep.auto else sweep.pos2)
+    block = -(-n2 // n)
+    return dataclasses.replace(sweep, j_range=(
+        min(rank * block, n2), min((rank + 1) * block, n2)))
 
 
 def paircount(sweep: Sweep, progress=False) -> torch.Tensor:
@@ -458,7 +501,7 @@ def paircount_plain(sweep: Sweep, progress=False) -> torch.Tensor:
     pos1, lab1 = sweep.pos1[keep1], sweep.labels1[keep1]
     idx1 = torch.nonzero(keep1).flatten()
     pos2, lab2, w2 = pos2[keep2], lab2[keep2], w2[keep2]
-    idx2 = torch.nonzero(keep2).flatten()
+    idx2 = torch.nonzero(keep2).flatten() + sweep.j_first
     if not sweep.auto:
         idx2 = torch.full_like(idx2, -1)
     n1, n2 = len(pos1), len(pos2)
@@ -671,10 +714,11 @@ def bucket_layout(sweep: Sweep) -> PairLayout:
                          dtype=torch.float32, device=dev)
     last = torch.tensor([n_x - 1, n_y - 1], device=dev)
 
-    def side(pos, labels, weights, label_key):
-        """Drop labels below 0; sort by (label_key * n_cells + cell, z)."""
+    def side(pos, labels, weights, label_key, first=0):
+        """Drop labels below 0; sort by (label_key * n_cells + cell, z);
+        tracer indices count from ``first``."""
         keep = labels >= 0
-        index = torch.nonzero(keep).flatten()
+        index = torch.nonzero(keep).flatten() + first
         pos, labels = pos[keep], labels[keep].long()
         cxy = torch.minimum(torch.floor(pos[:, :2] * scale).long(), last)
         key = label_key(labels) * n_cells + cxy[:, 0] * n_y + cxy[:, 1]
@@ -686,7 +730,8 @@ def bucket_layout(sweep: Sweep) -> PairLayout:
                 key[order])
 
     pos2, labels2, w2 = sweep.j_side()
-    pos2, _, index2, key2 = side(pos2, labels2, w2, lambda lab: lab)
+    pos2, _, index2, key2 = side(pos2, labels2, w2, lambda lab: lab,
+                                 sweep.j_first)
     columns = _starts(key2, n_l2 * n_cells)
     pos1, labels1, index1, key1 = side(sweep.pos1, sweep.labels1, None,
                                        lambda lab: lab // rows)

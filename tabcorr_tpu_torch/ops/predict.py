@@ -192,6 +192,16 @@ def predict_from_occupation(table: TableData, mean_occ):
     return total, xi
 
 
+def predict(table: TableData, occupation_cen, occupation_sat, params,
+            separate_gal_type=False):
+    """The whole pipeline in tensor ops: mean occupation, then the
+    contraction (``(ngal, xi)``, or the per-galaxy-type dicts)."""
+    mean_occ = mean_occupation(table, occupation_cen, occupation_sat, params)
+    if separate_gal_type:
+        return predict_from_occupation_separate(table, mean_occ)
+    return predict_from_occupation(table, mean_occ)
+
+
 def predict_from_occupation_separate(table: TableData, mean_occ):
     """Per-galaxy-type decomposition (reference: tabcorr/tabcorr.py:652-683).
 

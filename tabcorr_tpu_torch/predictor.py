@@ -254,7 +254,8 @@ def grid_node_weights(interp, params, extrapolate=False):
 
 
 def _interpolator_fused_predict_fn(interp, model, n_gauss, extrapolate,
-                                   accuracy, device):
+                                   accuracy, device, mesh=None,
+                                   batch_axis="dp"):
     """The fused engine for an Interpolator whose nodes share one halo
     binning.  Packed layout (:func:`~.ops.fused.grid_layout_for`): one
     grid kernel per call evaluates the occupation, every node's
@@ -262,7 +263,9 @@ def _interpolator_fused_predict_fn(interp, model, n_gauss, extrapolate,
     weights).  Slab layout: one slab kernel per call gives every node's
     statistics, then the grid spline runs in tensor ops (reference route:
     tabcorr_tpu/predictor.py:322-346).  Samples outside the grid get NaN
-    ngal and xi, as the plain engine's splined ngal does."""
+    ngal and xi, as the plain engine's splined ngal does.  With a
+    ``mesh``, each rank takes its rows of the global batch (node weights,
+    kernel and spline alike; ``ops.fused.rank_rows``)."""
     stacked, n_nodes, tpcf_shape = stacked_grid(interp, n_gauss,
                                                 device=device)
     keys, xp_dev, a_dev = _spline_constants(interp, torch.float32, device)
@@ -281,7 +284,7 @@ def _interpolator_fused_predict_fn(interp, model, n_gauss, extrapolate,
             total = torch.where(torch.isnan(xi.sum(dim=-1)), torch.nan, total)
             return total, xi.reshape((batch,) + tuple(tpcf_shape))
 
-        return predict_slab
+        return fused.rank_rows(predict_slab, mesh, batch_axis)
 
     node_fn = fused.make_fused_grid_predictor(
         stacked, n_nodes, model, accuracy=accuracy, fold_spline=True)
@@ -296,7 +299,7 @@ def _interpolator_fused_predict_fn(interp, model, n_gauss, extrapolate,
         total = torch.where(torch.isnan(nw.sum(dim=-1)), torch.nan, total)
         return total, xi.reshape((batch,) + tuple(tpcf_shape))
 
-    return predict_batch
+    return fused.rank_rows(predict_batch, mesh, batch_axis)
 
 
 def _interpolator_bf16_predict_fn(obj, model, n_gauss, extrapolate,
@@ -383,8 +386,8 @@ def _unbatched(predict, dtype, device):
 
 def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
                    separate_gal_type=False, vectorized=True, engine="auto",
-                   extrapolate=False, accuracy="elementwise", *,
-                   device="cuda"):
+                   extrapolate=False, accuracy="elementwise", mesh=None,
+                   batch_axis="dp", *, device="cuda"):
     """Batched predictor for a tabulation or an interpolator.
 
     Parameters
@@ -425,6 +428,15 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
         kernel (``ops.fused.grid_kernel_for``); the packed grid kernel
         contracts in float64 and a TabCorr's contraction kernel in full
         float32, under both contracts.
+    mesh : DeviceMesh, optional
+        The float32 fused Interpolator path only: split the batch over
+        ``batch_axis`` of a mesh (:mod:`tabcorr_tpu_torch.parallel`); ``f``
+        takes the global batch, the same on every rank, and returns this
+        rank's rows, one kernel launch a call and no collective.  For a
+        TabCorr use :func:`make_multi_predictor` (``mesh=``) or
+        ``parallel.make_sharded_predict`` (dp x tp).
+    batch_axis : str, optional
+        The mesh dimension the batch is split over (default 'dp').
     device : str or torch.device, optional
         Where the tables live and the batch runs: 'cuda' (default) or
         'cpu'.
@@ -445,6 +457,14 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
     if engine == "auto":
         engine = _auto_engine(obj, model, dtype, separate_gal_type, device,
                               vectorized)
+    if mesh is not None:
+        if not isinstance(obj, Interpolator):
+            raise ValueError(
+                "mesh is supported on the fused Interpolator path; for a "
+                "TabCorr use make_multi_predictor(..., mesh=...).")
+        if engine != "fused" or dtype != torch.float32:
+            raise ValueError("mesh requires the float32 fused Interpolator "
+                             "path (engine='fused', dtype=torch.float32).")
     if engine == "fused":
         if not fused_eligible:
             raise ValueError(
@@ -459,7 +479,7 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
         if isinstance(obj, Interpolator):
             return _interpolator_fused_predict_fn(obj, model, n_gauss,
                                                   extrapolate, accuracy,
-                                                  device)
+                                                  device, mesh, batch_axis)
         table = obj.table_data(n_gauss=n_gauss, dtype=dtype, device=device)
         return fused.make_fused_predictor(table, model, accuracy)
     if isinstance(obj, Interpolator):
@@ -496,7 +516,8 @@ def multi_engine_for(objs, model, dtype, device):
 
 
 def make_multi_predictor(objs, model, n_gauss=10, dtype=torch.float32, *,
-                         device="cuda", engine="bundle", accuracy=None):
+                         device="cuda", engine="bundle", accuracy=None,
+                         mesh=None, batch_axis="dp"):
     """Joint predictor over several tabulations (e.g. wp + xi_0/2/4 + ds).
 
     Parameters
@@ -529,6 +550,14 @@ def make_multi_predictor(objs, model, n_gauss=10, dtype=torch.float32, *,
     accuracy : sequence of str, optional
         One contract per member, 'elementwise' (default) or 'scaled'
         (see :func:`make_predictor`).
+    mesh : DeviceMesh, optional
+        Split the batch over ``batch_axis`` of a mesh
+        (:mod:`tabcorr_tpu_torch.parallel`) under every engine: ``f`` takes
+        the global batch, the same on every rank, and returns this rank's
+        rows, with no collective (the bundle: one launch a call on the
+        rank's rows, tables whole on every rank).
+    batch_axis : str, optional
+        The mesh dimension the batch is split over (default 'dp').
 
     Returns
     -------
@@ -546,7 +575,8 @@ def make_multi_predictor(objs, model, n_gauss=10, dtype=torch.float32, *,
         fns = [make_predictor(obj, model, n_gauss, dtype, engine="auto",
                               accuracy=acc, device=device)
                for obj, acc in zip(objs, accuracy)]
-        return lambda params: [fn(params) for fn in fns]
+        return fused.rank_rows(lambda params: [fn(params) for fn in fns],
+                               mesh, batch_axis)
     if not _float32_tabcorrs(objs, dtype):
         raise ValueError(
             f"engine={engine!r} requires float32 and TabCorr members; "
@@ -554,7 +584,8 @@ def make_multi_predictor(objs, model, n_gauss=10, dtype=torch.float32, *,
     tables = [obj.table_data(n_gauss=n_gauss, dtype=torch.float32,
                              device=device) for obj in objs]
     if engine == "bundle":
-        return fused.make_fused_bundle_predictor(tables, model, accuracy)
+        return fused.make_fused_bundle_predictor(tables, model, accuracy,
+                                                 mesh, batch_axis)
     consts = [fused.bundle_table_constants(t) for t in tables]
     occ_cen, occ_sat = occupation_functions(model)
 
@@ -562,7 +593,7 @@ def make_multi_predictor(objs, model, n_gauss=10, dtype=torch.float32, *,
         return fused.shaped(consts, fused.bundle_predict_plain(
             consts, params, occ_cen, occ_sat))
 
-    return predict_plain
+    return fused.rank_rows(predict_plain, mesh, batch_axis)
 
 
 def make_occupation_predictor(obj, dtype=torch.float32,

@@ -21,7 +21,8 @@ from .io import ColumnTable, read_attrs
 from .models.protocol import CENTRALS
 from .ops.predict import AUTO, TableData, quadrature_grid
 from .utils.device import check_dtype, host_tensor, resolve_device
-from .utils.packing import array_to_symmetric_matrix
+from .utils.packing import (array_to_symmetric_matrix, packed_index_arrays,
+                            symmetric_matrix_to_array)
 
 
 # The reference schema's attributes, in its order (tabcorr/tabcorr.py:
@@ -309,8 +310,10 @@ class TabCorr:
     # ------------------------------------------------------------------
     # Float64 host path (the reference's math; the accuracy oracle)
     # ------------------------------------------------------------------
-    def mean_occupation(self, model, n_gauss_prim=10, check_consistency=True):
-        """Mean occupation per bin (reference: tabcorr/tabcorr.py:465-578)."""
+    def mean_occupation(self, model, n_gauss_prim=10, check_consistency=True,
+                        **occ_kwargs):
+        """Mean occupation per bin (reference: tabcorr/tabcorr.py:465-578);
+        ``occ_kwargs`` go to the model's occupation methods."""
         if check_consistency:
             self._check_consistency(model)
         log_quad, weight = self._quadrature(n_gauss_prim)
@@ -321,12 +324,12 @@ class TabCorr:
         occ = np.empty_like(prim)
         occ[:n_cen] = model.mean_occupation_centrals(
             prim_haloprop=prim[:n_cen].ravel(),
-            sec_haloprop_percentile=sec[:n_cen].ravel()
-        ).reshape(prim[:n_cen].shape)
+            sec_haloprop_percentile=sec[:n_cen].ravel(),
+            **occ_kwargs).reshape(prim[:n_cen].shape)
         occ[n_cen:] = model.mean_occupation_satellites(
             prim_haloprop=prim[n_cen:].ravel(),
-            sec_haloprop_percentile=sec[n_cen:].ravel()
-        ).reshape(prim[n_cen:].shape)
+            sec_haloprop_percentile=sec[n_cen:].ravel(),
+            **occ_kwargs).reshape(prim[n_cen:].shape)
         return np.sum(weight * occ, axis=-1)
 
     def _check_consistency(self, model):
@@ -348,19 +351,20 @@ class TabCorr:
                              "the TabCorr instance.")
 
     def predict(self, model, separate_gal_type=False, n_gauss_prim=10,
-                check_consistency=True):
+                check_consistency=True, **occ_kwargs):
         """(ngal, xi) for a model in float64 (reference: tabcorr.py:580-683).
 
         ``model`` may also be a raw mean-occupation ``ndarray`` per bin
         (the Interpolator's route, reference: tabcorr.py:616-621).  With
         ``separate_gal_type`` both come back as per-galaxy-type dicts.
+        ``occ_kwargs`` go to the model's occupation methods.
         """
         if isinstance(model, np.ndarray):
             mean_occ = model
         else:
             mean_occ = self.mean_occupation(
                 model, n_gauss_prim=n_gauss_prim,
-                check_consistency=check_consistency)
+                check_consistency=check_consistency, **occ_kwargs)
         ngal = mean_occ * np.asarray(self.gal_type["n_h"], dtype=np.float64)
         total = np.sum(ngal)
         dense = self.dense_matrix()
@@ -399,3 +403,12 @@ class TabCorr:
         return (f"TabCorr(tpcf={self.attrs.get('tpcf')}, mode="
                 f"{self.attrs.get('mode')}, n_bins={self.n_bins}, "
                 f"tpcf_shape={self.tpcf_shape})")
+
+
+def pack_symmetric(matrix):
+    """The row-wise lower triangle of a symmetric matrix, in the
+    reference's packing order (tabcorr/tabcorr.py:770-806)."""
+    return symmetric_matrix_to_array(matrix)
+
+
+__all__ = ["TabCorr", "pack_symmetric", "packed_index_arrays"]

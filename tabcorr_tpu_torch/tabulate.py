@@ -202,9 +202,10 @@ class _FastPath:
     """Per-statistic estimator over the labeled count tensor."""
 
     def __init__(self, tpcf_name, tpcf_args, tpcf_kwargs, device="cuda",
-                 backend="device"):
+                 backend="device", mesh=None):
         self.name = tpcf_name
         self.device = device
+        self.mesh = mesh
         # 'device': the CUDA pair counter or its plain version, by device;
         # 'native': the host C++ counter (tabcorr_tpu_torch.native).
         self.strategy = {"device": None, "native": "native"}[backend]
@@ -235,7 +236,8 @@ class _FastPath:
 
     def _count(self, *args, **kwargs):
         return paircount.labeled_pair_count(
-            *args, **kwargs, strategy=self.strategy, device=self.device)
+            *args, **kwargs, strategy=self.strategy, device=self.device,
+            mesh=self.mesh)
 
     def matrix_auto(self, pos, labels, n_bins, period, progress=False):
         """Dense (n_xi, n_bins, n_bins) matrix from one labeled sweep."""
@@ -363,13 +365,14 @@ def tabulate(cls, halocat, tpcf, *tpcf_args, mode="auto",
     plain version).  ``backend='native'`` counts the fast path's pairs
     with the host C++ counter (:mod:`tabcorr_tpu_torch.native`, float64
     geometry) and takes ``device='cpu'`` only.  ``verbose`` prints the
-    tracer count and reports the sweeps' progress.  Not ported: ``mesh=``
-    (the mesh-sharded sweep), which raises.
+    tracer count and reports the sweeps' progress.  ``mesh`` shards every
+    pair-count sweep of the fast path over a mesh's first dimension
+    (``ops.paircount.labeled_pair_count(mesh=)``): every rank of the world
+    calls with the same catalog and seed and gets the same table.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "tabulate(mesh=...): the mesh-sharded sweep is not ported "
-            "(multi-GPU, ROADMAP Queue A).")
+    if mesh is not None and backend == "native":
+        raise ValueError("backend='native' counts on one host and takes no "
+                         "mesh.")
     if backend not in ("device", "native"):
         raise ValueError(f"Unknown backend {backend!r}; use 'device' or "
                          "'native'.")
@@ -387,6 +390,9 @@ def tabulate(cls, halocat, tpcf, *tpcf_args, mode="auto",
 
     tpcf_name = tpcf if isinstance(tpcf, str) else tpcf.__name__
     fast = tpcf_name in _FAST_TPCFS
+    if mesh is not None and not fast:
+        raise ValueError(f"mesh shards the fast path's sweeps; {tpcf_name} "
+                         "runs on the generic path.")
     rng = np.random.default_rng(seed)
 
     halotab = cls()
@@ -507,7 +513,8 @@ def tabulate(cls, halocat, tpcf, *tpcf_args, mode="auto",
     labels = labels_full[keep]
 
     fast_path = _FastPath(tpcf_name, tpcf_args, tpcf_kwargs,
-                          device=device, backend=backend) if fast else None
+                          device=device, backend=backend,
+                          mesh=mesh) if fast else None
     tpcf_matrix = None
     period = halocat.Lbox * lbox_stretch
 

@@ -53,3 +53,10 @@ def array_to_symmetric_matrix(packed: np.ndarray) -> np.ndarray:
     out[..., idx_i, idx_j] = packed
     out[..., idx_j, idx_i] = packed
     return out
+
+
+def packed_prefactor(n: int) -> np.ndarray:
+    """Multiplicity (2 - delta_ij) of each packed entry (diagonal 1,
+    off-diagonal 2)."""
+    idx_i, idx_j = packed_index_arrays(n)
+    return np.where(idx_i == idx_j, 1.0, 2.0)

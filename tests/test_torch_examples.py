@@ -1,6 +1,6 @@
 """The port's deterministic examples (examples/torch_example_{wp,ds,
-fisher,nonparametric}.py) run through ``run(device="cpu", ...)`` at
-reduced sizes and held against the same quantities computed here with
+fisher,nonparametric,multichip}.py) run through ``run(device="cpu",
+...)`` at reduced sizes (the multi-GPU example in a world of 2 gloo ranks) and held against the same quantities computed here with
 tabcorr_tpu's functions at the same inputs (the JAX example scripts plot
 and run at import, so they are not run); each ``plot`` draws into
 ``tmp_path``.  test_torch_examples_samplers.py holds the two samplers'
@@ -35,6 +35,7 @@ sys.path.insert(0, str(Path(__file__).absolute().parents[1] / "examples"))
 
 import torch_example_ds  # noqa: E402
 import torch_example_fisher  # noqa: E402
+import torch_example_multichip  # noqa: E402
 import torch_example_nonparametric  # noqa: E402
 import torch_example_wp  # noqa: E402
 
@@ -173,3 +174,31 @@ def test_nonparametric_example(tmp_path):
     assert got["losses"][-1] < got["losses"][0]
     torch_example_nonparametric.plot(got, tmp_path)
     assert (tmp_path / "nonparametric_fit.png").exists()
+
+
+def test_multichip_example():
+    # Two gloo ranks: the dp-sharded bundle predictor (its plain version
+    # on the CPU) and an ensemble whose log posterior gathers over dp.
+    ranks = torch_example_multichip.run(device="cpu", n_ranks=2,
+                                        batch_per_rank=8,
+                                        walkers_per_rank=16, n_steps=5)
+    first = ranks[0]
+    assert len(ranks) == 2 and first["n_ranks"] == 2
+    assert first["rows"] == 8 and first["launches"] == 0
+    assert first["wp"].shape == (16, 19)
+    # Every rank holds the same ensemble and the same gathered batch.
+    for r in ranks[1:]:
+        for key in ("walkers", "log_prob", "ngal", "wp"):
+            np.testing.assert_array_equal(r[key], first[key])
+        assert r["accept"] == first["accept"]
+    assert np.all(np.isfinite(first["log_prob"]))
+    assert 0.0 < first["accept"] <= 1.0
+    halotab = tt.TabCorr.read(WP)
+    model = tt.Zheng07Model(threshold=-18,
+                            redshift=halotab.attrs["redshift"])
+    f = make_predictor(halotab, model, dtype=jnp.float32, engine="xla")
+    ngal, wp = f({k: jnp.asarray(v) for k, v in first["params"].items()})
+    np.testing.assert_allclose(first["ngal"], np.asarray(ngal), rtol=2e-6)
+    wp = np.asarray(wp, np.float64)
+    assert np.max(np.abs(first["wp"] - wp)) <= 2e-6 * np.max(np.abs(wp))
+

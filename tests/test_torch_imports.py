@@ -18,7 +18,8 @@ PORT_FILES = sorted((ROOT / "tabcorr_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_parse_snapshot.py",
     ROOT / "scripts" / "torch_tabulate_snapshot.py"] + sorted(
     (ROOT / "examples").glob("torch_example_*.py"))
-EXAMPLES = ("wp", "ds", "mcmc", "fisher", "shmr_fit", "nonparametric")
+EXAMPLES = ("wp", "ds", "mcmc", "fisher", "shmr_fit", "nonparametric",
+            "multichip")
 
 
 def _imported_modules(path):
@@ -53,7 +54,8 @@ def test_scan_sees_the_whole_package():
             "tabulate.py", "mock.py", "halocat.py", "cosmology.py",
             "database.py", "corrfunc.py", "native.py", "progress.py",
             "torch_parse_snapshot.py", "torch_tabulate_snapshot.py",
-            "profiling.py", "device.py"} | {
+            "profiling.py", "device.py", "mesh.py", "shard.py",
+            "dryrun.py"} | {
                 f"torch_example_{e}.py" for e in EXAMPLES} <= names
 
 
@@ -81,6 +83,8 @@ def test_port_imports_with_jax_blocked():
             "import tabcorr_tpu_torch.database, tabcorr_tpu_torch.corrfunc\n"
             "import tabcorr_tpu_torch.native\n"
             "import tabcorr_tpu_torch.utils.profiling\n"
+            "import tabcorr_tpu_torch.parallel\n"
+            "import tabcorr_tpu_torch.parallel.dryrun\n"
             "sys.path.insert(0, 'scripts')\n"
             "import torch_parse_snapshot, torch_tabulate_snapshot\n"
             "sys.path.insert(0, 'examples')\n"

@@ -694,9 +694,12 @@ def test_refusals():
     with pytest.raises(ValueError, match="kind"):
         pc.labeled_pair_count(p, labels, 3, kind="xyz", r_edges=R_EDGES,
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # mesh= shards the sweep (test_torch_parallel_sweep.py); the host
+    # counter takes none.
+    with pytest.raises(ValueError, match="takes no mesh"):
         pc.labeled_pair_count(p, labels, 3, r_edges=R_EDGES, pi_max=5.0,
-                              mesh=object(), device="cpu")
+                              mesh=object(), strategy="native",
+                              device="cpu")
     with pytest.raises(ValueError, match="explicitly"):
         pc.labeled_pair_count(p, labels, 3, r_edges=R_EDGES, pi_max=5.0,
                               device=None)

@@ -305,6 +305,11 @@ def test_database_read_and_helpers():
 
 def test_unported_options_raise():
     _, cat_t = _catalogs()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # mesh= shards the fast path's sweeps (test_torch_parallel_sweep.py);
+    # the host counter and the generic path take none.
+    with pytest.raises(ValueError, match="takes no mesh"):
         tp.TabCorr.tabulate(cat_t, "wp", BINS, 20.0, mesh=object(),
-                            device="cpu")
+                            backend="native", device="cpu")
+    with pytest.raises(ValueError, match="generic path"):
+        tp.TabCorr.tabulate(cat_t, lambda *a, **k: None, BINS, 20.0,
+                            mesh=object(), device="cpu")
