@@ -43,6 +43,13 @@ so the process-wide ``torch.backends.cuda.matmul.allow_tf32`` is neither
 read nor set).  For float32 ``theta`` the residual is taken against the
 data rounded to float32, for float64 ``theta`` against the caller's
 float64 data; both forms are made once, when the posterior is built.
+
+While a ``torch.profiler`` session records, :func:`ensemble_step` is a
+``sampler.step`` span, a call of :func:`make_gaussian_logpost_batched`'s
+posterior a ``logpost`` span with the base parameters' copies in a
+``logpost.params`` span inside it (``syncs``: the copies that wait for the
+stream), and each of NUTS's host reads of its leaf loop a
+``mcmc.nuts_leaf_read`` span (:mod:`.utils.profiling`).
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import math
 import numpy as np
 import torch
 
+from .utils import profiling
 from .utils.device import resolve_device
 
 
@@ -103,23 +111,24 @@ def ensemble_step(generator, walkers, log_prob, log_prob_fn, a=2.0,
     -------
     (walkers, log_prob, accept_fraction)
     """
-    n = walkers.shape[0] // 2
-    first, second = walkers[:n], walkers[n:]
-    lp_first, lp_second = log_prob[:n], log_prob[n:]
+    with profiling.span("sampler.step"):
+        n = walkers.shape[0] // 2
+        first, second = walkers[:n], walkers[n:]
+        lp_first, lp_second = log_prob[:n], log_prob[n:]
 
-    def draws(n_active, n_passive):
-        return _stretch_draws(generator, n_active, n_passive, walkers.dtype,
-                              walkers.device)
+        def draws(n_active, n_passive):
+            return _stretch_draws(generator, n_active, n_passive,
+                                  walkers.dtype, walkers.device)
 
-    first, lp_first, acc_1 = _stretch_half(
-        draws(first.shape[0], second.shape[0]), first, second, lp_first,
-        log_prob_fn, a, vectorized)
-    second, lp_second, acc_2 = _stretch_half(
-        draws(second.shape[0], first.shape[0]), second, first, lp_second,
-        log_prob_fn, a, vectorized)
-    accept = torch.cat([acc_1, acc_2]).to(walkers.dtype).mean()
-    return (torch.cat([first, second]), torch.cat([lp_first, lp_second]),
-            accept)
+        first, lp_first, acc_1 = _stretch_half(
+            draws(first.shape[0], second.shape[0]), first, second, lp_first,
+            log_prob_fn, a, vectorized)
+        second, lp_second, acc_2 = _stretch_half(
+            draws(second.shape[0], first.shape[0]), second, first, lp_second,
+            log_prob_fn, a, vectorized)
+        accept = torch.cat([acc_1, acc_2]).to(walkers.dtype).mean()
+        return (torch.cat([first, second]), torch.cat([lp_first, lp_second]),
+                accept)
 
 
 def run_ensemble(generator, log_prob_fn, walkers0, n_steps, a=2.0, thin=1,
@@ -168,6 +177,16 @@ def _chi2(xi, pair, dtype):
     return torch.sum((resid @ inv_cov) * resid, dim=-1).to(dtype)
 
 
+def _blocking_copies(values, device):
+    """How many of ``values`` ``torch.as_tensor(v, device=device)`` copies
+    from the host to a CUDA ``device``: each such copy, from pageable
+    memory, waits for the stream to drain."""
+    if device.type != "cuda":
+        return 0
+    return sum(1 for v in values.values()
+               if not (torch.is_tensor(v) and v.device == device))
+
+
 def make_gaussian_logpost_batched(predict_all, param_names, base_params,
                                   data_list, inv_cov_list, bounds=None,
                                   ngal_data=None, ngal_sigma=None, *,
@@ -190,33 +209,40 @@ def make_gaussian_logpost_batched(predict_all, param_names, base_params,
     names = tuple(param_names)
 
     def log_prob(theta):
-        batch = theta.shape[0]
-        params = {k: torch.as_tensor(v, dtype=theta.dtype,
-                                     device=theta.device).expand(batch)
-                  for k, v in base_params.items()}
-        for i, name in enumerate(names):
-            params[name] = theta[:, i]
-        results = predict_all(params)
-        if len(results) != len(pairs):
-            raise ValueError(
-                f"predict_all returned {len(results)} statistics but "
-                f"{len(pairs)} data vectors were given.")
-        logp = torch.zeros(batch, dtype=theta.dtype, device=theta.device)
-        for (_, xi), pair in zip(results, pairs):
-            logp = logp - 0.5 * _chi2(xi.reshape(batch, -1), pair,
-                                      theta.dtype)
-        if ngal_data is not None:
-            ngal0 = results[0][0]
-            logp = logp - 0.5 * ((ngal0 - ngal_data) / ngal_sigma) ** 2
-        logp = torch.where(torch.isfinite(logp), logp, -torch.inf)
-        if bounds is not None:
-            inside = torch.ones(batch, dtype=torch.bool, device=theta.device)
+        with profiling.span("logpost"):
+            batch = theta.shape[0]
+            with profiling.span("logpost.params") as sp:
+                params = {k: torch.as_tensor(v, dtype=theta.dtype,
+                                             device=theta.device).expand(batch)
+                          for k, v in base_params.items()}
+                if sp:
+                    sp.counts["syncs"] = _blocking_copies(base_params,
+                                                          theta.device)
             for i, name in enumerate(names):
-                if name in bounds:
-                    lo, hi = bounds[name]
-                    inside = inside & (theta[:, i] > lo) & (theta[:, i] < hi)
-            logp = torch.where(inside, logp, -torch.inf)
-        return logp
+                params[name] = theta[:, i]
+            results = predict_all(params)
+            if len(results) != len(pairs):
+                raise ValueError(
+                    f"predict_all returned {len(results)} statistics but "
+                    f"{len(pairs)} data vectors were given.")
+            logp = torch.zeros(batch, dtype=theta.dtype, device=theta.device)
+            for (_, xi), pair in zip(results, pairs):
+                logp = logp - 0.5 * _chi2(xi.reshape(batch, -1), pair,
+                                          theta.dtype)
+            if ngal_data is not None:
+                ngal0 = results[0][0]
+                logp = logp - 0.5 * ((ngal0 - ngal_data) / ngal_sigma) ** 2
+            logp = torch.where(torch.isfinite(logp), logp, -torch.inf)
+            if bounds is not None:
+                inside = torch.ones(batch, dtype=torch.bool,
+                                    device=theta.device)
+                for i, name in enumerate(names):
+                    if name in bounds:
+                        lo, hi = bounds[name]
+                        inside = (inside & (theta[:, i] > lo) &
+                                  (theta[:, i] < hi))
+                logp = torch.where(inside, logp, -torch.inf)
+            return logp
 
     return log_prob
 
@@ -497,7 +523,10 @@ def _build_subtree_iter(draws, doubling, q0, p0, lp0, g0, depth, active,
     i = 0
     while True:
         running = active & ~bad & (i < n_leaf)
-        if not bool(running.any()):      # the host reads once a leapfrog
+        with profiling.span("mcmc.nuts_leaf_read",
+                            syncs=int(running.is_cuda)):
+            go_on = bool(running.any())      # the host reads once a leapfrog
+        if not go_on:
             break
         q_n, p_n, lp_n, g_n = _leapfrog(q, p, g, step_size, log_prob,
                                         inv_mass)

@@ -109,10 +109,13 @@ from ..models.tinker13 import (QUIESCENT, Tinker13Model,
 from ..models.zheng07 import Zheng07Model
 from ..models.zu_mandelbaum15 import (ZU_MANDELBAUM15_PARAMS,
                                       ZuMandelbaum15Model)
+from ..utils import profiling
 from ..utils.build import build_libraries, load_library
 from .predict import AUTO, TableData, mean_occupation, occupation_with_residual
 
-# Launches of each CUDA kernel in this process (see the launch functions).
+# Launches of each CUDA kernel in this process (see the launch functions;
+# each launch function is a span, ``fused.<function>``, while a profiler
+# records: utils.profiling).
 BUNDLE_LAUNCHES = 0
 CONTRACTION_LAUNCHES = 0
 GRID_LAUNCHES = 0
@@ -623,6 +626,7 @@ def _stream_args(device):
     return device.index, torch.cuda.current_stream(device).cuda_stream
 
 
+@profiling.spanned("fused.bundle_launch")
 def bundle_launch(consts, pmat, hod=KernelModel()):
     """Launch the CUDA bundle kernel (FP32) once for every table in
     ``consts``, each a one-node :class:`SlabTcTable`
@@ -682,6 +686,7 @@ def bundle_launch(consts, pmat, hod=KernelModel()):
     return outs
 
 
+@profiling.spanned("fused.contraction_launch")
 def contraction_launch(h: SlabTcTable, ngal):
     """Launch the CUDA contraction kernel on ngal (B, n_bins) float32 on
     the CUDA device of the one-node table ``h``.  Returns (total (B,), xi
@@ -1073,6 +1078,7 @@ def occupation_outputs(plan: OccupationPlan, batch, bin_major, device):
             for nb in plan.n_bins]
 
 
+@profiling.spanned("fused.occupation_launch")
 def occupation_launch(plan: OccupationPlan, fam: OccupationFamily, pcols,
                       bin_major=True, consts=None):
     """Launch the CUDA occupation kernel once (``csrc/occupation.cu``) over
@@ -1372,6 +1378,7 @@ def _bf16_lib():
     return lib
 
 
+@profiling.spanned("fused.contraction_bf16_launch")
 def contraction_bf16_launch(c: Bf16Table, ngal):
     """Launch the bfloat16 contraction kernel (BF16 ``wgmma`` fed by TMA,
     ``csrc/bf16.cu``) on ngal (B, n_bins) bfloat16 on the CUDA device of
@@ -1619,6 +1626,7 @@ def grid_block_rows(n_bins, n_xi):
     return None
 
 
+@profiling.spanned("fused.grid_launch")
 def grid_launch(g: GridTable, pmat, node_weights=None, hod=KernelModel()):
     """Launch the CUDA grid kernel once.
 
@@ -1703,6 +1711,7 @@ def _grid_entry_args(g: GridTable, pmat, node_weights, hod, block, total,
             torch.cuda.current_stream(device).cuda_stream)
 
 
+@profiling.spanned("fused.grid_tc_launch")
 def grid_tc_launch(g: GridTable, pmat, node_weights=None,
                    hod=KernelModel()):
     """Launch the grid_tc kernel once: :func:`grid_launch`'s function, in
@@ -1864,6 +1873,7 @@ def _slab_entry_args(s: SlabTcTable, pmat, hod, block, what):
     return args, (total, xi)
 
 
+@profiling.spanned("fused.slab_launch")
 def slab_launch(s: SlabTcTable, pmat, hod=KernelModel()):
     """Launch the CUDA slab kernel (FP32) once, over the block-triangular
     half of each node matrix (:func:`slab_tc_table_constants`).
@@ -2206,6 +2216,7 @@ def _check_split(s, device):
         _check_tensor(a, device, torch.int32, "slab_tc column tables")
 
 
+@profiling.spanned("fused.slab_tc_launch")
 def slab_tc_launch(s: SlabSplitTable, pmat, hod=KernelModel()):
     """Launch the slab_tc kernel once: :func:`slab_launch`'s function, in
     3xTF32 on wgmma (the 'scaled' tier), from the split constants

@@ -42,6 +42,11 @@ member where the bundle does not take them (Interpolators, float64).
 
 The kernels compute no gradient; autograd runs through the plain engine,
 in float64 for the gradient samplers (``mcmc.run_hmc``, ``mcmc.run_nuts``).
+
+While a ``torch.profiler`` session records, every call of a predictor
+these entry points return is a ``predictor`` span counting its ``rows``,
+and a fused Interpolator's grid-spline weights a ``predictor.node_weights``
+span inside it (:mod:`.utils.profiling`).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from .ops import fused
 from .ops.predict import (TableData, mean_occupation, predict_from_occupation,
                           predict_from_occupation_separate, promoted_einsum)
 from .table import TabCorr
+from .utils import profiling
 from .utils.device import host_tensor, resolve_device
 
 __all__ = ["occupation_functions", "make_predictor", "make_multi_predictor",
@@ -291,7 +297,8 @@ def _interpolator_fused_predict_fn(interp, model, n_gauss, extrapolate,
 
     def predict_batch(params):
         batch = next(iter(params.values())).shape[0]
-        nw = _grid_node_weights(params, keys, xp_dev, a_dev, extrapolate)
+        with profiling.span("predictor.node_weights"):
+            nw = _grid_node_weights(params, keys, xp_dev, a_dev, extrapolate)
         total, xi = node_fn(params, nw)
         # ngal is the same at every node of a shared binning, so in-grid
         # samples pass it through exactly; out-of-grid samples are
@@ -362,6 +369,18 @@ def _auto_engine(obj, model, dtype, separate_gal_type, device,
             _fused_eligible(obj, model, dtype, separate_gal_type,
                             vectorized) and
             _fused_kernel_takes(obj, dtype) else "plain")
+
+
+def _in_span(predict):
+    """``predict`` (a dict of (B,) tensors -> its results) inside a
+    ``predictor`` span that counts the ``rows`` handed to it."""
+    def spanned(params):
+        with profiling.span("predictor") as sp:
+            if sp:
+                sp.counts["rows"] = next(iter(params.values())).shape[0]
+            return predict(params)
+
+    return spanned
 
 
 def _unbatched(predict, dtype, device):
@@ -473,15 +492,14 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
                 "supports_fused_engine is true, and a TabCorr or an "
                 "Interpolator whose nodes share one halo binning.")
         if isinstance(obj, Interpolator) and dtype == torch.bfloat16:
-            return _interpolator_bf16_predict_fn(obj, model, n_gauss,
-                                                 extrapolate, accuracy,
-                                                 device)
+            return _in_span(_interpolator_bf16_predict_fn(
+                obj, model, n_gauss, extrapolate, accuracy, device))
         if isinstance(obj, Interpolator):
-            return _interpolator_fused_predict_fn(obj, model, n_gauss,
-                                                  extrapolate, accuracy,
-                                                  device, mesh, batch_axis)
+            return _in_span(_interpolator_fused_predict_fn(
+                obj, model, n_gauss, extrapolate, accuracy, device, mesh,
+                batch_axis))
         table = obj.table_data(n_gauss=n_gauss, dtype=dtype, device=device)
-        return fused.make_fused_predictor(table, model, accuracy)
+        return _in_span(fused.make_fused_predictor(table, model, accuracy))
     if isinstance(obj, Interpolator):
         predict = _interpolator_predict_fn(obj, model, n_gauss, dtype,
                                            separate_gal_type, extrapolate,
@@ -489,6 +507,7 @@ def make_predictor(obj, model, n_gauss=10, dtype=torch.float32,
     else:
         predict = _tabcorr_predict_fn(obj, model, n_gauss, dtype,
                                       separate_gal_type, device)
+    predict = _in_span(predict)
     return predict if vectorized else _unbatched(predict, dtype, device)
 
 
@@ -575,8 +594,8 @@ def make_multi_predictor(objs, model, n_gauss=10, dtype=torch.float32, *,
         fns = [make_predictor(obj, model, n_gauss, dtype, engine="auto",
                               accuracy=acc, device=device)
                for obj, acc in zip(objs, accuracy)]
-        return fused.rank_rows(lambda params: [fn(params) for fn in fns],
-                               mesh, batch_axis)
+        return _in_span(fused.rank_rows(
+            lambda params: [fn(params) for fn in fns], mesh, batch_axis))
     if not _float32_tabcorrs(objs, dtype):
         raise ValueError(
             f"engine={engine!r} requires float32 and TabCorr members; "
@@ -584,8 +603,8 @@ def make_multi_predictor(objs, model, n_gauss=10, dtype=torch.float32, *,
     tables = [obj.table_data(n_gauss=n_gauss, dtype=torch.float32,
                              device=device) for obj in objs]
     if engine == "bundle":
-        return fused.make_fused_bundle_predictor(tables, model, accuracy,
-                                                 mesh, batch_axis)
+        return _in_span(fused.make_fused_bundle_predictor(
+            tables, model, accuracy, mesh, batch_axis))
     consts = [fused.bundle_table_constants(t) for t in tables]
     occ_cen, occ_sat = occupation_functions(model)
 
@@ -593,7 +612,7 @@ def make_multi_predictor(objs, model, n_gauss=10, dtype=torch.float32, *,
         return fused.shaped(consts, fused.bundle_predict_plain(
             consts, params, occ_cen, occ_sat))
 
-    return fused.rank_rows(predict_plain, mesh, batch_axis)
+    return _in_span(fused.rank_rows(predict_plain, mesh, batch_axis))
 
 
 def make_occupation_predictor(obj, dtype=torch.float32,
