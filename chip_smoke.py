@@ -624,6 +624,7 @@ def bundle_phase(ctx, kernels, decorated=False):
 
     # ---- path: predict, then the MCMC ensemble ------------------------
     ctx["reset"]()
+    fused.BUNDLE_TC_TABLES = 0
     outs = predict(params)
     torch.cuda.synchronize()
     check(fused.BUNDLE_LAUNCHES == 1, f"{label}: predict did not launch")
@@ -644,7 +645,12 @@ def bundle_phase(ctx, kernels, decorated=False):
     launched = ctx["expect"](label, bundle=2 + 2 * n_steps)["bundle"]
     print(f"{label} path: {launched} bundle kernel launches "
           f"(1 predict, 1 initial log-prob, 2 per ensemble step x "
-          f"{n_steps}), {len(names)} sampled parameters")
+          f"{n_steps}), {len(names)} sampled parameters; BUNDLE_TC_TABLES "
+          f"{fused.BUNDLE_TC_TABLES} (xi_ell 'scaled' on the tensor cores, "
+          f"1 a launch)")
+    check(fused.BUNDLE_TC_TABLES == launched,
+          f"{label}: {fused.BUNDLE_TC_TABLES} tensor-core tables in "
+          f"{launched} launches")
     print(f"{label} mcmc: {n_steps} ensemble steps x {BATCH} walkers, "
           f"accept fractions {accepts}, log-prob range "
           f"[{float(lp.min()):.6g}, {float(lp.max()):.6g}]")
@@ -740,6 +746,21 @@ def bundle_phase(ctx, kernels, decorated=False):
             lambda: fused.bundle_launch(consts, pmat, hod), 10)
         print(f"phases ({label}): {what}: bundle {part_ms:.4f} ms on "
               f"{ctx['card']}")
+    # The two routes of xi_ell 'scaled' on the same rows, in turns (FP32,
+    # tensor cores, tensor cores, FP32): the mixed bundle, and xi_ell
+    # alone.  The tensor-core route stays only while it beats the FP32 one.
+    split = fused.slab_split_table_constants(datas[1], 1)
+    for what, fp32, tc in (("wp + xi_ell", tables, [tables[0], split]),
+                           ("xi_ell alone", tables[1:], [split])):
+        tc_ms, fp32_ms, tc_w, fp32_w = ctx["alternate"](
+            lambda: fused.bundle_launch(tc, pmat, hod),
+            lambda: fused.bundle_launch(fp32, pmat, hod), 10, 10)
+        print(f"routes ({label}): {what}: xi_ell on the tensor cores "
+              f"{tc_ms:.4f} ms, on the FP32 route {fp32_ms:.4f} ms "
+              f"({fp32_ms / tc_ms:.3f}x; windows {tc_w}, {fp32_w}) on "
+              f"{ctx['card']}")
+        check(tc_ms < fp32_ms, f"{label}: the tensor-core route of {what} "
+              f"({tc_ms} ms) does not beat the FP32 route ({fp32_ms} ms)")
     flop = BATCH * sum(quadrature_flop(c.n_bins, c.n_gauss) +
                        contraction_flop(c.n_bins, c.n_xi, c.auto)
                        for c in tables)

@@ -6,10 +6,11 @@
 //
 // for the TB batch rows of one block, from their densities n[b, i] in
 // shared memory, for every node of one table (a bundle table is one node):
-// contract_fp32() on the CUDA cores, which the bundle, contraction and
-// FP32 slab kernels run under every contract.  (The 'scaled' slab kernel,
-// slab_tc in slab.cu, reads the same columns split into TF32 halves,
-// ops/fused.py:slab_split_table_constants.)
+// contract_fp32() on the CUDA cores, which the contraction and FP32 slab
+// kernels run under every contract and the bundle kernel for its
+// 'elementwise' and cross tables.  (The 'scaled' slab kernel, slab_tc in
+// slab.cu, and the bundle kernel's 'scaled' auto tables read the same
+// columns split into TF32 halves, ops/fused.py:slab_split_table_constants.)
 //
 // The layout (ops/fused.py:slab_tc_table_constants).  Auto mode, the
 // block-triangular half: the bins are cut into tiles of width w; the
@@ -131,17 +132,28 @@ __device__ __forceinline__ int stages_per_node(const HalfTable& h,
   return n;
 }
 
-// sTot[b] = sum_i n[b, i] for the block's TB rows, by its first TB
-// threads.  In double: a float32 running sum over ~100 bins would carry
-// ~5e-7 relative error into xi's 1/(sum n)^2.
+// sTot[b] = sum_i n[b, i] for the block's TB rows, by the threads tid <
+// TB of the contraction.  In double: a float32 running sum over ~100 bins
+// would carry ~5e-7 relative error into xi's 1/(sum n)^2.
 template <int TB, int STRIDE>
 __device__ __forceinline__ void row_totals(const float* sN, int nb,
-                                           float* sTot) {
-  if (threadIdx.x < TB) {
+                                           float* sTot, unsigned tid) {
+  if (tid < TB) {
     double sum = 0.0;
-    for (int i = 0; i < nb; ++i) sum += sN[i * STRIDE + threadIdx.x];
-    sTot[threadIdx.x] = static_cast<float>(sum);
+    for (int i = 0; i < nb; ++i) sum += sN[i * STRIDE + tid];
+    sTot[tid] = static_cast<float>(sum);
   }
+}
+
+// A barrier over the NT threads that run contract_fp32: the block's (BAR
+// 0), or named barrier BAR where they are warpgroup BAR - 1 of a larger
+// block (the bundle kernel's consumer warpgroups, bundle.cu).
+template <int NT, int BAR>
+__device__ __forceinline__ void contract_sync() {
+  if constexpr (BAR == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"n"(BAR), "n"(NT) : "memory");
 }
 
 // ----------------------------------------------------------------------
@@ -166,11 +178,11 @@ __device__ __forceinline__ void row_totals(const float* sN, int nb,
 //
 // Start copying rows [0, n_rows) of a column tile (row-major, 128 floats
 // per row) into a ring stage, the halves of each n8 tile apart.  Threads
-// [0, NT) call it; the caller commits the group.
+// tid in [0, NT) call it; the caller commits the group.
 template <int NT>
 __device__ __forceinline__ void stage_fp32(float* dst, const float* src,
-                                           int n_rows) {
-  for (int l = threadIdx.x; l < n_rows * (kCT / 4); l += NT) {
+                                           int n_rows, int tid) {
+  for (int l = tid; l < n_rows * (kCT / 4); l += NT) {
     const int r = l / (kCT / 4);
     const int q = l % (kCT / 4);      // 16-byte chunk of the row
     cp_async16(dst + r * kCT + ((q & 1) * kSlots + (q >> 1)) * 4,
@@ -204,28 +216,32 @@ __device__ __forceinline__ void fp32_k_step(float (&acc)[kRM][8],
 }
 
 // xi and sum_i n_i of every node of one table for the block's TB rows, by
-// a block of 2 TB threads.  On entry sN holds n[b, i] at sN[i * TB + b] for
-// i < nb8 (0 for padded bins and masked rows) and a barrier has passed
-// since it was written; on exit the outputs are stored and the block is
-// synchronised, so sN, sXi and sTot may be overwritten.  `stage_steps`
-// (fp32_stage_ok) is the K steps of 8 rows per ring stage; sRing holds
-// kStages * stage_steps * 8 * 128 floats, sXi TB * n_xi, sTot TB.
-template <int TB>
+// 2 TB threads: the block (BAR 0), or warpgroup BAR - 1 of a larger block,
+// synchronised by the named barrier BAR (contract_sync).  On entry sN holds
+// n[b, i] at sN[i * STRIDE + b] for i < nb8 (0 for padded bins and masked
+// rows) and a barrier has passed since it was written; on exit the outputs
+// are stored and the threads are synchronised, so sN, sXi and sTot may be
+// overwritten.  `stage_steps` (fp32_stage_ok) is the K steps of 8 rows per
+// ring stage; sRing holds kStages * stage_steps * 8 * 128 floats, sXi TB *
+// n_xi, sTot TB.
+template <int TB, int BAR = 0, int STRIDE = TB>
 __device__ __forceinline__ void contract_fp32(const HalfTable& h,
                                               const TableOut& out, int batch,
                                               int row0, int stage_steps,
                                               const float* sN, float* sRing,
                                               float* sXi, float* sTot) {
-  static_assert(TB % 32 == 0, "block shape");
-  constexpr int NT = 2 * TB, STRIDE = TB;
-  const int tid = threadIdx.x;
+  static_assert(TB % 32 == 0 && STRIDE % 4 == 0 && STRIDE >= TB &&
+                    (BAR == 0 || 2 * TB == 128), "block shape");
+  constexpr int NT = 2 * TB;
+  constexpr unsigned kTid0 = BAR == 0 ? 0 : NT * (BAR - 1);
+  const int tid = threadIdx.x - kTid0;
   const int warp = tid >> 5, lane = tid & 31;
   const int rg = (warp >> 1) * 4 + (lane >> 3);   // rows rg * 8 .. + 7
   const int cg = (warp & 1) * 8 + (lane & 7);     // n8 tile of the column tile
   const int stage_floats = stage_steps * 8 * kCT;
 
   for (int item = tid; item < TB * h.n_xi; item += NT) sXi[item] = 0.f;
-  row_totals<TB, STRIDE>(sN, h.nb, sTot);
+  row_totals<TB, STRIDE>(sN, h.nb, sTot, threadIdx.x - kTid0);
 
   const int n_stages = h.n_nodes * stages_per_node(h, stage_steps);
   TileCursor prod = {0, 0, 0}, cons = {0, 0, 0};
@@ -239,7 +255,7 @@ __device__ __forceinline__ void contract_fp32(const HalfTable& h,
                      h.b + (size_t)prod.node * h.node_stride +
                          __ldg(h.ct_off + prod.ct) +
                          (size_t)prod.q * stage_steps * 8 * kCT,
-                     n_rows);
+                     n_rows, tid);
       prod.advance(h.ct_steps, h.n_ct, stage_steps);
     }
     ++issued;
@@ -254,7 +270,7 @@ __device__ __forceinline__ void contract_fp32(const HalfTable& h,
     const int steps = __ldg(h.ct_steps + ct);
     const int step0 = __ldg(h.ct_step0 + ct);
     cp_async_wait<kStages - 2>();
-    __syncthreads();   // stage s is in; slot s - 1 is free
+    contract_sync<NT, BAR>();   // stage s is in; slot s - 1 is free
     issue();
     const int n_rows = 8 * min(stage_steps, steps - stage_steps * cons.q);
     const float4* a4 =
@@ -325,7 +341,7 @@ __device__ __forceinline__ void contract_fp32(const HalfTable& h,
         sXi[(rg * kRM + r) * h.n_xi + k] += paired ? v[r] + other : v[r];
     }
     if (!node_done) continue;
-    __syncthreads();   // the node's statistics are complete
+    contract_sync<NT, BAR>();   // the node's statistics are complete
     for (int item = tid; item < TB * h.n_xi; item += NT) {
       const int b = item / h.n_xi;
       const int kk = item - b * h.n_xi;
@@ -340,7 +356,7 @@ __device__ __forceinline__ void contract_fp32(const HalfTable& h,
   }
   if (out.total != nullptr && tid < TB && row0 + tid < batch)
     out.total[row0 + tid] = sTot[tid];
-  __syncthreads();   // before the caller reuses sN, sXi and sTot
+  contract_sync<NT, BAR>();   // before the caller reuses sN, sXi and sTot
 }
 
 // Shared-memory floats of contract_fp32's ring, statistics, per-row

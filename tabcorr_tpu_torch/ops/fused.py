@@ -3,9 +3,9 @@
 Ports of the four Pallas kernels of ``tabcorr_tpu/ops/fused.py``.  Every
 kernel has a plain version in tensor ops beside it; a wrapper runs the
 plain version for CPU tensors and launches the kernel (or raises) for
-CUDA tensors.  B1 and B3 compute in full float32 and B2 contracts in
-float64 on the tensor cores, under both accuracy contracts ('elementwise',
-'scaled'); B4 takes the tensor cores under 'scaled' (below).
+CUDA tensors.  B3 computes in full float32 and B2 contracts in float64
+on the tensor cores, under both accuracy contracts ('elementwise',
+'scaled'); B1 and B4 take the tensor cores under 'scaled' (below).
 
 The kernels that evaluate the occupation themselves (B1, B2, B4) take
 every model whose ``supports_fused_engine`` is true, by the model code of
@@ -46,7 +46,10 @@ none of these kernels.
       cross: xi[b, k] = (F n_b)_k / sum_i n_bi
 
   :func:`bundle_launch` (``csrc/bundle.cu``) and
-  :func:`bundle_predict_plain` (any model).
+  :func:`bundle_predict_plain` (any model).  Each table takes a route by
+  its contract (:func:`bundle_routes`): a 'scaled' auto table is
+  contracted in 3xTF32 on ``wgmma`` from its split constants (slab_tc's
+  machinery for one node), every other table in FP32, all in one launch.
 * **Contraction (B3)**, port of ``make_fused_contraction`` and
   ``make_fused_predictor``: the same contraction for one table from a
   given density ``n`` -- the occupation runs before it (the occupation
@@ -71,19 +74,20 @@ B2 and B4 have a second kernel each, in 3xTF32 on the tensor cores:
 :func:`grid_tc_launch` (``mma.sync``, ``csrc/tf32x3.cuh``) and
 :func:`slab_tc_launch` (``wgmma`` fed by TMA, ``csrc/slab.cu`` and
 ``csrc/hopper.cuh``).  B4 picks its kernel by the contract, the
-counterpart of tabcorr_tpu's MXU pass classes: slab_tc under 'scaled'.
-B2's grid kernel contracts in float64 on the tensor cores and is faster
-than grid_tc, so it serves both contracts, as B1's and B3's FP32 kernels
-do (:func:`grid_kernel_for`);
+counterpart of tabcorr_tpu's MXU pass classes: slab_tc under 'scaled';
+B1 its route a table by the same rule, in one kernel.  B2's grid kernel
+contracts in float64 on the tensor cores and is faster than grid_tc, so
+it serves both contracts, as B3's FP32 kernel does
+(:func:`grid_kernel_for`);
 grid_tc stays reachable through its wrapper.  The plain versions serve
 every kernel.
 
 On the card B1, B3 and the FP32 tier of B4 read their matrices in one
 layout, the block-triangular half of each symmetric matrix
 (:class:`SlabTcTable`, a bundle table as one node; ``csrc/contract.cuh``);
-slab_tc reads the same columns split into TF32 halves once on the host
-(:class:`SlabSplitTable`); the dense layouts (:class:`BundleTable`,
-:class:`SlabTable`) serve the plain versions.
+slab_tc and B1's tensor-core route read the same columns split into TF32
+halves once on the host (:class:`SlabSplitTable`); the dense layouts
+(:class:`BundleTable`, :class:`SlabTable`) serve the plain versions.
 """
 
 from __future__ import annotations
@@ -124,6 +128,10 @@ GRID_TC_LAUNCHES = 0
 SLAB_TC_LAUNCHES = 0
 OCCUPATION_LAUNCHES = 0
 CONTRACTION_BF16_LAUNCHES = 0
+# Tables the bundle kernel has contracted on the tensor cores, summed over
+# its launches (each launch's count is the ``tc_tables`` of its
+# ``fused.bundle_launch`` span).
+BUNDLE_TC_TABLES = 0
 
 ACCURACY_CONTRACTS = ("elementwise", "scaled")
 
@@ -192,6 +200,10 @@ _SPLIT_STEP_FLOATS = 2 * _CT * 8
 _SLAB_TC_SLOT_BYTES = 4 * _SPLIT_STEP_FLOATS + 16
 _SLAB_TC_STAGES = 4
 _SLAB_TC_MIN_STAGES = {2: 3, 1: 2}
+# The bundle kernel's tensor-core block (csrc/bundle.cu btc): rows per
+# block (two tensor-core warpgroups of 64), and the slots of its ring.
+_BUNDLE_TC_ROWS = 128
+_BUNDLE_TC_SLOTS = 4
 # The FP32 contraction (bundle, contraction, slab): rows per block, and the
 # K steps of 8 rows per ring stage, first choice first; the second is the
 # smaller ring, where the first does not fit in shared memory.
@@ -597,11 +609,69 @@ def contraction_fits(n_bins, n_xi) -> bool:
     return fp32_stage_steps(n_bins, n_xi) is not None
 
 
+def bundle_routes(tables, accuracy=None):
+    """Each table's route in the bundle kernel under the contracts
+    ``accuracy``: 'tc' (3xTF32 on ``wgmma``, from
+    :func:`slab_split_table_constants`) for an auto table under 'scaled',
+    the counterpart of tabcorr_tpu's MXU pass classes and the rule of
+    :func:`grid_kernel_for`; else 'fp32' (the CUDA cores,
+    :func:`slab_tc_table_constants`), which meets both contracts.  A
+    cross table stays FP32 under 'scaled' too: its contraction is a
+    matrix-vector product, n_xi * n_bins multiply-adds a row.  The
+    tensor-core block holds every table's densities for its 128 rows at
+    once; where that block does not fit in shared memory, every table
+    takes the FP32 route."""
+    accuracy = check_accuracy(accuracy, len(tables))
+    routes = ["tc" if a == "scaled" and t.mode == AUTO else "fp32"
+              for t, a in zip(tables, accuracy)]
+    shapes = [(t.n_bins, t.tpcf_dense.shape[0]) for t in tables]
+    if "tc" in routes and _bundle_smem_bytes(shapes, tc=True) is None:
+        return ["fp32"] * len(tables)
+    return routes
+
+
+def bundle_constants(tables, accuracy=None):
+    """The constants a bundle launch reads for ``tables`` under the
+    contracts ``accuracy``, on the tables' device, one table each by its
+    route (:func:`bundle_routes`): the split :class:`SlabSplitTable` on
+    the tensor-core route, the :class:`SlabTcTable` on the FP32 route,
+    one node each."""
+    return [slab_split_table_constants(t, 1) if r == "tc" else
+            slab_tc_table_constants(t, 1)
+            for t, r in zip(tables, bundle_routes(tables, accuracy))]
+
+
+def bundle_tc_tables(consts) -> int:
+    """The tables of a bundle launch on the tensor-core route."""
+    return sum(isinstance(c, SlabSplitTable) for c in consts)
+
+
+def _bundle_smem_bytes(shapes, tc):
+    """Dynamic shared memory of a bundle block over tables of these
+    (n_bins, n_xi): the FP32-only block, or with a table on the
+    tensor-core route (``tc``) the tensor-core block (csrc/bundle.cu
+    btc::smem_bytes: its ring (consumer 0's FP32 ring first) and
+    barriers, consumer 1's FP32 ring, and 128 rows of every table's
+    densities, statistics, parameter terms and totals); None where it does
+    not fit.  Both take the FP32 ring stage of :func:`fp32_stage_steps`, so
+    the 'elementwise' tables keep their bits."""
+    n_bins = max(n for n, _ in shapes)
+    n_xi = max(k for _, k in shapes)
+    stage_steps = fp32_stage_steps(n_bins, n_xi)
+    if stage_steps is None:
+        return None
+    if not tc:
+        return _fp32_smem_bytes(stage_steps, n_bins, n_xi)
+    smem = ((_BUNDLE_TC_SLOTS + stage_steps) * 4 * _SPLIT_STEP_FLOATS +
+            16 * _BUNDLE_TC_SLOTS + 4 * _BUNDLE_TC_ROWS * (
+                sum(_round_up(n, 8) for n, _ in shapes) + n_xi + _ROW_TERMS))
+    return smem if smem <= _SMEM_LIMIT else None
+
+
 def bundle_takes(shapes) -> bool:
     """Whether one bundle launch takes tables of these (n_bins, n_xi)."""
     return (1 <= len(shapes) <= _MAX_TABLES and
-            contraction_fits(max(n for n, _ in shapes),
-                             max(k for _, k in shapes)))
+            _bundle_smem_bytes(shapes, tc=False) is not None)
 
 
 def _half_arrays(h: SlabTcTable):
@@ -626,11 +696,27 @@ def _stream_args(device):
     return device.index, torch.cuda.current_stream(device).cuda_stream
 
 
-@profiling.spanned("fused.bundle_launch")
+def _check_bundle_table(c, device):
+    """Raise unless ``c`` is one table of a bundle launch on ``device``:
+    a one-node :class:`SlabTcTable` (the FP32 route) or a one-node auto
+    :class:`SlabSplitTable` (the tensor-core route)."""
+    if isinstance(c, SlabSplitTable):
+        if c.n_nodes != 1:
+            raise ValueError("the bundle kernel takes tables of 1 node.")
+        if not c.auto:
+            raise ValueError("the bundle kernel's tensor-core route takes "
+                             "auto tables only.")
+        _check_split(c, device)
+    else:
+        _check_half(c, device, "bundle", n_nodes=1)
+
+
 def bundle_launch(consts, pmat, hod=KernelModel()):
-    """Launch the CUDA bundle kernel (FP32) once for every table in
-    ``consts``, each a one-node :class:`SlabTcTable`
-    (``slab_tc_table_constants(table, 1)``).
+    """Launch the CUDA bundle kernel once for every table in ``consts``:
+    a one-node :class:`SlabTcTable` (``slab_tc_table_constants(table,
+    1)``) is contracted in FP32, a one-node auto :class:`SlabSplitTable`
+    (``slab_split_table_constants(table, 1)``) in 3xTF32 on the tensor
+    cores (:func:`bundle_routes` picks them by the contract).
 
     ``pmat`` is the float32 parameter matrix of the model ``hod`` (zheng07
     by default), one column per name of ``hod.param_names``, on the
@@ -638,9 +724,20 @@ def bundle_launch(consts, pmat, hod=KernelModel()):
     of each table's (n_bins, B) float32 densities instead
     (:func:`kernel_densities`).  Returns ``[(total (B,), xi (B,
     n_xi)), ...]``.  Raises on any input the kernel does not take and on
-    any launch error.
+    any launch error.  The ``fused.bundle_launch`` span counts the
+    tables on the tensor cores (``tc_tables``).
     """
-    global BUNDLE_LAUNCHES
+    global BUNDLE_LAUNCHES, BUNDLE_TC_TABLES
+    with profiling.span("fused.bundle_launch") as sp:
+        outs, n_tc = _bundle_launch(consts, pmat, hod)
+        if sp:
+            sp.counts["tc_tables"] = n_tc
+    BUNDLE_LAUNCHES += 1
+    BUNDLE_TC_TABLES += n_tc
+    return outs
+
+
+def _bundle_launch(consts, pmat, hod):
     if not 1 <= len(consts) <= _MAX_TABLES:
         raise ValueError(f"the kernel takes 1 to {_MAX_TABLES} tables.")
     if hod.density_in:
@@ -661,29 +758,33 @@ def bundle_launch(consts, pmat, hod=KernelModel()):
         params_ptr, first = pmat.data_ptr(), pmat
     device = first.device
     for h in consts:
-        _check_half(h, device, "bundle", n_nodes=1)
+        _check_bundle_table(h, device)
+    n_tc = bundle_tc_tables(consts)
     ptrs, dims, outs = [], [], []
     for h, d in zip(consts, dens):
         total = torch.empty(batch, device=device, dtype=torch.float32)
         xi = torch.empty((batch, h.n_xi), device=device, dtype=torch.float32)
         outs.append((total, xi))
+        tc = isinstance(h, SlabSplitTable)
         ptrs += [a.data_ptr() for a in (h.logm, h.logm_res, h.sec, h.weight,
-                                        *_half_arrays(h), total, xi)]
+                                        h.b, h.ct_step0, h.ct_steps)]
+        ptrs.append(None if tc else h.ct_off.data_ptr())
+        ptrs += [a.data_ptr() for a in (h.col_k, h.col_i0, total, xi)]
         ptrs.append(None if d is None else d.data_ptr())
         dims += [h.n_bins, h.n_centrals, h.n_gauss, h.n_xi, h.n_ct,
-                 int(h.auto)]
-    stage_steps = _check_smem(
-        fp32_stage_steps(max(h.n_bins for h in consts),
-                         max(h.n_xi for h in consts)), "bundle")
+                 int(h.auto), h.node_steps if tc else 0]
+    n_bins = max(h.n_bins for h in consts)
+    n_xi = max(h.n_xi for h in consts)
+    _check_smem(_bundle_smem_bytes([(h.n_bins, h.n_xi) for h in consts],
+                                   n_tc > 0), "bundle")
     lib = _bundle_lib()
     code = lib.tabcorr_bundle(
         params_ptr, batch, *hod.launch_args(), len(consts),
         (ctypes.c_void_p * len(ptrs))(*ptrs),
-        (ctypes.c_int * len(dims))(*dims), stage_steps,
+        (ctypes.c_int * len(dims))(*dims), fp32_stage_steps(n_bins, n_xi),
         *_stream_args(device))
     _raise_on_error(code, "bundle", lib.tabcorr_cuda_error_string)
-    BUNDLE_LAUNCHES += 1
-    return outs
+    return outs, n_tc
 
 
 @profiling.spanned("fused.contraction_launch")
@@ -802,10 +903,14 @@ def make_fused_bundle_predictor(tables, model, accuracy=None, mesh=None,
         (densities in), every table's from one launch of the occupation
         kernel for the families it evaluates, else from tensor ops.
     accuracy : sequence of str, optional
-        One contract per table, 'elementwise' (default) or 'scaled'.  Both
-        run at full float32 precision, which meets the stricter of the two:
-        at the bundle's shapes a 3xTF32 tensor-core contraction was slower
-        and less exact than the FP32 one.
+        One contract per table, 'elementwise' (default) or 'scaled'; it
+        picks the table's route on the card (:func:`bundle_routes`), all
+        tables in one launch.  A 'scaled' auto table is contracted in
+        3xTF32 on the tensor cores (``wgmma`` fed by TMA, from its split
+        constants), which meets 1e-6 of the row's largest statistic; every
+        other table in FP32 on the CUDA cores, which meets 1e-6 per element,
+        with the bits of an all-'elementwise' launch.  On the CPU every
+        table runs the plain version.
     mesh : DeviceMesh, optional
         Split the batch over ``batch_axis`` (:func:`rank_rows`): ``f``
         takes the global batch and returns this rank's rows, one launch a
@@ -825,10 +930,10 @@ def make_fused_bundle_predictor(tables, model, accuracy=None, mesh=None,
     hod = KernelModel.of(model)
     occ_cen, occ_sat = occupation_functions(model)
     if device.type == "cuda":
-        _check_smem(fp32_stage_steps(
-            max(t.n_bins for t in tables),
-            max(t.tpcf_dense.shape[0] for t in tables)), "bundle")
-        consts = [slab_tc_table_constants(t, 1) for t in tables]
+        _check_smem(_bundle_smem_bytes(
+            [(t.n_bins, t.tpcf_dense.shape[0]) for t in tables], tc=False),
+            "bundle")
+        consts = bundle_constants(tables, accuracy)
         if hod.family is not None:
             plan = occupation_plan(consts)
     else:

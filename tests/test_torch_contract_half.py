@@ -224,7 +224,9 @@ def test_fp32_emulation_per_stage_chains_are_closer_on_xi_ell(tabs):
 
 
 # ----------------------------------------------------------------------
-# (c) the bundle under the headline contracts: both tables in FP32
+# (c) the FP32 route under the headline contracts, both tables (on the
+# card xi_ell 'scaled' takes the tensor-core route:
+# test_torch_bundle_tc.py)
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("box,batch", [("bench", 13), ("wide", 16)])
 def test_bundle_emulation_meets_the_contracts_and_the_jax_bundle(
@@ -275,7 +277,7 @@ def test_bundle_predictor_checks_the_contracts_it_is_given(tabs):
                                           ("elementwise", "tensor"))
     with pytest.raises(ValueError, match="one contract per table"):
         fused.make_fused_bundle_predictor(tables, model, ("scaled",))
-    # Both contracts run one function: the same bits.
+    # On the CPU both contracts run the plain version: the same bits.
     params = {k: torch.tensor(v) for k, v in _params("bench", 5).items()}
     outs = [fused.make_fused_bundle_predictor(tables, model, a)(params)
             for a in (None, ("elementwise", "scaled"), ("scaled", "scaled"))]

@@ -890,20 +890,31 @@ def test_fp32_kernels_at_every_ring_stage(cuda, monkeypatch, kind,
     (("elementwise", "scaled", "elementwise"), 4096 + 37),
     (None, 13)])
 def test_bundle_kernel_runs_every_contract(cuda, accuracy, batch, kind):
-    """The FP32 bundle kernel under every mix of contracts, auto and cross
-    in one launch: the same bits, held to the plain version."""
+    """The bundle kernel under every mix of contracts, auto and cross in
+    one launch, held to the plain version: the tables on the FP32 route
+    (every 'elementwise' table, and cross tables under 'scaled') keep the
+    bits of the all-'elementwise' launch; the 'scaled' auto tables run on
+    the tensor cores, within the 'scaled' contract."""
     model = _model(kind, modulate_with_cenocc=kind == "zheng07")
     tables = _odd_tables(cuda)
     params = _params(model, batch, 5, cuda)
-    before = fused.BUNDLE_LAUNCHES
+    routes = fused.bundle_routes(tables, accuracy)
+    before = (fused.BUNDLE_LAUNCHES, fused.BUNDLE_TC_TABLES)
     got = fused.make_fused_bundle_predictor(tables, model, accuracy)(params)
     torch.cuda.synchronize()
-    assert fused.BUNDLE_LAUNCHES == before + 1
-    _assert_close(got, _bundle_plain(tables, model, params),
-                  f"bundle {accuracy}")
+    assert (fused.BUNDLE_LAUNCHES, fused.BUNDLE_TC_TABLES) == (
+        before[0] + 1, before[1] + routes.count("tc"))
+    want = _bundle_plain(tables, model, params)
+    _assert_close(got, want, f"bundle {accuracy}")
+    for route, (_, xi), (_, xi_p) in zip(routes, got, want):
+        if route == "tc":
+            assert _scaled_error(xi, xi_p) <= 1e-6
     default = fused.make_fused_bundle_predictor(tables, model)(params)
-    for (ng, xi), (ng0, xi0) in zip(got, default):
-        assert torch.equal(ng, ng0) and torch.equal(xi, xi0)
+    for route, (ng, xi), (ng0, xi0) in zip(routes, got, default):
+        if route == "fp32":
+            assert torch.equal(ng, ng0) and torch.equal(xi, xi0)
+        else:
+            torch.testing.assert_close(ng, ng0, rtol=1e-7, atol=0)
 
 
 def test_bundle_runs_the_headline_contract(cuda):
@@ -925,6 +936,171 @@ def test_bundle_runs_the_headline_contract(cuda):
     # wp per element.
     rel = ((got[0][1] - want[0][1]).abs() / want[0][1].abs()).max()
     assert float(rel) <= 2e-6
+
+
+# ----------------------------------------------------------------------
+# The bundle's tensor-core route: 'scaled' auto tables in 3xTF32 on wgmma
+# ----------------------------------------------------------------------
+CONFIG = (Path(__file__).absolute().parents[1] / "benchmark" / "configs" /
+          "zheng07_wp_xiell.json")
+
+
+def _box_params(model, batch, seed, device):
+    """zheng07 parameters uniform over the flat priors of the
+    zheng07_wp_xiell benchmark configuration."""
+    import json
+    bounds = json.loads(CONFIG.read_text())["bounds"]
+    rng = np.random.default_rng(seed)
+    return params_batch(model, {k: rng.uniform(*b, batch)
+                                for k, b in bounds.items()}, (batch,),
+                        device=device)
+
+
+def _scaled_error(xi, want):
+    """The largest error of xi (B, ...) against ``want``, scaled by each
+    row's largest element of ``want``."""
+    xi = xi.double().cpu().reshape(xi.shape[0], -1)
+    want = want.double().cpu().reshape(xi.shape[0], -1)
+    return float(((xi - want).abs().amax(1) / want.abs().amax(1)).max())
+
+
+def _host_scaled_error(tab, model, params, xi, rows):
+    """xi's largest error over ``rows`` against the float64 host path at
+    the float32 parameters the kernel read, scaled by the row's largest
+    element."""
+    worst = 0.0
+    for i in rows:
+        for k in model.param_dict:
+            model.param_dict[k] = float(params[k][i])
+        want = np.ravel(tab.predict(model, check_consistency=False)[1])
+        got = xi[i].double().cpu().numpy().ravel()
+        worst = max(worst, float(np.max(np.abs(got - want)) /
+                                 np.max(np.abs(want))))
+    return worst
+
+
+@pytest.mark.parametrize("batch", [13, 4096 + 37])
+def test_bundle_tc_route_on_the_bench_tables(cuda, batch):
+    """wp 'elementwise' + xi_ell 'scaled', one launch with one table on the
+    tensor cores, over the configuration's box: against the plain version
+    (ngal 1e-6, wp 2e-6 per element, xi_ell 1e-6 scaled), xi_ell within
+    1e-6 scaled of the float64 host path, and wp and its ngal bit for bit
+    those of the all-'elementwise' launch."""
+    (wp, xi), _ = _bench_tables(cuda)
+    model = Zheng07Model(threshold=-18, redshift=wp.attrs["redshift"])
+    mixed = make_multi_predictor([wp, xi], model, device=cuda,
+                                 accuracy=("elementwise", "scaled"))
+    fp32 = make_multi_predictor([wp, xi], model, device=cuda)
+    plain = make_multi_predictor([wp, xi], model, device=cuda,
+                                 engine="plain")
+    params = _box_params(model, batch, 21, cuda)
+    before = (fused.BUNDLE_LAUNCHES, fused.BUNDLE_TC_TABLES)
+    got = mixed(params)
+    torch.cuda.synchronize()
+    assert (fused.BUNDLE_LAUNCHES, fused.BUNDLE_TC_TABLES) == (
+        before[0] + 1, before[1] + 1)
+    ref = fp32(params)
+    torch.cuda.synchronize()
+    assert fused.BUNDLE_TC_TABLES == before[1] + 1
+    _assert_close_strict(got, plain(params), per_element=(0,))
+    assert torch.equal(got[0][0], ref[0][0])
+    assert torch.equal(got[0][1], ref[0][1])
+    torch.testing.assert_close(got[1][0], ref[1][0], rtol=1e-7, atol=0)
+    rows = range(0, batch, max(1, batch // 16))
+    err = _host_scaled_error(xi, model, params, got[1][1], rows)
+    print(f"bundle tensor-core route, xi_ell vs float64 host: {err:.3e} "
+          "scaled")
+    assert err <= 1e-6
+
+
+def test_bundle_tc_route_keeps_nan_rows(cuda):
+    """Rows whose parameters are NaN come out NaN on both routes; every
+    other row is what the launch without them gives, bit for bit."""
+    (wp, xi), _ = _bench_tables(cuda)
+    model = Zheng07Model(threshold=-18, redshift=wp.attrs["redshift"])
+    predict = make_multi_predictor([wp, xi], model, device=cuda,
+                                   accuracy=("elementwise", "scaled"))
+    params = {k: v.clone()
+              for k, v in _box_params(model, 4096 + 37, 22, cuda).items()}
+    clean = predict(params)
+    rows = torch.tensor([0, 63, 64, 2049, 4132], device=cuda)
+    for k in ("logMmin", "sigma_logM"):
+        params[k][rows] = float("nan")
+    got = predict(params)
+    torch.cuda.synchronize()
+    nan = torch.zeros(4096 + 37, dtype=torch.bool, device=cuda)
+    nan[rows] = True
+    for (ng, x), (ng0, x0) in zip(got, clean):
+        x, x0 = x.reshape(x.shape[0], -1), x0.reshape(x0.shape[0], -1)
+        assert bool(torch.isnan(ng[nan]).all())
+        assert bool(torch.isnan(x[nan]).all())
+        assert torch.equal(ng[~nan], ng0[~nan])
+        assert torch.equal(x[~nan], x0[~nan])
+
+
+@pytest.mark.parametrize("kind", ["assembias", "leauthaud11",
+                                  "zheng07_subclass"])
+def test_bundle_tc_route_for_model_codes_1_and_2(cuda, kind):
+    """The decorated zheng07 (model code 1, in the kernel) and densities
+    in (code 2: the occupation kernel's, or tensor ops') on the mixed
+    route, against the plain contraction of the same densities."""
+    objs, tables = _bench_tables(cuda)
+    if kind == "assembias":
+        model = AssembiasZheng07Model(threshold=-18,
+                                      redshift=objs[0].attrs["redshift"])
+        params = _params(model, 4096 + 37, 23, cuda)
+    else:
+        model = _family(kind)
+        params = _family_params(model, 4096 + 37, 23, cuda)
+    hod = fused.KernelModel.of(model)
+    assert hod.code == (1 if kind == "assembias" else fused.DENSITY_IN)
+    predict = make_multi_predictor(objs, model, device=cuda,
+                                   accuracy=("elementwise", "scaled"))
+    before = (fused.BUNDLE_LAUNCHES, fused.BUNDLE_TC_TABLES)
+    got = predict(params)
+    torch.cuda.synchronize()
+    assert (fused.BUNDLE_LAUNCHES, fused.BUNDLE_TC_TABLES) == (
+        before[0] + 1, before[1] + 1)
+    if kind == "assembias":
+        want = make_multi_predictor(objs, model, device=cuda,
+                                    engine="plain")(params)
+    else:
+        want = fused.shaped(tables, [fused.contraction_plain(
+            fused.bundle_table_constants(t), fused.kernel_densities(
+                fused.slab_tc_table_constants(t, 1), t, model, hod,
+                params).t()) for t in tables])
+    _assert_close_strict(got, want, per_element=(0,))
+    fp32 = make_multi_predictor(objs, model, device=cuda)(params)
+    assert torch.equal(got[0][1], fp32[0][1])
+
+
+def _bundle_sass():
+    """{function name: SASS} of the built bundle library."""
+    fused._bundle_lib()
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path("bundle"))],
+                          capture_output=True, text=True, check=True).stdout
+    return {f.split("\n", 1)[0].strip(): f
+            for f in re.split(r"\n\s+Function : ", sass)[1:]}
+
+
+def test_bundle_tc_instantiations_are_wgmma_on_tma(cuda):
+    """cuobjdump -sass of the built bundle library: each of the three
+    tensor-core instantiations of bundle_kernel (one a model code) issues
+    HGMMA in TF32, takes its stages through mbarriers (SYNCS) and moves
+    registers between its warpgroups (USETMAXREG); the three FP32-only
+    instantiations issue no HGMMA and no SYNCS."""
+    funcs = {k: v for k, v in _bundle_sass().items()
+             if "bundle_kernel" in k}
+    tc = [f for k, f in funcs.items() if "ELb1E" in k]
+    fp32 = [f for k, f in funcs.items() if "ELb0E" in k]
+    assert len(tc) == 3 and len(fp32) == 3, list(funcs)
+    for f in tc:
+        assert re.search(r"HGMMA\.64x128x8\.F32\.TF32", f)
+        assert "SYNCS" in f and "USETMAXREG" in f
+    for f in fp32:
+        assert "HGMMA" not in f and "SYNCS" not in f
 
 
 def test_fp32_and_tc_kernels_take_768_bins(cuda):
