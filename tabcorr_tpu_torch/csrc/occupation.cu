@@ -27,7 +27,13 @@
 //     with the fast intrinsics: it only seeds), except that a node starts
 //     its Newton steps from the root at the node evaluated before it --
 //     and then one Newton step in float64 at the float64 node, which takes
-//     the float32 root (a few ulp off) to float64 precision.
+//     the float32 root (a few ulp off) to float64 precision.  Each
+//     float32 step is held to [5, 13], as models/leauthaud11.py
+//     shmr_inverse holds its own (a root held at an end is that end), and
+//     the result is NaN, without a walk, where the relation is not
+//     increasing by its form (beta, delta or gamma not positive;
+//     shmr_increasing); so are the Leauthaud11-form centrals where their
+//     scatter is not positive (models/leauthaud11.py positive).
 //   * Everything after it (erfc, the satellites' power laws, Tinker13's
 //     quiescent-fraction spline, the decoration), and the whole Cacciato09
 //     CLF with its Gamma(a, x) for a in (-1, 1.5], is float64, and so is
@@ -97,6 +103,10 @@ constexpr int kNewtonSteps = 3;
 // reseeded by the bisection: three float32 Newton steps from 0.1 dex away
 // reach the float32 root as from the bisection, from 0.3 dex they do not.
 constexpr float kReseedGap = 0.15f;
+// So is one whose tangent puts the node's root further than this (dex of
+// stellar mass) from it: a flat relation (a small beta) moves the root by
+// many dex between close nodes, and Newton steps from there diverge.
+constexpr float kReseedMove = 0.1f;
 
 // What a launch needs of the model and the node plan.  Parameter columns,
 // in order (ops/fused.py:OccupationFamily):
@@ -163,6 +173,7 @@ __device__ __forceinline__ T pick(const T (&a)[kMaxTables], int t) {
 struct Shmr {
   double log_m1, x0, beta, delta, gamma, tail;   // x = ls - x0
   float f_log_m1, f_x0, f_beta, f_delta, f_gamma, f_tail;
+  bool increasing;   // beta, delta, gamma > 0: the inverse's domain
 };
 
 __device__ Shmr make_shmr(double log_m1, double log_m0, double beta,
@@ -180,6 +191,7 @@ __device__ Shmr make_shmr(double log_m1, double log_m0, double beta,
   s.f_delta = static_cast<float>(delta);
   s.f_gamma = static_cast<float>(gamma);
   s.f_tail = static_cast<float>(s.tail);
+  s.increasing = beta > 0.0 && delta > 0.0 && gamma > 0.0;
   return s;
 }
 
@@ -214,24 +226,27 @@ __device__ __forceinline__ float newton_f(const Shmr& s, float ls, float y,
 }
 
 // The float32 root of the node inverted before (NaN: none yet in this
-// block) and the float32 node it was found at.
+// block), the float32 node it was found at and the relation's slope there.
 struct WarmStart {
-  float root, at;
+  float root, at, df;
 };
 
 // log10 M* at the node (lm: float32, y: float64), see the header.  The
 // Newton steps start from the root at the node inverted before (every
-// thread of a warp is at the same node, so the branch is warp-uniform);
-// the bisection seeds a block's first node and a node more than
-// kReseedGap from that one.  The float64 step takes the float32
-// derivative: the root is a few ulp off, so the derivative's own float32
-// error moves the result by ~1e-13.  Inlined at every call, so that a
-// population's terms and warm start stay in registers (Tinker13 calls it
-// for two).
+// thread of a warp is at the same node, so the gap's branch is
+// warp-uniform; the slope's is not); the bisection seeds a block's first
+// node, a node more than kReseedGap from that one, and a node whose root
+// the slope there puts more than kReseedMove away.  The float64 step
+// takes the float32 derivative: the root is a few ulp off, so the
+// derivative's own float32 error moves the result by ~1e-13.  Inlined at
+// every call, so that a population's terms and warm start stay in
+// registers (Tinker13 calls it for two).
 __device__ __forceinline__ double shmr_log_mstar(const Shmr& s, float lm,
                                                  double y, WarmStart* warm) {
+  if (!s.increasing) return NAN;   // no inverse: skip the walk
   float ls = warm->root;
-  if (isnan(ls) || fabsf(lm - warm->at) > kReseedGap) {
+  const float gap = fabsf(lm - warm->at);
+  if (isnan(ls) || gap > kReseedGap || !(gap <= kReseedMove * warm->df)) {
     float lo = kBracketLo, hi = kBracketHi;
     for (int k = 0; k < kBisectSteps; ++k) {
       const float mid = 0.5f * (lo + hi);
@@ -243,9 +258,13 @@ __device__ __forceinline__ double shmr_log_mstar(const Shmr& s, float lm,
     ls = 0.5f * (lo + hi);
   }
   float df = 1.0f;
-  for (int k = 0; k < kNewtonSteps; ++k) ls = newton_f(s, ls, lm, &df);
+  for (int k = 0; k < kNewtonSteps; ++k)
+    ls = fminf(fmaxf(newton_f(s, ls, lm, &df), kBracketLo), kBracketHi);
   warm->root = ls;
   warm->at = lm;
+  warm->df = df;
+  // Held at an end of the bracket, the root lies beyond it: the end.
+  if (ls <= kBracketLo || ls >= kBracketHi) return static_cast<double>(ls);
   const double x0 = static_cast<double>(ls);
   return x0 - (shmr_log_mh(s, x0) - y) / static_cast<double>(df);
 }
@@ -265,7 +284,7 @@ __device__ void satellite_terms(double threshold, double alphasat,
   p->log_msat = 12.0 + log10(bsat) + betasat * (log_mh_t - 12.0);
   p->log_mcut = 12.0 + log10(bcut) + betacut * (log_mh_t - 12.0);
   p->ln10_alpha = kLn10 * alphasat;
-  p->warm = {NAN, 0.0f};
+  p->warm = {NAN, 0.0f, 0.0f};
 }
 
 // A Leauthaud11-layout population at columns [c, c + 16) of row b.
@@ -277,7 +296,8 @@ __device__ Population leauthaud11_population(const OccArgs& A, int c, int b) {
                   par(A, c + 4, b) + par(A, c + 5, b) * am1,
                   par(A, c + 6, b) + par(A, c + 7, b) * am1,
                   par(A, c + 8, b) + par(A, c + 9, b) * am1, A.log_h);
-  p.inv_scatter = 1.0 / (kSqrt2 * par(A, c + 10, b));
+  const double scatter = par(A, c + 10, b);   // NaN unless positive
+  p.inv_scatter = scatter > 0.0 ? 1.0 / (kSqrt2 * scatter) : NAN;
   satellite_terms(A.threshold, par(A, c + 11, b), par(A, c + 12, b),
                   par(A, c + 13, b), par(A, c + 14, b), par(A, c + 15, b),
                   &p);

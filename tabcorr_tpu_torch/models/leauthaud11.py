@@ -15,9 +15,13 @@ f_SHMR^-1 (stellar -> halo mass) is the closed-form Behroozi relation; the
 forward direction f_SHMR, needed for centrals, is a monotone inversion
 (``utils.inversion.monotone_inverse``): a log-M* grid in the query's dtype
 seeds a piecewise-linear estimate that three Newton steps with the
-analytic derivative refine.  The expressions and their order follow the
-JAX package; on tensors the parameters are (B, 1, 1) and the nodes
-(n_bins, n_gauss), on numpy scalars and float64 arrays.
+analytic derivative refine.  The inverse exists where the relation
+increases; its form guarantees that where beta, delta and gamma (at the
+scale factor) are all positive, as in every published fit, and f_SHMR is
+NaN elsewhere (:func:`shmr_increasing`; the JAX package inverts such a
+relation all the same, to one of its roots).  The expressions and their
+order follow the JAX package; on tensors the parameters are (B, 1, 1) and
+the nodes (n_bins, n_gauss), on numpy scalars and float64 arrays.
 """
 
 from __future__ import annotations
@@ -96,27 +100,65 @@ def shmr_inverse(log_mh, fwd, dfwd):
     """log10 M* at which the monotone relation ``fwd`` (log10 M* ->
     log10 Mh) reaches ``log_mh``: grid-seeded Newton inversion, the grid
     in the query's dtype and namespace.  Queries outside the grid's
-    halo-mass range clamp to its ends."""
+    halo-mass range give its ends: each of the three Newton steps is held
+    to the grid's range, where a flat relation (a small beta) would
+    otherwise carry the lowest halos' roots tens of dex below it, and
+    overflow in float32."""
     if is_numpy(log_mh):
         grid = np.linspace(_GRID_LO, _GRID_HI, _GRID_N, dtype=log_mh.dtype)
     else:
         grid = torch.linspace(_GRID_LO, _GRID_HI, _GRID_N,
                               dtype=log_mh.dtype, device=log_mh.device)
-    return monotone_inverse(fwd, log_mh, grid, dfn=dfwd)
+    return monotone_inverse(fwd, log_mh, grid, dfn=dfwd, clamp=True)
+
+
+def shmr_increasing(beta, delta, gamma):
+    """Whether the Behroozi10 form with these coefficients increases by
+    construction: its derivative ``beta + ln10 10^(delta x) (delta +
+    (delta + gamma) 10^(-gamma x)) / (1 + 10^(-gamma x))^2`` is then
+    positive for every x.  Elsewhere it may turn (beta < 0 bends it down
+    at low mass) and has no inverse."""
+    return (beta > 0) & (delta > 0) & (gamma > 0)
+
+
+def _where(ok, x):
+    """``x`` where ``ok``, NaN elsewhere, on ``x``'s backend."""
+    if isinstance(ok, (bool, np.bool_)):
+        return x if ok else x * math.nan
+    if is_numpy(x):
+        return np.where(ok, x, np.nan)
+    return torch.where(ok, x, math.nan)
+
+
+def defined_inverse(log_mstar, beta, delta, gamma):
+    """``log_mstar`` where :func:`shmr_increasing`, NaN elsewhere (the
+    coefficients broadcast against it)."""
+    return _where(shmr_increasing(beta, delta, gamma), log_mstar)
+
+
+def positive(scatter):
+    """The central scatter where it is positive, NaN elsewhere: a width
+    of zero or below is no log-normal (the JAX package evaluates the erfc
+    with it, which turns the central occupation around)."""
+    return _where(scatter > 0, scatter)
 
 
 def fshmr_log_mstar(log_mh, params, a, littleh=0.72):
     """log10 f_SHMR(Mh): mean stellar mass at halo mass Mh, the monotone
-    inversion of :func:`behroozi10_log_halo_mass`."""
+    inversion of :func:`behroozi10_log_halo_mass`; NaN where the relation
+    is not increasing by construction (:func:`shmr_increasing`)."""
     log_mh = asarray(log_mh, log_mh)
-    return shmr_inverse(
+    _, _, beta, delta, gamma = _smhm_coeffs(params, a)
+    return defined_inverse(shmr_inverse(
         log_mh, lambda ls: behroozi10_log_halo_mass(ls, params, a, littleh),
-        lambda ls: _d_log_mh_d_log_mstar(ls, params, a, littleh))
+        lambda ls: _d_log_mh_d_log_mstar(ls, params, a, littleh)),
+        beta, delta, gamma)
 
 
 def leauthaud11_centrals(params, log_prim_haloprop, threshold, a,
                          littleh=0.72, log_prim_res=None):
-    """<N_cen>: Leauthaud et al. (2011), eq. 8.
+    """<N_cen>: Leauthaud et al. (2011), eq. 8; NaN where the scatter is
+    not positive (:func:`positive`) or f_SHMR is undefined.
 
     ``log_prim_res`` (the float64 residual of the float32 node) shifts
     log10 M* by res / f'(log10 M*) (implicit function theorem, with the
@@ -128,7 +170,7 @@ def leauthaud11_centrals(params, log_prim_haloprop, threshold, a,
     if log_prim_res is not None:
         centered = centered - log_prim_res / _d_log_mh_d_log_mstar(
             log_fshmr, params, a, littleh)
-    inv_scatter = 1.0 / (_SQRT2 * params["scatter_model_param1"])
+    inv_scatter = 1.0 / (_SQRT2 * positive(params["scatter_model_param1"]))
     return 0.5 * erfc(centered * inv_scatter)
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 from ..utils.backend import asarray, erfc, exp, exp10, get_namespace, log10
 from .leauthaud11 import (_d_log_mh_d_log_mstar, behroozi10_log_halo_mass,
-                          shmr_inverse)
+                          defined_inverse, shmr_inverse)
 from .protocol import CENTRALS, HodModel
 
 _LN10 = 2.302585092994046
@@ -59,12 +59,14 @@ def zu15_log_halo_mass(log_mstar, params):
 
 def zu15_log_mstar(log_mh, params):
     """log10 f_SHMR(Mh), by the grid-seeded Newton inversion of
-    :func:`zu15_log_halo_mass`."""
+    :func:`zu15_log_halo_mass`; NaN where the relation is not increasing
+    by construction (``leauthaud11.shmr_increasing``)."""
     coeffs = _behroozi_coeff_dict(params)
     log_mh = asarray(log_mh, log_mh)
-    return shmr_inverse(
+    return defined_inverse(shmr_inverse(
         log_mh, lambda ls: behroozi10_log_halo_mass(ls, coeffs, 1.0, 1.0),
-        lambda ls: _d_log_mh_d_log_mstar(ls, coeffs, 1.0, 1.0))
+        lambda ls: _d_log_mh_d_log_mstar(ls, coeffs, 1.0, 1.0)),
+        params["smhm_beta"], params["smhm_delta"], params["smhm_gamma"])
 
 
 def zu15_scatter_ln_mstar(params, log_prim_haloprop, log_prim_res=None):

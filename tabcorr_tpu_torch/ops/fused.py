@@ -1183,7 +1183,6 @@ def occupation_outputs(plan: OccupationPlan, batch, bin_major, device):
             for nb in plan.n_bins]
 
 
-@profiling.spanned("fused.occupation_launch")
 def occupation_launch(plan: OccupationPlan, fam: OccupationFamily, pcols,
                       bin_major=True, consts=None):
     """Launch the CUDA occupation kernel once (``csrc/occupation.cu``) over
@@ -1197,9 +1196,21 @@ def occupation_launch(plan: OccupationPlan, fam: OccupationFamily, pcols,
     n[b, i] (n_bins, B) bin-major (what model code 2 reads) or (B, n_bins)
     (the contraction kernel's input).  Raises on any input the kernel does
     not take and on any launch error.  The plain version is
-    :func:`occupation_density`.
+    :func:`occupation_density`.  The ``fused.occupation_launch`` span
+    counts the batch (``rows``) and the plan's distinct abscissae a row
+    (``abscissae``, :attr:`OccupationPlan.n_distinct`).
     """
     global OCCUPATION_LAUNCHES
+    with profiling.span("fused.occupation_launch") as sp:
+        dens = _occupation_launch(plan, fam, pcols, bin_major, consts)
+        if sp:
+            sp.counts["rows"] = pcols.shape[1]
+            sp.counts["abscissae"] = plan.n_distinct
+    OCCUPATION_LAUNCHES += 1
+    return dens
+
+
+def _occupation_launch(plan, fam, pcols, bin_major, consts):
     if not isinstance(plan, OccupationPlan):
         raise ValueError("the occupation kernel reads a node plan "
                          "(occupation_plan).")
@@ -1243,7 +1254,6 @@ def occupation_launch(plan: OccupationPlan, fam: OccupationFamily, pcols,
         (ctypes.c_void_p * n_tables)(*(d.data_ptr() for d in dens)),
         int(bin_major), *_stream_args(device))
     _raise_on_error(code, "occupation", lib.tabcorr_cuda_error_string)
-    OCCUPATION_LAUNCHES += 1
     return dens
 
 

@@ -27,7 +27,8 @@ from .backend import get_namespace, interp, is_numpy
 
 
 def monotone_inverse(fn, y, x_grid=None, dfn=None, newton_steps=3,
-                     bracket=None, bisect_steps=15, seed="auto"):
+                     bracket=None, bisect_steps=15, seed="auto",
+                     clamp=False):
     """Solve fn(x) = y for a strictly monotone increasing, differentiable
     ``fn``.
 
@@ -55,6 +56,10 @@ def monotone_inverse(fn, y, x_grid=None, dfn=None, newton_steps=3,
         Bracket halvings of the bisect seed (15).
     seed : {'auto', 'interp', 'bisect'}, optional
         'auto' is interp where ``x_grid`` is given, else bisect.
+    clamp : bool, optional
+        Hold each Newton step to the bracket (``bracket``, default the
+        ends of ``x_grid``), so that a root beyond it gives its end: a
+        nearly flat ``fn`` otherwise sends a step far outside (False).
 
     Returns
     -------
@@ -68,11 +73,9 @@ def monotone_inverse(fn, y, x_grid=None, dfn=None, newton_steps=3,
             raise ValueError("seed='interp' requires x_grid.")
         x = interp(y, fn(x_grid), x_grid)
     elif seed == "bisect":
-        if bracket is None:
-            if x_grid is None:
-                raise ValueError(
-                    "seed='bisect' requires bracket= or x_grid.")
-            bracket = (float(x_grid[0]), float(x_grid[-1]))
+        if bracket is None and x_grid is None:
+            raise ValueError("seed='bisect' requires bracket= or x_grid.")
+        bracket = bracket or (float(x_grid[0]), float(x_grid[-1]))
         y = xp.asarray(y)
         lo = xp.full(y.shape, bracket[0], dtype=y.dtype)
         hi = xp.full(y.shape, bracket[1], dtype=y.dtype)
@@ -95,4 +98,7 @@ def monotone_inverse(fn, y, x_grid=None, dfn=None, newton_steps=3,
                                   (torch.ones_like(x_value),))[1]
     for _ in range(newton_steps):
         x = x - (fn(x) - y) / dfn(x)
+        if clamp:
+            x = xp.clip(x, *(bracket or (float(x_grid[0]),
+                                         float(x_grid[-1]))))
     return x

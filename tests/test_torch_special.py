@@ -184,6 +184,27 @@ def test_monotone_inverse_float32_stays_float32():
         monotone_inverse(lambda t: t, y, grid, seed="newton")
 
 
+@pytest.mark.parametrize("to", [np.asarray, torch.tensor])
+def test_monotone_inverse_clamps_each_step_to_the_bracket(to):
+    """clamp=True holds each Newton step to the grid's ends: roots inside
+    are as without it, a root beyond an end gives that end."""
+    grid = to(np.linspace(-1.0, 1.0, 41))
+    y = to(np.array([0.0, 1.0, 10.0, -10.0]))
+
+    def fn(t):
+        return t ** 3 + 2 * t
+
+    def dfn(t):
+        return 3 * t ** 2 + 2
+
+    free = monotone_inverse(fn, y, grid, dfn=dfn)
+    held = monotone_inverse(fn, y, grid, dfn=dfn, clamp=True)
+    np.testing.assert_allclose(np.asarray(held[:2]), np.asarray(free[:2]),
+                               rtol=0, atol=1e-15)
+    np.testing.assert_array_equal(np.asarray(held[2:]), [1.0, -1.0])
+    assert float(free[2]) > 1.8 and float(free[3]) < -1.8
+
+
 def test_interp_matches_numpy_and_clamps():
     rng = np.random.default_rng(2)
     xp = np.cumsum(rng.uniform(0.1, 1.0, 23))
