@@ -1632,8 +1632,9 @@ def gamma_terms(ctx, s, x, series):
 def occupation_bound(ctx, fam, plan, pcols):
     """The least time of the occupation kernel on these inputs: the work
     the node plan needs (each distinct node evaluated once, then per
-    output bin and node the decoration and the quadrature FMA; a bisection
-    per row, population and block of units), each piece at its SASS count
+    output bin and node the quadrature FMA and per unit, population and
+    node the decoration; a bisection per row, population and block of
+    units), each piece at its SASS count
     (OCC_SASS), the FP64 instructions against the FP64 pipe and the FP64
     and FP32 ones against the issue rate, against the bytes (the
     parameters read once, the densities written once).  Returns the bound
@@ -1651,10 +1652,17 @@ def occupation_bound(ctx, fam, plan, pcols):
     sat_u = np.bincount(unit, ~central, plan.n_units) > 0
     n_cen, n_sat = ng * int(cen_u.sum()), ng * int(sat_u.sum())
     per_row = plan.n_distinct * c["node_abscissa"]
-    per_row += ng * (central.sum() * (c["quadrature_fma"] + (
-        c["decorate_bounded"] if fam.decorated else 0)) + (~central).sum() * (
-        c["quadrature_fma"] + (c["decorate_unbounded"] if fam.decorated
-                               else 0)))
+    per_row += ng * plan.n_out * c["quadrature_fma"]
+    if fam.decorated:
+        # Each population of a unit decorated once a node: its shift
+        # serves the outputs above and below the split, the second of
+        # which costs a multiply-add more.
+        above = plan.out_sec.cpu().numpy() >= np.float32(fam.split - 1e-6)
+        sides = [np.bincount(unit, pop & side, plan.n_units) > 0
+                 for pop in (central, ~central) for side in (above, ~above)]
+        both = int((sides[0] & sides[1]).sum() + (sides[2] & sides[3]).sum())
+        per_row += n_cen * c["decorate_bounded"] + n_sat * c[
+            "decorate_unbounded"] + ng * both * c["multiply"]
     blocks = -(-plan.n_units // fused.occupation_units_per_block(
         plan.n_units, batch))
     inversion = NEWTON_F32_STEPS * c["newton_f32_step"] + c["newton_f64_step"]

@@ -19,10 +19,11 @@ Sigma sweeps and on chip_smoke's 65,536-tracer wp subsample.  The
 bfloat16 contraction (bf16.cu), whose C entry point changed with its
 wgmma redesign, is timed on path 12's six inputs (the bf16 route's
 densities of wp, xi_ell, Delta Sigma, the 64-node grid, ds 'efficient'
-and the wide grid): this tree's through its wrapper, the parent's
-mma.sync kernel through its own layout (the zero-padded (n_xi ni, kp)
-matrix, kp the bins rounded up to 16, ni to 8) and launch arithmetic; the
-two results are compared in bfloat16 ulps.  Times are
+and the wide grid) where the parent's bf16.cu differs from this tree's:
+this tree's through its wrapper, the parent's mma.sync kernel through
+its own layout (the zero-padded (n_xi ni, kp) matrix, kp the bins
+rounded up to 16, ni to 8) and launch arithmetic; the two results are
+compared in bfloat16 ulps.  Times are
 CUDA-event windows in turns (parent, this tree, this tree, parent, for
 ``--rounds`` rounds), each kernel's median printed beside the card's name
 and power limit.  It also prints which source files differ between the
@@ -339,7 +340,7 @@ def main():
             "parent": {n: bind(n, p) for n, p in parent_paths.items()
                        if n in LIBRARIES}}
     parent_bf16 = (bind_parent_bf16(parent_paths["bf16"])
-                   if "bf16" in parent_paths else None)
+                   if "bf16.cu" in changed else None)
     summary = {"card": name, "changed": changed, "sass": {}, "ms": {}}
     for lib_name, path in parent_paths.items():
         mine = sass_functions(build.library_path(lib_name))

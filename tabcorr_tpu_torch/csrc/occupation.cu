@@ -39,12 +39,15 @@
 //     CLF with its Gamma(a, x) for a in (-1, 1.5], is float64, and so is
 //     the quadrature sum; the density is rounded to float32 once.
 //
-// What bounds it on an H100: the FP64 pipe.  Per (row, node) the
-// inversion's float64 step, the erfc and the satellites' power law are
-// libdevice sequences of tens of FP64 instructions each, and Cacciato09's
-// Gamma(a, x) a float64 series or continued fraction of ~20-40 terms; the
-// float32 Newton steps run on the FP32 pipe beside them.  The bytes are 4
-// per density written.
+// What bounds it on an H100: the instruction rate (one warp instruction
+// a cycle per scheduler).  A (row, node) of the decorated Leauthaud11
+// takes ~700 instructions on its hot path (SASS): ~200 for the three
+// float32 Newton steps, ~220 FP64 in the float64 step, the erfc and the
+// satellites' power law (libdevice sequences of tens of FP64 instructions
+// each), the rest conversions, selects, loads and the quadrature;
+// Cacciato09's Gamma(a, x) is a float64 series or continued fraction of
+// ~20-40 terms.  The FP64 pipe is busy about 40% of the time.  The bytes
+// are 4 per density written.
 //
 // What the design does about it: the work is laid out by the node plan
 // (ops/fused.py: OccupationPlan), built once per predictor on the host.
@@ -59,13 +62,21 @@
 // satellites' modulation reads it, the satellites' where any output reads
 // them, reusing that central value -- and then every output bin of the
 // unit is decorated and summed in float64, in node order, in registers,
-// rounded once and stored (coalesced, in the bin-major layout).  The
+// rounded once and stored (coalesced, in the bin-major layout).  For
+// Leauthaud11 a node's centrals and satellites are each decorated once
+// (kSharedDecoration): the shift is the same for the unit's outputs above
+// and below the split, so an output costs a select and an FMA.  The
 // float32 Newton warm start carries from node to node and unit to unit in
 // ascending mass, so the bisection seeds only a block's first node (and a
-// node more than kReseedGap dex from the last one inverted).  A row's
-// parameter terms are formed once per block; every thread of a warp reads
-// the same plan entries (broadcast loads).  The family is a template
-// parameter: a launch compiles no other family's code.
+// node more than kReseedGap dex from the last one inverted).  The float32
+// walk and the float64 rest of a node run one after the other in a
+// thread; other warps' phases fill the pipes beside them (walking two
+// nodes before their float64 rest measured slower: ptxas keeps each
+// node's libdevice sequences, cut at the float64 division's slow-path
+// call and erfc's branches, one after the other).  A row's parameter
+// terms are formed once per block; every thread of a warp reads the same
+// plan entries (broadcast loads).  The family is a template parameter: a
+// launch compiles no other family's code.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -542,11 +553,13 @@ struct Row<kCacciato09> {
 };
 
 // heaviside_assembias of models/assembias.py in float64, for a strength
-// already clipped to [-1, 1]: `ceiling` bounds the centrals (1, or
-// Tinker13's population fraction); satellites have no upper bound.
-__device__ __forceinline__ double decorate(double base, double strength,
-                                          bool above, bool bounded,
-                                          double ceiling, const OccArgs& A) {
+// already clipped to [-1, 1]: the shift of `base` above the split (below
+// it, the shift times -(1 - split) / split).  `ceiling` bounds the
+// centrals (1, or Tinker13's population fraction); satellites have no
+// upper bound.
+__device__ __forceinline__ double decoration(double base, double strength,
+                                            bool bounded, double ceiling,
+                                            const OccArgs& A) {
   double room_up, room_down;
   if (bounded) {
     room_up = fmin(ceiling - base, A.ratio * base);
@@ -555,8 +568,13 @@ __device__ __forceinline__ double decorate(double base, double strength,
     room_up = A.ratio * base;
     room_down = base;
   }
-  const double delta =
-      strength >= 0.0 ? strength * room_up : strength * room_down;
+  return strength >= 0.0 ? strength * room_up : strength * room_down;
+}
+
+__device__ __forceinline__ double decorate(double base, double strength,
+                                          bool above, bool bounded,
+                                          double ceiling, const OccArgs& A) {
+  const double delta = decoration(base, strength, bounded, ceiling, A);
   return above ? base + delta : base - delta * A.below_scale;
 }
 
@@ -568,6 +586,12 @@ __device__ __forceinline__ double decorate(double base, double strength,
 template <int FAMILY>
 constexpr int kMinBlocks =
     FAMILY == kTinker13 || FAMILY == kCacciato09 ? 6 : 0;
+
+// Families whose node loop decorates each population once a node, for
+// every output of the unit; the others decorate each output (ptxas' code
+// for ZuMandelbaum15 and Tinker13 measured slower with the shared form).
+template <int FAMILY>
+constexpr bool kSharedDecoration = FAMILY == kLeauthaud11;
 
 template <int FAMILY>
 __global__ void __launch_bounds__(kRows, kMinBlocks<FAMILY>)
@@ -608,18 +632,50 @@ occupation_kernel(const OccArgs A) {
       const double y =
           static_cast<double>(lmg) + static_cast<double>(__ldg(rs + g));
       const NodeOcc v = row.node(A, lmg, y, need_cen, need_sat);
+      if constexpr (kSharedDecoration<FAMILY>) {
+        // The node's four occupations (centrals and satellites, above and
+        // below the split), each population decorated once.
+        double cen_hi = v.cen, cen_lo = v.cen, sat_hi = v.sat,
+               sat_lo = v.sat;
+        if (A.decorated) {
+          if (need_cen) {
+            const double d =
+                decoration(v.cen, strength_c, true, v.ceiling, A);
+            cen_hi = v.cen + d;
+            cen_lo = v.cen - d * A.below_scale;
+          }
+          if (need_sat) {
+            const double d = decoration(v.sat, strength_s, false, 1.0, A);
+            sat_hi = v.sat + d;
+            sat_lo = v.sat - d * A.below_scale;
+          }
+        }
 #pragma unroll
-      for (int o = 0; o < kMaxOuts; ++o) {
-        if (o < n_out) {
-          const bool is_cen = (central >> o) & 1u;
-          double occ = is_cen ? v.cen : v.sat;
-          if (A.decorated)
-            occ = decorate(occ, is_cen ? strength_c : strength_s,
-                           (above >> o) & 1u, is_cen, v.ceiling, A);
-          acc[o] = fma(occ,
-                       static_cast<double>(
-                           __ldg(A.w + (size_t)(o0 + o) * A.ng + g)),
-                       acc[o]);
+        for (int o = 0; o < kMaxOuts; ++o) {
+          if (o < n_out) {
+            const bool hi = (above >> o) & 1u;
+            const double occ = (central >> o) & 1u ? (hi ? cen_hi : cen_lo)
+                                                   : (hi ? sat_hi : sat_lo);
+            acc[o] = fma(occ,
+                         static_cast<double>(
+                             __ldg(A.w + (size_t)(o0 + o) * A.ng + g)),
+                         acc[o]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int o = 0; o < kMaxOuts; ++o) {
+          if (o < n_out) {
+            const bool is_cen = (central >> o) & 1u;
+            double occ = is_cen ? v.cen : v.sat;
+            if (A.decorated)
+              occ = decorate(occ, is_cen ? strength_c : strength_s,
+                             (above >> o) & 1u, is_cen, v.ceiling, A);
+            acc[o] = fma(occ,
+                         static_cast<double>(
+                             __ldg(A.w + (size_t)(o0 + o) * A.ng + g)),
+                         acc[o]);
+          }
         }
       }
     }

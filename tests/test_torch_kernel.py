@@ -26,6 +26,12 @@ from tabcorr_tpu_torch import (AssembiasLeauthaud11Model,
                                make_predictor, occupation_functions,
                                params_batch)
 from tabcorr_tpu_torch.io import ColumnTable
+from tabcorr_tpu_torch.models.leauthaud11 import (_d_log_mh_d_log_mstar,
+                                                  behroozi10_log_halo_mass,
+                                                  fshmr_log_mstar)
+from tabcorr_tpu_torch.models.zu_mandelbaum15 import (_behroozi_coeff_dict,
+                                                      zu15_log_halo_mass,
+                                                      zu15_log_mstar)
 from tabcorr_tpu_torch.ops import fused
 from tabcorr_tpu_torch.ops.predict import TableData, quadrature_grid
 from tabcorr_tpu_torch.predictor import stacked_grid
@@ -1519,13 +1525,25 @@ def _assert_occupation_close(got_rows, table, table64, model, params):
     1e-6 (the kernel evaluates the nodes in float64 and rounds once), where
     it is the more exact side of the comparison with plain."""
     plain = fused.occupation_density(table, model, params)
-    want64 = fused.occupation_density(
-        table64, model, {k: v.double() for k, v in params.items()})
-    assert bool(torch.isfinite(got_rows).all())
     d = (got_rows.double() - plain.double()).abs()
     bar = 1e-4 * plain.double().abs() + 2e-6 * plain.double().abs().amax(
         1, keepdim=True)
     assert bool((d <= bar).all()), float((d / bar).max())
+    _assert_occupation_exact(got_rows, table, table64, model, params, plain)
+
+
+def _assert_occupation_exact(got_rows, table, table64, model, params,
+                             plain=None):
+    """The float64 half of :func:`_assert_occupation_close`: finite, within
+    1e-6 of the float64 tensor path and no further from it than the plain
+    version (down to 2e-7).  Alone where the plain float32 version is
+    itself off float64 by more than its bar with the kernel (nearly flat
+    relations, roots held at the bracket's ends)."""
+    if plain is None:
+        plain = fused.occupation_density(table, model, params)
+    want64 = fused.occupation_density(
+        table64, model, {k: v.double() for k, v in params.items()})
+    assert bool(torch.isfinite(got_rows).all())
     assert _density_errors(got_rows, want64) <= 1e-6
     assert _density_errors(got_rows, want64) <= max(
         2e-7, _density_errors(plain, want64))
@@ -1739,6 +1757,202 @@ def test_occupation_wrapper_rejects_bad_inputs(cuda):
     assert fused.occupation_launch(plan, fam, good[:, :0])[0].shape == (
         c.n_bins, 0)
     assert fused.OCCUPATION_LAUNCHES == before + 1
+
+
+# ----------------------------------------------------------------------
+# The SHMR walk at its edges (csrc/occupation.cu shmr_log_mstar): the
+# float32 warm start carried from node to node and from unit to unit of a
+# block, the bisection reseed, the Newton steps held to [5, 13] and the
+# domain, for the SHMR families (Leauthaud11 decorates each population
+# once a node, kSharedDecoration), on wp (30 units of 10 nodes).
+# ----------------------------------------------------------------------
+SHMR_KINDS = ("assembias_leauthaud11", "assembias_zu15")
+
+
+def _shmr_model(kind, threshold=10.5):
+    if kind == "assembias_leauthaud11":
+        return AssembiasLeauthaud11Model(threshold=threshold)
+    return AssembiasZuMandelbaum15Model(threshold=threshold,
+                                        prim_haloprop_key="halo_mvir")
+
+
+def _shmr_relation(kind, model):
+    """The model's relation in float64: log10 Mh(log10 M*), its inverse
+    (held to [5, 13]) and its slope d log10 Mh / d log10 M*."""
+    if kind == "assembias_leauthaud11":
+        a, h = model._a, model.littleh
+        return (lambda ls, p: behroozi10_log_halo_mass(ls, p, a, h),
+                lambda lm, p: fshmr_log_mstar(lm, p, a, h),
+                lambda ls, p: _d_log_mh_d_log_mstar(ls, p, a, h))
+    return (zu15_log_halo_mass, zu15_log_mstar,
+            lambda ls, p: _d_log_mh_d_log_mstar(
+                ls, _behroozi_coeff_dict(p), 1.0, 1.0))
+
+
+def _shmr_keys(kind):
+    """The keys of beta, delta, gamma and log10 M1 (Zu15: M1)."""
+    if kind == "assembias_leauthaud11":
+        return ("smhm_beta_0", "smhm_delta_0", "smhm_gamma_0", "smhm_m1_0")
+    return ("smhm_beta", "smhm_delta", "smhm_gamma", "smhm_m1")
+
+
+def _wp_occupation(cuda):
+    tab = TabCorr.read(DATA / "bolplanck_wp.npz")
+    table = tab.table_data(device=cuda)
+    plan = fused.slab_tc_table_constants(table, 1).occupation_plan
+    return table, tab.table_data(device=cuda, dtype=torch.float64), plan
+
+
+def _plan_abscissae(plan):
+    return plan.node.double() + plan.res.double()
+
+
+def _launch_rows(plan, model, params):
+    fam = fused.OccupationFamily.of(model)
+    got, = fused.occupation_launch(plan, fam,
+                                   fused.family_columns(params, fam),
+                                   bin_major=False)
+    torch.cuda.synchronize()
+    return got
+
+
+@pytest.mark.parametrize("kind", SHMR_KINDS)
+def test_occupation_kernel_reseeds_the_walk_inside_a_unit(cuda, kind):
+    """Nearly flat relations (beta 5e-4, 1e-3, 5e-3; delta or gamma 0.02):
+    the slope at a node's root puts the next node's root more than 0.2 dex
+    away inside a unit, so the walk reseeds there; against float64."""
+    model = _shmr_model(kind)
+    table, table64, plan = _wp_occupation(cuda)
+    params = _occupation_params(model, 4096 + 37, 21, cuda)
+    beta, delta, gamma, _ = _shmr_keys(kind)
+    for i, (b, d, g) in enumerate([(5e-4, None, None), (1e-3, 0.02, None),
+                                   (5e-3, None, 0.02)]):
+        params[beta][i::3] = b
+        if d is not None:
+            params[delta][i::3] = d
+        if g is not None:
+            params[gamma][i::3] = g
+    _, inverse, slope = _shmr_relation(kind, model)
+    y = _plan_abscissae(plan)
+    p64 = {k: v.double()[:, None, None] for k, v in params.items()}
+    roots = inverse(y[None], p64)
+    inside = (roots > 5.0) & (roots < 13.0)
+    moves = (y[:, 1:] - y[:, :-1])[None] > 0.2 * slope(roots, p64)[..., :-1]
+    assert int((moves & inside[..., :-1] & inside[..., 1:]).sum()) > 100
+    _assert_occupation_exact(_launch_rows(plan, model, params), table,
+                             table64, model, params)
+
+
+@pytest.mark.parametrize("end", [5.0, 13.0])
+@pytest.mark.parametrize("kind", SHMR_KINDS)
+def test_occupation_kernel_holds_roots_at_an_end_inside_a_unit(cuda, kind,
+                                                               end):
+    """M1 moved row by row so that the relation reaches `end` between the
+    5th and 6th node of a unit (each row another unit): half the unit's
+    roots lie beyond [5, 13] and are held at the end, the next unit's walk
+    starts from there; a threshold 0.2 dex inside the end; against
+    float64."""
+    model = _shmr_model(kind, threshold=end + (0.2 if end == 5.0 else -0.2))
+    table, table64, plan = _wp_occupation(cuda)
+    batch = 4096 + 37
+    params = _occupation_params(model, batch, 22, cuda)
+    forward, inverse, _ = _shmr_relation(kind, model)
+    y = _plan_abscissae(plan)
+    unit = torch.arange(batch, device=cuda) % plan.n_units
+    p64 = {k: v.double() for k, v in params.items()}
+    shift = 0.5 * (y[unit, 4] + y[unit, 5]) - forward(
+        torch.tensor(end, dtype=torch.float64, device=cuda), p64)
+    m1 = _shmr_keys(kind)[3]
+    params[m1] = (p64[m1] + shift if kind == "assembias_leauthaud11" else
+                  p64[m1] * 10.0 ** shift).float()
+    roots = inverse(y[unit], {k: v.double()[:, None]
+                              for k, v in params.items()})
+    low, high = roots[:, :5], roots[:, 5:]
+    if end == 13.0:
+        assert bool(((low < end).all(1) & (high >= end).all(1)).all())
+    else:
+        assert bool(((low <= end).all(1) & (high > end).all(1)).all())
+    _assert_occupation_exact(_launch_rows(plan, model, params), table,
+                             table64, model, params)
+
+
+@pytest.mark.parametrize("kind", SHMR_KINDS)
+def test_occupation_kernel_keeps_nan_rows_beside_sound_rows(cuda, kind):
+    """Every odd row outside the inverse's domain (beta, delta or gamma
+    negative; Leauthaud11's scatter too): NaN where the float64 path is
+    NaN, and the even rows of the same warps against float64."""
+    model = _shmr_model(kind)
+    table, table64, plan = _wp_occupation(cuda)
+    batch = 4096 + 37
+    params = _occupation_params(model, batch, 23, cuda)
+    beta, delta, gamma, _ = _shmr_keys(kind)
+    outside = [(beta, -0.1), (delta, -0.1), (gamma, -0.5)]
+    if kind == "assembias_leauthaud11":
+        outside.append(("scatter_model_param1", -0.05))
+    for i, (key, value) in enumerate(outside):
+        params[key][2 * i + 1::2 * len(outside)] = value
+    got = _launch_rows(plan, model, params)
+    want64 = fused.occupation_density(
+        table64, model, {k: v.double() for k, v in params.items()})
+    odd = torch.arange(batch, device=cuda) % 2 == 1
+    assert torch.equal(torch.isnan(got), torch.isnan(want64))
+    assert torch.equal(torch.isnan(got).any(1), odd)
+    sound = {k: v[~odd] for k, v in params.items()}
+    _assert_occupation_close(got[~odd], table, table64, model, sound)
+
+
+@pytest.mark.parametrize("kind", SHMR_KINDS)
+def test_occupation_kernel_carries_the_walk_across_a_blocks_units(
+        cuda, monkeypatch, kind):
+    """Four units a block (the last block two): the warm start carries from
+    each unit's last node to the next unit's first inside a block, and the
+    bisection reseeds at each block's first; against plain and float64."""
+    model = _shmr_model(kind)
+    table, table64, plan = _wp_occupation(cuda)
+    batch = 4096 + 37
+    monkeypatch.setattr(fused, "_OCC_TARGET_BLOCKS", 247)
+    assert fused.occupation_units_per_block(plan.n_units, batch) == 4
+    assert plan.n_units % 4 == 2
+    params = _occupation_params(model, batch, 24, cuda)
+    _assert_occupation_close(_launch_rows(plan, model, params), table,
+                             table64, model, params)
+
+
+def _cross_table(n_gauss, dtype, device):
+    """A cross table of 20 mass bins 0.2 dex wide from 11 to 15, centrals
+    and satellites, ``n_gauss`` nodes a bin; secondary percentiles
+    alternate 0.25 / 0.75."""
+    rng = np.random.default_rng(25)
+    log_min = np.tile(np.linspace(11.0, 14.8, 20), 2)
+    log_quad, weight = quadrature_grid(log_min, log_min + 0.2,
+                                       np.full(40, -1.7), n_gauss)
+    lo = None
+    if dtype == torch.float32:
+        lo = log_quad - log_quad.astype(np.float32).astype(np.float64)
+    return TableData.from_numpy(
+        dict(tpcf_dense=3.0 + rng.normal(size=(13, 40)),
+             n_h=10.0 ** rng.uniform(-6, -2, 40), log_prim_quad=log_quad,
+             quad_weight=weight,
+             sec_perc=np.where(np.arange(40) % 2, 0.25, 0.75),
+             log_prim_quad_lo=lo),
+        mode="cross", tpcf_shape=(13,), n_centrals=20, device=device,
+        dtype=dtype)
+
+
+@pytest.mark.parametrize("n_gauss", [1, 21])
+@pytest.mark.parametrize("kind", SHMR_KINDS)
+def test_occupation_kernel_takes_one_node_a_unit_and_many(cuda, kind,
+                                                          n_gauss):
+    """Units of one node and of 21 (the wp tables' 10 elsewhere); against
+    plain and float64."""
+    model = _shmr_model(kind)
+    table = _cross_table(n_gauss, torch.float32, cuda)
+    plan = fused.grid_table_constants(table, 1).occupation_plan
+    assert (plan.n_units, plan.n_gauss) == (20, n_gauss)
+    params = _occupation_params(model, 4096 + 37, 26, cuda)
+    _assert_occupation_close(_launch_rows(plan, model, params), table,
+                             _cross_table(n_gauss, torch.float64, cuda),
+                             model, params)
 
 
 def test_slab_tc_is_wgmma_on_tma_in_every_instantiation(cuda):
