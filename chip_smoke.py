@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels (tabcorr_tpu_torch/csrc: the
-bundle and contraction kernels in bundle.cu, the grid kernels in grid.cu,
+bundle and contraction kernels in bundle.cu, the grid kernel in grid.cu,
 the slab kernels in slab.cu, the occupation kernel of the HOD families in
 occupation.cu, the labeled pair counter in paircount.cu, the bfloat16
 contraction in bf16.cu, one nvcc each, in parallel) and drives
@@ -29,9 +29,7 @@ shapes, 262,144 parameter vectors each unless said otherwise:
    with ``accuracy="elementwise"``.
 4. Grid: the same entry points on the 'efficient' Delta Sigma Interpolator
    (cross mode, 1104 bins, 4 log_eta nodes), zheng07 at threshold -21,
-   z = 0.5; then again with the decorated model.  Beside each grid path
-   the grid kernel and grid_tc (3xTF32 on the tensor cores) run on the
-   same inputs, timed in turns.
+   z = 0.5; then again with the decorated model.
 5. Grid sampler: the Gaussian log posterior over the 64-node grid
    predictor on all 8 parameters, three ensemble steps, 262,144 walkers.
 6. Contraction: ``make_predictor(tab, engine="fused")`` on both bundle
@@ -39,7 +37,7 @@ shapes, 262,144 parameter vectors each unless said otherwise:
 7. Wide grid (slab_tc kernel, 3xTF32 on wgmma): ``make_predictor(interp,
    engine="fused", accuracy="scaled")`` on the 64-node grid of 160 bins
    (40 mass x 2 secondary-percentile bins x 2 galaxy types), too wide for
-   the grid kernels' packed layout; the decorated model at threshold -20,
+   the grid kernel's packed layout; the decorated model at threshold -20,
    32,768 rows, a few outside the grid; then two ensemble steps over its
    10 parameters; then slab_tc against its plain version off those
    shapes (156 bins at 32,691 rows; 400 bins, whose block has one
@@ -195,9 +193,7 @@ shapes, 262,144 parameter vectors each unless said otherwise:
 
 Paths 3-5 and 7 run the 'scaled' contract: the grid kernel and slab_tc;
 the 'elementwise' passes run the grid kernel and the FP32 slab kernel,
-held against the same plain versions.  No contract routes to grid_tc
-(``fused.grid_kernel_for``), so one direct pass through its wrapper holds
-it against the plain version and times it.
+held against the same plain versions.
 
 Every launch counter is set to 0 right before each path and read right
 after it.  Then each kernel's results are held against its plain PyTorch
@@ -246,7 +242,6 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "bundle": (CSRC + "bundle.cu", "tabcorr_tpu/ops/fused.py:600"),
     "contraction": (CSRC + "bundle.cu", "tabcorr_tpu/ops/fused.py:125"),
     "grid": (CSRC + "grid.cu", "tabcorr_tpu/ops/fused.py:1485"),
-    "grid_tc": (CSRC + "grid.cu", "tabcorr_tpu/ops/fused.py:1485"),
     "slab": (CSRC + "slab.cu", "tabcorr_tpu/ops/fused.py:1162"),
     "slab_tc": (CSRC + "slab.cu", "tabcorr_tpu/ops/fused.py:1162"),
     # The occupation phase the Pallas kernels B1, B4 and B2 trace in their
@@ -267,7 +262,6 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 COUNTERS = {"bundle": ("fused", "BUNDLE_LAUNCHES"),
             "contraction": ("fused", "CONTRACTION_LAUNCHES"),
             "grid": ("fused", "GRID_LAUNCHES"),
-            "grid_tc": ("fused", "GRID_TC_LAUNCHES"),
             "slab": ("fused", "SLAB_LAUNCHES"),
             "slab_tc": ("fused", "SLAB_TC_LAUNCHES"),
             "occupation": ("fused", "OCCUPATION_LAUNCHES"),
@@ -816,8 +810,6 @@ def grid_phases(ctx, kernels):
 
     # The kernel the 'scaled' contract routes to (fused.grid_kernel_for).
     kname = fused.grid_kernel_for("packed", "scaled")
-    launch = {"grid": fused.grid_launch, "grid_tc": fused.grid_tc_launch}[
-        kname]
     launches = grid_launches = 0
     for name, interp, model, params in cases:
         predict = make_predictor(interp, model, engine="fused",
@@ -880,7 +872,7 @@ def grid_phases(ctx, kernels):
         hod = fused.KernelModel.of(model)
         pmat = torch.stack([params[k] for k in hod.param_names], dim=1)
         k_ms, p_ms, k_w, p_w = ctx["alternate"](
-            lambda: launch(g, pmat, nw, hod),
+            lambda: fused.grid_launch(g, pmat, nw, hod),
             lambda: fused.grid_predict_plain(g, params, nw, *occ), 3, 2)
         e2e_ms = ctx["window_ms"](lambda: predict(params), 3)
         print(f"timing ({name}): {kname} kernel {k_ms:.4f} ms per "
@@ -888,7 +880,6 @@ def grid_phases(ctx, kernels):
               f"{p_ms:.4f} ms (windows {p_w}); whole predictor "
               f"{e2e_ms:.4f} ms ({BATCH / e2e_ms * 1e3:.6g} predictions/s) "
               f"on {ctx['card']}")
-        tier_comparison(ctx, name, g, pmat, nw, hod)
         if name != "grid64":
             grid_launches += grid_elementwise_cross_pass(
                 ctx, name, interp, model, params, out, ngal_p, xi_p)
@@ -912,21 +903,10 @@ def grid_phases(ctx, kernels):
             print(f"timing (grid64): one torch.einsum('bi,bj,kij->bk') over "
                   f"all {g.n_nodes} nodes (contraction only) {lib_ms:.4f} ms "
                   f"on {ctx['card']}")
-            # The kernels line carries the 64-node grid's numbers (the
-            # Delta Sigma values are ~1e13, so their absolute errors are
-            # not comparable).
-            grid_numbers = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                **bound(flop, n_bytes, tensor_flop=dense),
-                                library_ms=lib_ms)
             grid64 = (interp, model, params, stacked, g, nw, occ, hod, pmat,
                       out, flop, n_bytes)
 
     grid_elementwise_pass(ctx, kernels, *grid64, grid_launches)
-    if kname == "grid":
-        # grid_tc is on no path: one direct pass keeps it built, launched
-        # and held against the plain version.
-        grid_tc_direct_pass(ctx, kernels, *grid64[2:3], *grid64[4:], dense,
-                            grid_numbers["library_ms"])
 
     # ---- path: the ensemble sampler over the 64-node grid -------------
     _, interp, model, params = cases[0]
@@ -950,64 +930,7 @@ def grid_phases(ctx, kernels):
           f"(median of per-step host-clock times {step_s} s) on "
           f"{ctx['card']}")
     # The grid kernel's numbers come from its 'elementwise' pass.
-    record(kernels, kname, launches,
-           **(grid_numbers if kname == "grid_tc" else {}))
-
-
-def grid_tc_direct_pass(ctx, kernels, params, g, nw, occ, hod, pmat, out,
-                        flop, n_bytes, dense, lib_ms):
-    """grid_tc on the 64-node grid through its wrapper, where no contract
-    routes to it: held against the plain version, timed."""
-    torch, fused = ctx["torch"], ctx["fused"]
-    ctx["reset"]()
-    ngal, xi = fused.grid_tc_launch(g, pmat, nw, hod)
-    torch.cuda.synchronize()
-    launched = ctx["expect"]("grid_tc direct", grid_tc=1)
-    # The node weights make xi NaN outside the grid; ngal is the kernel's
-    # occupation, finite (the predictor masks it).
-    check(bool(torch.isnan(xi[out]).all() and torch.isfinite(ngal).all() and
-               torch.isfinite(xi[~out]).all()), "grid_tc direct: NaN rows")
-    ngal_p, xi_p = fused.grid_predict_plain(g, params, nw, *occ)
-    ngal_err = rel(ngal[~out], ngal_p[~out])
-    xi_err = scaled(xi[~out], xi_p[~out])
-    err = max_abs((ngal[~out], ngal_p[~out]), (xi[~out], xi_p[~out]))
-    print(f"grid64 grid_tc (direct, on no path): vs plain (B={BATCH}): ngal "
-          f"max rel {ngal_err:.3e} (<= 1e-6), xi max scaled {xi_err:.3e} "
-          f"(<= 1e-6), max abs {err:.3e}")
-    check(ngal_err <= 1e-6, f"grid_tc direct: ngal vs plain {ngal_err}")
-    check(xi_err <= 1e-6, f"grid_tc direct: xi vs plain {xi_err}")
-    k_ms, p_ms, k_w, p_w = ctx["alternate"](
-        lambda: fused.grid_tc_launch(g, pmat, nw, hod),
-        lambda: fused.grid_predict_plain(g, params, nw, *occ), 3, 2)
-    print(f"timing (grid64 grid_tc direct): {k_ms:.4f} ms per {BATCH}-vector "
-          f"batch (windows {k_w}), plain PyTorch {p_ms:.4f} ms (windows "
-          f"{p_w}) on {ctx['card']}")
-    record(kernels, "grid_tc", launched["grid_tc"], max_abs_err=err,
-           ms=k_ms, plain_ms=p_ms, **bound(flop, n_bytes, tensor_flop=dense),
-           library_ms=lib_ms)
-
-
-def tier_comparison(ctx, name, g, pmat, nw, hod):
-    """The grid kernel (FP64 tensor cores) and grid_tc (3xTF32) on the same
-    inputs: the same occupation bit for bit, and their times in turns."""
-    torch, np, fused = ctx["torch"], ctx["np"], ctx["fused"]
-    ngal_grid = fused.grid_launch(g, pmat, nw, hod)[0]
-    ngal_tc = fused.grid_tc_launch(g, pmat, nw, hod)[0]
-    torch.cuda.synchronize()
-    check(bool(torch.equal(ngal_grid, ngal_tc)),
-          f"{name}: ngal of the grid kernel and grid_tc differ")
-    g_w, tc_w = [], []
-    for _ in range(2):
-        tc_w.append(ctx["window_ms"](
-            lambda: fused.grid_tc_launch(g, pmat, nw, hod), 3))
-        g_w += [ctx["window_ms"](lambda: fused.grid_launch(g, pmat, nw, hod),
-                                 3) for _ in range(2)]
-        tc_w.append(ctx["window_ms"](
-            lambda: fused.grid_tc_launch(g, pmat, nw, hod), 3))
-    print(f"tiers ({name}): ngal of grid and grid_tc bit-identical; grid "
-          f"(FP64 tensor cores) {float(np.median(g_w)):.4f} ms (windows "
-          f"{g_w}), grid_tc (3xTF32) {float(np.median(tc_w)):.4f} ms "
-          f"(windows {tc_w}) per {BATCH}-vector batch on {ctx['card']}")
+    record(kernels, kname, launches)
 
 
 def grid_elementwise_cross_pass(ctx, name, interp, model, params, out,

@@ -12,7 +12,7 @@ trees at once, one nvcc each.  Each kernel is then launched through this
 tree's wrapper with either library bound, on the inputs chip_smoke.py's
 main paths give it (caught at the wrapper by running the same predictors
 and tabulations once): bundle and contraction on the bench tables at
-262,144 rows, grid and grid_tc on the 64-node grid, slab on the wide grid
+262,144 rows, grid on the 64-node grid, slab on the wide grid
 at 32,768 rows, the occupation kernel on the 'efficient' Delta Sigma grid
 for AssembiasLeauthaud11, the pair counter on the wp, xi(s, mu) and Delta
 Sigma sweeps and on chip_smoke's 65,536-tracer wp subsample.  The
@@ -70,7 +70,6 @@ SOURCES = {**fused.KERNEL_SOURCES, **pc.KERNEL_SOURCES}
 WRAPPERS = {"bundle_launch": (fused, "bundle"),
             "contraction_launch": (fused, "bundle"),
             "grid_launch": (fused, "grid"),
-            "grid_tc_launch": (fused, "grid"),
             "occupation_launch": (fused, "occupation"),
             "slab_launch": (fused, "slab"),
             "paircount_launch": (pc, "paircount")}
@@ -197,9 +196,7 @@ def capture_inputs():
         params = grid_params(model, rng, cs.BATCH)
         make_predictor(grid64_interpolator(), model, engine="fused",
                        accuracy="scaled", device="cuda")(params)
-        args, kwargs = caught("grid_launch")
-        cases["grid (grid64)"] = ("grid_launch", args, kwargs, 1)
-        cases["grid_tc (grid64)"] = ("grid_tc_launch", args, kwargs, 1)
+        cases["grid (grid64)"] = ("grid_launch", *caught("grid_launch"), 1)
 
         model = AssembiasZheng07Model(threshold=-20, redshift=0.0)
         params = grid_params(model, rng, cs.SLAB_BATCH)

@@ -1,5 +1,6 @@
 // Asynchronous copies from device to shared memory (cp.async), shared by
-// the FP32 contraction (contract.cuh) and the 3xTF32 kernels (tf32x3.cuh).
+// the FP32 contraction (contract.cuh) and the grid kernel's staging
+// (tf32x3.cuh).
 
 #pragma once
 

@@ -70,17 +70,13 @@ none of these kernels.
   node's matrix, without the spline fold.  :func:`slab_launch`
   (``csrc/slab.cu``) and :func:`slab_predict_plain`.
 
-B2 and B4 have a second kernel each, in 3xTF32 on the tensor cores:
-:func:`grid_tc_launch` (``mma.sync``, ``csrc/tf32x3.cuh``) and
-:func:`slab_tc_launch` (``wgmma`` fed by TMA, ``csrc/slab.cu`` and
-``csrc/hopper.cuh``).  B4 picks its kernel by the contract, the
-counterpart of tabcorr_tpu's MXU pass classes: slab_tc under 'scaled';
-B1 its route a table by the same rule, in one kernel.  B2's grid kernel
-contracts in float64 on the tensor cores and is faster than grid_tc, so
-it serves both contracts, as B3's FP32 kernel does
-(:func:`grid_kernel_for`);
-grid_tc stays reachable through its wrapper.  The plain versions serve
-every kernel.
+B2 has one kernel: it contracts in float64 on the tensor cores and serves
+both contracts, as B3's FP32 kernel does (:func:`grid_kernel_for`).  B4
+keeps two tiers by contract, the counterpart of tabcorr_tpu's MXU pass
+classes: :func:`slab_tc_launch` (3xTF32 on ``wgmma`` fed by TMA,
+``csrc/slab.cu`` and ``csrc/hopper.cuh``) under 'scaled', the FP32 slab
+kernel under 'elementwise'; B1 routes a table by the same rule, in one
+kernel.  The plain versions serve every kernel.
 
 On the card B1, B3 and the FP32 tier of B4 read their matrices in one
 layout, the block-triangular half of each symmetric matrix
@@ -124,7 +120,6 @@ BUNDLE_LAUNCHES = 0
 CONTRACTION_LAUNCHES = 0
 GRID_LAUNCHES = 0
 SLAB_LAUNCHES = 0
-GRID_TC_LAUNCHES = 0
 SLAB_TC_LAUNCHES = 0
 OCCUPATION_LAUNCHES = 0
 CONTRACTION_BF16_LAUNCHES = 0
@@ -184,11 +179,10 @@ _OCC_TARGET_BLOCKS = 8192
 # stages of its cp.async ring.
 _GRID_BLOCK_ROWS = (64, 32, 16)
 _GRID_STAGES = {64: 2, 32: 3, 16: 3}
-# Tile geometry of csrc/tf32x3.cuh: a staged B tile of grid_tc is _KT rows
-# of _CT columns at a row stride of _TC_BS floats; the cp.async ring stages
-# of grid_tc (by block rows) and of contract.cuh's FP32 contraction.
+# Tile geometry of csrc/tf32x3.cuh: a staged tile of the grid kernel's
+# packed matrix is _KT rows of _CT columns at a row stride of _TC_BS
+# floats.  The cp.async ring stages of contract.cuh's FP32 contraction.
 _TC_BS = _CT + 8
-_GRID_TC_STAGES = {64: 3, 32: 2, 16: 2}
 _RING_STAGES = 2
 # slab_tc (csrc/slab.cu, namespace stc): a ring slot holds one stage, one
 # k-step (8 K rows) of a 128-column tile, TF32 hi and lo (8 KB), plus its
@@ -1658,7 +1652,7 @@ def grid_predict_plain(g: GridTable, params, node_weights, occupation_cen,
     to float32 at the end.  A float32 matrix product sums the 1830 pairs
     of the 64-node grid in long float32 runs and lands up to ~3e-6
     (scaled) from the float64 result; the grid kernel sums in float64
-    (csrc/grid.cu), and grid_tc in two levels.
+    (csrc/grid.cu).
 
     Returns (total (B,), xi): with ``node_weights`` (B, n_nodes) the
     folded (B, n_xi), else the per-node (B, n_nodes, n_xi).
@@ -1712,9 +1706,7 @@ def _grid_lib():
     lib.tabcorr_grid.argtypes = ([vp, vp, i, i, i, ctypes.c_double, vp,
                                   vp, vp, vp, i, i, i, vp, vp, i, vp] +
                                  [i] * 7 + [vp, vp, i, vp])
-    lib.tabcorr_grid_tc.argtypes = (lib.tabcorr_grid.argtypes[:-4] + [i] +
-                                    lib.tabcorr_grid.argtypes[-4:])
-    lib.tabcorr_grid.restype = lib.tabcorr_grid_tc.restype = i
+    lib.tabcorr_grid.restype = i
     lib.tabcorr_cuda_error_string.argtypes = [i]
     lib.tabcorr_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -1761,37 +1753,14 @@ def grid_launch(g: GridTable, pmat, node_weights=None, hod=KernelModel()):
                          "kernel's shared memory.")
     lib = _grid_lib()
     code = lib.tabcorr_grid(*_grid_entry_args(g, pmat, node_weights, hod,
-                                              (tb,), total, xi))
+                                              tb, total, xi))
     _raise_on_error(code, "grid", lib.tabcorr_cuda_error_string)
     GRID_LAUNCHES += 1
     return total, xi
 
 
-def _grid_tc_smem_bytes(tb, n_bins, nxp, pair_rows) -> int:
-    """Dynamic shared memory of one block of csrc/grid.cu's grid_tc kernel
-    with ``tb`` rows and ``pair_rows`` pair offsets in shared memory (the
-    layout ``tc_smem_floats`` carves)."""
-    return 4 * (_round_up(n_bins, _KT) * tb + 4 * _KT * tb +
-                _GRID_TC_STAGES[tb] * _KT * _TC_BS + tb * _CT +
-                2 * tb * nxp + _ROW_TERMS * tb + 2 * pair_rows)
-
-
-def grid_tc_config(n_bins, n_xi, auto=True):
-    """(rows per block, pair offsets in shared memory) of the grid_tc
-    kernel: the most rows (64, 32 or 16) whose block fits in shared memory,
-    with the auto pairs' offsets there too where they fit; None where no
-    block fits, which is never where the grid kernel's does."""
-    nxp = _round_up(n_xi, 4)
-    pair_rows = _round_up(n_bins * (n_bins + 1) // 2, _KT) if auto else 0
-    for tb in _GRID_TC_STAGES:
-        for rows in dict.fromkeys((pair_rows, 0)):
-            if _grid_tc_smem_bytes(tb, n_bins, nxp, rows) <= _SMEM_LIMIT:
-                return tb, rows > 0
-    return None
-
-
 def _check_grid_launch(g: GridTable, pmat, node_weights, hod):
-    """Raise on inputs the grid kernels do not take; else the launch's
+    """Raise on inputs the grid kernel does not take; else the launch's
     outputs (total (B,), xi), allocated."""
     batch = _check_params(pmat, hod, g.n_bins)
     device = pmat.device
@@ -1810,10 +1779,8 @@ def _check_grid_launch(g: GridTable, pmat, node_weights, hod):
     return total, torch.empty(shape, device=device, dtype=torch.float32)
 
 
-def _grid_entry_args(g: GridTable, pmat, node_weights, hod, block, total,
-                     xi):
-    """The C entry points' arguments; ``block`` is ``(tb,)`` (grid) or
-    ``(tb, pairs_in_smem)`` (grid_tc)."""
+def _grid_entry_args(g: GridTable, pmat, node_weights, hod, tb, total, xi):
+    """The C entry point's arguments, ``tb`` rows per block."""
     device = pmat.device
     return (pmat.data_ptr(),
             None if node_weights is None else node_weights.data_ptr(),
@@ -1821,35 +1788,9 @@ def _grid_entry_args(g: GridTable, pmat, node_weights, hod, block, total,
             g.logm_res.data_ptr(), g.sec.data_ptr(), g.weight.data_ptr(),
             g.n_bins, g.n_centrals, g.n_gauss, g.pair_i.data_ptr(),
             g.pair_j.data_ptr(), g.npair, g.fp.data_ptr(), g.k_pad, g.c_pad,
-            g.n_nodes, g.n_xi, g.nxp, int(g.auto), *map(int, block),
+            g.n_nodes, g.n_xi, g.nxp, int(g.auto), tb,
             total.data_ptr(), xi.data_ptr(), device.index,
             torch.cuda.current_stream(device).cuda_stream)
-
-
-@profiling.spanned("fused.grid_tc_launch")
-def grid_tc_launch(g: GridTable, pmat, node_weights=None,
-                   hod=KernelModel()):
-    """Launch the grid_tc kernel once: :func:`grid_launch`'s function, in
-    3xTF32 on the tensor cores, from the same constants (no contract routes
-    to it: :func:`grid_kernel_for`).  Raises on any input the kernel does
-    not take (densities in among them: grid_tc, on no path, has only
-    codes 0 and 1) and on any launch error."""
-    global GRID_TC_LAUNCHES
-    if hod.density_in:
-        raise ValueError("grid_tc evaluates zheng07 and its decoration "
-                         "only; densities in run the grid kernel.")
-    total, xi = _check_grid_launch(g, pmat, node_weights, hod)
-    block = grid_tc_config(g.n_bins, g.n_xi, g.auto)
-    if block is None:
-        raise ValueError(f"{g.n_bins} bins are too many for the grid_tc "
-                         "kernel's shared memory (the densities, the "
-                         "split pair weights and the cp.async ring).")
-    lib = _grid_lib()
-    code = lib.tabcorr_grid_tc(*_grid_entry_args(g, pmat, node_weights, hod,
-                                                 block, total, xi))
-    _raise_on_error(code, "grid_tc", lib.tabcorr_cuda_error_string)
-    GRID_TC_LAUNCHES += 1
-    return total, xi
 
 
 # ----------------------------------------------------------------------
@@ -2363,9 +2304,9 @@ def grid_kernel_takes(n_bins, mode, n_xi) -> bool:
     """Whether the kernel of the layout 'auto' picks takes a grid of this
     shape: the grid kernel for 'packed', the slab kernel for 'slab' (it
     runs the contraction kernel's blocks, so it takes one node's shape
-    where that kernel does).  The 'scaled' tier's grid_tc and
-    slab_tc take every shape their FP32 twins take (grid_tc_config,
-    slab_tc_config), so the answer holds for both tiers."""
+    where that kernel does).  The grid kernel serves both contracts, and
+    the 'scaled' tier's slab_tc takes every shape the FP32 slab kernel
+    takes (slab_tc_config), so the answer holds for both tiers."""
     if _grid_layout(n_bins, mode) == "packed":
         return grid_fits(n_bins, mode, n_xi)
     return contraction_fits(n_bins, n_xi)
@@ -2376,12 +2317,10 @@ def grid_kernel_takes(n_bins, mode, n_xi) -> bool:
 # ----------------------------------------------------------------------
 def grid_kernel_for(layout, accuracy):
     """The kernel :func:`make_fused_grid_predictor` launches on CUDA.  The
-    packed layout runs the grid kernel (FP64 tensor cores) under both
-    contracts: it is faster than grid_tc at every grid measured and more
-    exact.  The slab layout picks by the contract, the counterpart of
-    tabcorr_tpu's MXU pass classes: 'scaled' runs slab_tc (3xTF32 on
-    wgmma), 'elementwise' the FP32 slab kernel.  grid_tc is reached
-    through :func:`grid_tc_launch` only."""
+    packed layout runs B2's one kernel, the grid kernel (FP64 tensor
+    cores), under both contracts.  The slab layout picks by the contract,
+    the counterpart of tabcorr_tpu's MXU pass classes: 'scaled' runs
+    slab_tc (3xTF32 on wgmma), 'elementwise' the FP32 slab kernel."""
     if layout == "packed":
         return "grid"
     return "slab_tc" if accuracy == "scaled" else "slab"
@@ -2426,7 +2365,7 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
         slab kernel; see :func:`grid_kernel_for`.  On the CPU both run
         the plain versions.
     layout : str
-        'packed' (the grid kernels, B2), 'slab' (the slab kernels, B4), or
+        'packed' (the grid kernel, B2), 'slab' (the slab kernels, B4), or
         'auto': tabcorr_tpu's rule (:func:`grid_layout_for`), the slab
         for auto tables of more than 127 bins.
     fold_spline : bool
@@ -2453,9 +2392,8 @@ def make_fused_grid_predictor(table: TableData, n_nodes, model,
     consts = grid_constants(table, n_nodes, layout, accuracy, device.type)
     if device.type == "cuda" and hod.family is not None:
         consts.occupation_plan       # built once, here
-    launch = {"grid": grid_launch, "grid_tc": grid_tc_launch,
-              "slab": slab_launch, "slab_tc": slab_tc_launch}[
-                  grid_kernel_for(layout, accuracy)]
+    launch = {"grid": grid_launch, "slab": slab_launch,
+              "slab_tc": slab_tc_launch}[grid_kernel_for(layout, accuracy)]
 
     def inputs(params):
         """The launch's parameter matrix, or its densities."""

@@ -147,6 +147,23 @@ def test_grid_wrapper_never_falls_back_to_the_cpu():
         fused.grid_launch(g, torch.ones((4, 5)))
 
 
+@pytest.mark.parametrize("n_bins,n_xi,rows", [
+    (60, 42, 64), (1104, 13, 32), (1400, 13, 16), (300, 42, 64),
+    (3000, 1, None)])
+def test_grid_block_rows(n_bins, n_xi, rows):
+    """The grid kernel's rows per block: 64 at grid64's 60 bins and at a
+    300-bin packed auto grid, 32 at the 1104-bin Delta Sigma table, 16 at
+    1400 bins, and no block where 16 rows' densities overflow shared
+    memory."""
+    assert fused.grid_block_rows(n_bins, n_xi) == rows
+    if rows is not None:
+        nxp = -(-n_xi // 4) * 4
+        assert fused._grid_smem_bytes(rows, n_bins, nxp) <= fused._SMEM_LIMIT
+        if rows < 64:
+            assert (fused._grid_smem_bytes(2 * rows, n_bins, nxp) >
+                    fused._SMEM_LIMIT)
+
+
 def test_slab_layout_is_not_ported(monkeypatch):
     """Layout routing: 'slab' runs the slab kernel's route (B4), 'auto'
     picks it where the packed pair row is too wide, and the grid kernel

@@ -1,4 +1,4 @@
-"""The CUDA kernels (bundle, contraction, grid, grid_tc, slab, slab_tc)
+"""The CUDA kernels (bundle, contraction, grid, slab, slab_tc)
 against their plain PyTorch versions, for zheng07, the assembly-bias
 decorated model, and every other model through its densities (model code
 2).
@@ -351,15 +351,35 @@ def _ds_efficient_grid(kind, device):
         tpcf_shape=(4 * 13,)), model
 
 
+def _spread_bins(table, n):
+    """A cross table cut to n of its bins, spread evenly over them, the
+    central bins still first."""
+    keep = np.unique(np.round(np.linspace(0, table.n_bins - 1, n)).astype(
+        np.int64))
+    assert len(keep) == n
+    n_centrals = int(np.sum(keep < table.n_centrals))
+    keep = torch.tensor(keep, device=table.n_h.device)
+    lo = table.log_prim_quad_lo
+    return dataclasses.replace(
+        table, tpcf_dense=table.tpcf_dense[:, keep], n_h=table.n_h[keep],
+        log_prim_quad=table.log_prim_quad[keep],
+        quad_weight=table.quad_weight[keep], sec_perc=table.sec_perc[keep],
+        log_prim_quad_lo=None if lo is None else lo[keep],
+        n_centrals=n_centrals)
+
+
 @pytest.mark.parametrize("kind", ["zheng07", "assembias"])
 @pytest.mark.parametrize("shape", ["auto 60 bins", "cross 1104 bins",
                                    "cross 1400 bins"])
 def test_grid_kernels_share_the_occupation_bit_for_bit(cuda, shape, kind):
-    """The occupation's tolerance: ngal of the grid kernel and of grid_tc
-    on the same inputs is bit-identical (both run zheng07.cuh's
-    occupation_phase, its loops unrolled by kOccUnroll, with blocks of the
-    same rows), and within 2^-22 relative of the plain version's (tensor
-    ops round the transcendental functions elsewhere)."""
+    """The occupation's tolerance: ngal of the grid kernel and of the FP32
+    slab kernel on the same inputs is bit-identical (both run zheng07.cuh's
+    occupation_phase, its loops unrolled by kOccUnroll, and sum each row's
+    densities in double in bin order), and the grid kernel's is within
+    2^-22 relative of the plain version's (tensor ops round the
+    transcendental functions elsewhere).  The slab kernel's block takes
+    neither cross table, so there the two kernels meet on 640 of the
+    table's bins, the grid kernel in 32-row blocks, as at 1104 bins."""
     if shape.startswith("auto"):
         n_nodes, table, model = 2, _grid_table(2, 15, 2, 7, "auto", 13,
                                                cuda), _model(kind)
@@ -369,19 +389,26 @@ def test_grid_kernels_share_the_occupation_bit_for_bit(cuda, shape, kind):
         n_nodes, table, model = 3, _grid_table(3, 350, 2, 5, "cross", 17,
                                                cuda), _model(kind)
     g = fused.grid_table_constants(table, n_nodes)
-    assert fused.grid_block_rows(g.n_bins, g.n_xi) == \
-        fused.grid_tc_config(g.n_bins, g.n_xi, g.auto)[0]
     hod = fused.KernelModel.of(model)
     params = _params(model, 4096 + 37, 12, cuda)
     pmat = fused._param_matrix(params, hod)
     ngal = fused.grid_launch(g, pmat, None, hod)[0]
-    ngal_tc = fused.grid_tc_launch(g, pmat, None, hod)[0]
-    torch.cuda.synchronize()
-    assert torch.equal(ngal, ngal_tc)
     want = fused.grid_predict_plain(g, params, None,
                                     *occupation_functions(model))[0]
     rel = ((ngal.double() - want.double()).abs() / want.double().abs()).max()
     assert float(rel) <= 2.0 ** -22, float(rel)
+    shared = (table if fused.contraction_fits(g.n_bins, g.n_xi) else
+              _spread_bins(table, 640))
+    assert (shared is table) == shape.startswith("auto")
+    assert fused.contraction_fits(shared.n_bins, g.n_xi)
+    if shared is not table:
+        g = fused.grid_table_constants(shared, n_nodes)
+        assert fused.grid_block_rows(g.n_bins, g.n_xi) == 32
+        ngal = fused.grid_launch(g, pmat, None, hod)[0]
+    ngal_slab = fused.slab_launch(
+        fused.slab_tc_table_constants(shared, n_nodes), pmat, hod)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(ngal, ngal_slab)
 
 
 def test_fused_interpolator_nan_outside_the_grid(cuda):
@@ -548,66 +575,8 @@ class HodModelStandIn(Zheng07Model):
 
 
 # ----------------------------------------------------------------------
-# grid_tc and slab_tc (3xTF32 on the tensor cores); slab_tc is 'scaled'
+# slab_tc (3xTF32 on the tensor cores), B4's 'scaled' tier
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("kind", ["zheng07", "assembias"])
-@pytest.mark.parametrize("mode", ["auto", "cross"])
-@pytest.mark.parametrize("fold", [False, True])
-@pytest.mark.parametrize("batch", [8, 131])
-def test_grid_tc_kernel_matches_plain(cuda, mode, fold, batch, kind):
-    n_nodes = 6
-    table = _grid_table(n_nodes, 12, 2, 7, mode, 13, cuda)
-    model = _model(kind)
-    hod = fused.KernelModel.of(model)
-    g = fused.grid_table_constants(table, n_nodes)
-    params = _params(model, batch, 9, cuda)
-    nw = None
-    if fold:
-        rng = np.random.default_rng(3)
-        nw = torch.tensor(rng.normal(size=(batch, n_nodes)),
-                          dtype=torch.float32, device=cuda)
-        nw[3] = torch.nan
-    before = (fused.GRID_LAUNCHES, fused.GRID_TC_LAUNCHES)
-    # No contract routes to grid_tc (grid_kernel_for): its wrapper.
-    got = fused.grid_tc_launch(g, fused._param_matrix(params, hod), nw, hod)
-    torch.cuda.synchronize()
-    assert (fused.GRID_LAUNCHES, fused.GRID_TC_LAUNCHES) == (before[0],
-                                                             before[1] + 1)
-    assert got[1].shape == ((batch, 7) if fold else (batch, n_nodes, 7))
-    occ = occupation_functions(model)
-    want = fused.grid_predict_plain(g, params, nw, *occ)
-    scale = None
-    if fold:
-        nodes = fused.grid_predict_plain(g, params, None, *occ)[1]
-        scale = (nw.abs()[:, :, None] * nodes.abs()).sum(1).amax(1)
-    _assert_grid_close(got, want, nan_rows=(3,) if fold else (), scale=scale)
-
-
-def test_grid_tc_kernel_takes_1104_cross_bins(cuda):
-    interp = Interpolator.read(DATA / "ds_efficient.npz")
-    assert fused.grid_tc_config(1104, 13, auto=False) == (32, False)
-    model = AssembiasZheng07Model(threshold=-21, redshift=0.5,
-                                  prim_haloprop_key="halo_m258m")
-    model.param_dict.update(log_eta=0.0, alpha_s=1.0, alpha_c=0.0)
-    tables = [interp.tabcorr_list[i].table_data(device=cuda)
-              for i in interp.param_dict_table["tabcorr_index"]]
-    table = dataclasses.replace(
-        tables[0], tpcf_dense=torch.cat([t.tpcf_dense for t in tables]),
-        tpcf_shape=(4 * 13,))
-    hod = fused.KernelModel.of(model)
-    g = fused.grid_table_constants(table, 4)
-    params = _params(model, 301, 10, cuda)
-    nw = torch.tensor(np.random.default_rng(4).dirichlet(np.ones(4), 301),
-                      dtype=torch.float32, device=cuda)
-    before = fused.GRID_TC_LAUNCHES
-    got = fused.grid_tc_launch(g, fused._param_matrix(params, hod), nw, hod)
-    torch.cuda.synchronize()
-    assert fused.GRID_TC_LAUNCHES == before + 1
-    want = fused.grid_predict_plain(g, params, nw,
-                                    *occupation_functions(model))
-    _assert_grid_close(got, want)
-
-
 @pytest.mark.parametrize("kind", ["zheng07", "assembias"])
 @pytest.mark.parametrize("mode,n_prim,n_xi,batch", [
     ("auto", 12, 7, 131), ("cross", 11, 5, 8), ("auto", 40, 6, 4096 + 37)])
@@ -628,35 +597,6 @@ def test_slab_tc_kernel_matches_plain(cuda, mode, n_prim, n_xi, batch, kind):
     assert got[1].shape == (batch, n_nodes, n_xi)
     want = fused.slab_predict_plain(s, params, *occupation_functions(model))
     _assert_grid_close(got, want)
-
-
-@pytest.mark.parametrize("shape", ["cross 1400 bins", "packed auto 160 bins"])
-def test_grid_tc_takes_the_grid_kernels_large_shapes(cuda, shape):
-    """grid_tc where its 64-row block with the pair offsets in shared
-    memory does not fit, as far as the grid kernel goes: 16-row blocks at
-    a 1400-bin cross grid; the offsets read from device memory at a
-    160-bin auto grid in the packed layout."""
-    cross = shape.startswith("cross")
-    n_nodes = 3
-    table = _grid_table(n_nodes, 350 if cross else 40, 2, 5 if cross else 7,
-                        "cross" if cross else "auto", 17, cuda)
-    assert fused.grid_block_rows(table.n_bins, table.tpcf_shape[0] // 3)
-    assert fused.grid_tc_config(table.n_bins, table.tpcf_shape[0] // 3,
-                                auto=not cross) == ((16, False) if cross
-                                                    else (64, False))
-    model = _model("assembias")
-    hod = fused.KernelModel.of(model)
-    g = fused.grid_table_constants(table, n_nodes)
-    params = _params(model, 131, 9, cuda)
-    nw = torch.tensor(np.random.default_rng(4).dirichlet(np.ones(n_nodes),
-                                                         131),
-                      dtype=torch.float32, device=cuda)
-    before = fused.GRID_TC_LAUNCHES
-    got = fused.grid_tc_launch(g, fused._param_matrix(params, hod), nw, hod)
-    torch.cuda.synchronize()
-    assert fused.GRID_TC_LAUNCHES == before + 1
-    _assert_grid_close(got, fused.grid_predict_plain(
-        g, params, nw, *occupation_functions(model)))
 
 
 @pytest.mark.parametrize("mode,n_prim,n_xi,width,block", [
@@ -685,28 +625,21 @@ def test_slab_tc_blocks_and_widths(cuda, mode, n_prim, n_xi, width, block):
 
 def test_tc_wrappers_reject_bad_inputs_and_raise_on_launch_errors(cuda):
     table = _grid_table(3, 8, 1, 3, "auto", 1, cuda)
-    g = fused.grid_table_constants(table, 3)
     s = fused.slab_split_table_constants(table, 3)
     pmat = torch.ones((8, 5), device=cuda)
     with pytest.raises(ValueError, match="split"):
         fused.slab_tc_launch(fused.slab_tc_table_constants(table, 3), pmat)
-    for launch, consts in ((fused.grid_tc_launch, g),
-                           (fused.slab_tc_launch, s)):
-        with pytest.raises(ValueError):
-            launch(consts, pmat.double())
-        with pytest.raises(ValueError):
-            launch(consts, pmat.cpu())
-        with pytest.raises(ValueError):
-            launch(consts, pmat, hod=fused.KernelModel(code=1))
     with pytest.raises(ValueError):
-        fused.grid_tc_launch(g, pmat, torch.ones((8, 2), device=cuda))
-    # Shapes the C entry points refuse come back as a launch error.
-    before = (fused.GRID_TC_LAUNCHES, fused.SLAB_TC_LAUNCHES)
-    with pytest.raises(RuntimeError, match="grid_tc kernel launch failed"):
-        fused.grid_tc_launch(dataclasses.replace(g, npair=g.npair + 1), pmat)
+        fused.slab_tc_launch(s, pmat.double())
+    with pytest.raises(ValueError):
+        fused.slab_tc_launch(s, pmat.cpu())
+    with pytest.raises(ValueError):
+        fused.slab_tc_launch(s, pmat, hod=fused.KernelModel(code=1))
+    # Shapes the C entry point refuses come back as a launch error.
+    before = fused.SLAB_TC_LAUNCHES
     with pytest.raises(RuntimeError, match="slab_tc kernel launch failed"):
         fused.slab_tc_launch(dataclasses.replace(s, n_nodes=0), pmat)
-    assert (fused.GRID_TC_LAUNCHES, fused.SLAB_TC_LAUNCHES) == before
+    assert fused.SLAB_TC_LAUNCHES == before
 
 
 def _cancelling_table(mode, n_bins, n_xi, seed, device):
@@ -732,10 +665,9 @@ def test_both_tiers_per_element_error_by_cancellation(cuda, mode, layout):
     """Per-element relative error of each tier's kernel against the plain
     version, by each element's cancellation kappa = sum |terms| / |sum|
     (float64, from the plain densities): for the packed layout the FP64
-    grid kernel (both contracts) and grid_tc (3xTF32, through its
-    wrapper), for the slab layout the FP32 slab kernel ('elementwise') and
-    slab_tc ('scaled').  Every kernel meets
-    1e-6 per element wherever kappa < 5.  Two more references separate
+    grid kernel (both contracts), for the slab layout the FP32 slab kernel
+    ('elementwise') and slab_tc ('scaled').  Every kernel meets 1e-6 per
+    element wherever kappa < 5.  Two more references separate
     what the error is made of: the float64 contraction of the same
     float32 densities over the float64 table, and over the float32
     table the kernels read (their own operands, so what is left against
@@ -781,9 +713,7 @@ def test_both_tiers_per_element_error_by_cancellation(cuda, mode, layout):
         hod = fused.KernelModel.of(model)
         pmat = fused._param_matrix(params, hod)
         kernels = {"grid (FP64)": lambda _: fused.grid_launch(plain, pmat,
-                                                              hod=hod),
-                   "grid_tc": lambda _: fused.grid_tc_launch(plain, pmat,
-                                                             hod=hod)}
+                                                              hod=hod)}
     maxima = {what: {} for what in refs}
     for name, predict in kernels.items():
         got = predict(params)[1].double().cpu().numpy().reshape(batch, -1)
@@ -825,13 +755,13 @@ def test_fused_interpolator_launches_the_tiers_kernels(cuda, accuracy,
     params["log_eta"] = torch.tensor(
         np.random.default_rng(7).uniform(-0.35, 0.35, 200),
         dtype=torch.float32, device=cuda)
-    names = ("SLAB_LAUNCHES", "SLAB_TC_LAUNCHES") if wide else (
-        "GRID_LAUNCHES", "GRID_TC_LAUNCHES")
+    names = ("GRID_LAUNCHES", "SLAB_LAUNCHES", "SLAB_TC_LAUNCHES")
     before = [getattr(fused, n) for n in names]
     got = predict(params)
     torch.cuda.synchronize()
     grew = [getattr(fused, n) - b for n, b in zip(names, before)]
-    assert grew == ([0, 1] if wide and accuracy == "scaled" else [1, 0])
+    assert grew == ([1, 0, 0] if not wide else
+                    [0, 0, 1] if accuracy == "scaled" else [0, 1, 0])
     _assert_grid_close(got, plain(params))
 
 
@@ -1450,9 +1380,6 @@ def test_density_in_wrappers_reject_bad_inputs(cuda):
             launch(s, bad, code2)
         with pytest.raises(ValueError, match="CUDA"):
             launch(s, bad[1:].cpu(), code2)
-    good = torch.ones((table.n_bins, 8), device=cuda)
-    with pytest.raises(ValueError, match="grid_tc"):
-        fused.grid_tc_launch(g, good, None, code2)
 
 
 # ----------------------------------------------------------------------

@@ -105,7 +105,7 @@ def emulate_split(s, n):
                 bh = np.concatenate([b_hi[st + j].T for j in range(m)])
                 bl = np.concatenate([b_lo[st + j].T for j in range(m)])
                 st += m
-                c = _chunk(a_hi[:, k], a_lo[:, k], bh, bl, split=True)
+                c = _chunk(a_hi[:, k], a_lo[:, k], bh, bl)
                 if not s.auto:
                     run = run + c
                     continue

@@ -1,20 +1,18 @@
-"""The 'scaled' tier of the grid kernels on the CPU: the TF32 split, the
-slab_tc kernel's block-triangular layout, and a numpy emulation of the
-3xTF32 contraction that the grid_tc and slab_tc kernels run on the
-tensor cores (csrc/tf32x3.cuh).
+"""The 'scaled' tier of the slab kernels on the CPU: the TF32 split
+(csrc/tf32x3.cuh), the slab_tc kernel's block-triangular layout, and a
+numpy emulation of the 3xTF32 contraction that slab_tc runs on the
+tensor cores.
 
-The emulation follows the kernels' arithmetic: the density side and the
+The emulation follows the kernel's arithmetic: the density side and the
 constant matrix split into TF32 hi/lo by :func:`split_tf32` (the device's
 cvt.rna.tf32.f32, bit for bit on finite values), three products per
-k-step of 8
-(lo*hi, hi*lo, hi*hi) each added to a fresh float32 chunk accumulator of
-at most 32 K rows (slab_tc: two, one for the hi*hi products and one for
-the small ones), then the chunk added to a running sum in float32
-(slab_tc) or double (grid_tc), and the kernels' epilogues.  The tensor
-cores' own accumulation is modelled pessimistically: every MMA rounds its
-sum toward zero.  It runs on the wide-grid builder's draws (160 bins) and
-on grid64's (60 bins), 4 nodes and 64 rows each, against a float64
-contraction and against tabcorr_tpu's slab and packed Pallas kernels in
+k-step of 8 (lo*hi, hi*lo, hi*hi) added to two fresh float32 chunk
+accumulators of at most 32 K rows, one for the hi*hi products and one for
+the small ones, then the chunk added to a running sum in float32, and the
+kernel's epilogue.  The tensor cores' own accumulation is modelled
+pessimistically: every MMA rounds its sum toward zero.  It runs on the
+wide grid's synthetic draws (160 bins), 4 nodes and 64 rows, against a
+float64 contraction and against tabcorr_tpu's slab Pallas kernel in
 interpret mode, under the 'scaled' contract: 1e-6 of each row's largest
 statistic.
 """
@@ -56,8 +54,8 @@ def _tf32_rna(x):
 
 
 def split_tf32(x):
-    """Split float32 ``x`` into TF32 values ``(hi, lo)`` as the _tc kernels
-    split their operands on the device: ``hi`` = x rounded to TF32,
+    """Split float32 ``x`` into TF32 values ``(hi, lo)`` as the wgmma
+    kernels split their densities on the device: ``hi`` = x rounded to TF32,
     ``lo`` = ``x - hi`` (exact in float32) rounded the same way; ``|x - hi
     - lo| <= 2**-22 |x|`` for normal ``x``."""
     x = np.asarray(x, np.float32)
@@ -218,26 +216,25 @@ def _rz32(x):
     return y
 
 
-def _chunk(a_hi, a_lo, b_hi, b_lo, split=False):
-    """A fresh accumulator over one chunk of k-steps of 8: per k-step the
+def _chunk(a_hi, a_lo, b_hi, b_lo):
+    """Fresh accumulators over one chunk of k-steps of 8: per k-step the
     three MMAs lo*hi, hi*lo, hi*hi, each product exact and each MMA's sum
-    rounded toward zero to float32.  ``split`` (slab_tc): the hi*hi
-    products chain through one accumulator and the two small ones through
-    another, added at the end of the chunk."""
+    rounded toward zero to float32; the hi*hi products chain through one
+    accumulator and the two small ones through another, added at the end
+    of the chunk."""
     zero = np.zeros((a_hi.shape[0], b_hi.shape[1]), np.float32)
     big, small = zero, zero
     for k in range(0, a_hi.shape[1], 8):
         for a, b, into_big in ((a_lo, b_hi, False), (a_hi, b_lo, False),
                                (a_hi, b_hi, True)):
-            acc = big if into_big or not split else small
-            acc = _rz32(acc.astype(np.float64) +
+            acc = _rz32((big if into_big else small).astype(np.float64) +
                         a[:, k:k + 8].astype(np.float64) @
                         b[k:k + 8].astype(np.float64))
-            if into_big or not split:
+            if into_big:
                 big = acc
             else:
                 small = acc
-    return big + small if split else big
+    return big + small
 
 
 def _quad_sum(v):
@@ -267,7 +264,7 @@ def emulate_slab_tc(s, n):
             for q in range(0, steps, 4):
                 k = slice(8 * (s0 + q), 8 * (s0 + min(q + 4, steps)))
                 run = run + _chunk(a_hi[:, k], a_lo[:, k], b_hi[k, cols],
-                                   b_lo[k, cols], split=True)
+                                   b_lo[k, cols])
             if not s.auto:
                 m = min(128, s.n_xi - 128 * ct)
                 out[:, node, 128 * ct:128 * ct + m] = run[:, :m] / tot[:, None]
@@ -290,35 +287,9 @@ def emulate_slab_tc(s, n):
     return tot, out
 
 
-def emulate_grid_tc(g, n, nw=None):
-    """grid_tc's (total, xi) float32 from the float32 densities n (rows,
-    n_bins): per-node xi (rows, n_nodes, n_xi), or folded by the node
-    weights nw (rows, n_nodes)."""
-    rows = n.shape[0]
-    pi, pj = g.pair_i.numpy(), g.pair_j.numpy()
-    w = np.zeros((rows, g.k_pad), np.float32)
-    w[:, :g.npair] = n[:, pi] * n[:, pj] if g.auto else n
-    a_hi, a_lo = split_tf32(w)
-    b_hi, b_lo = split_tf32(g.fp.numpy())
-    tot = np.sum(n.astype(np.float64), axis=1).astype(np.float32)
-    den = tot * tot if g.auto else tot
-    t = np.zeros((rows, g.c_pad))
-    for ct in range(0, g.c_pad, 128):
-        cols = slice(ct, ct + 128)
-        for q in range(0, g.k_pad, 32):
-            k = slice(q, q + 32)
-            t[:, cols] += _chunk(a_hi[:, k], a_lo[:, k], b_hi[k, cols],
-                                 b_lo[k, cols])
-    t = t[:, :g.n_nodes * g.nxp].reshape(rows, g.n_nodes, g.nxp)[..., :g.n_xi]
-    if nw is None:
-        return tot, t.astype(np.float32) / den[:, None, None]
-    weighted = (t.astype(np.float32) * nw[:, :, None]).astype(np.float64)
-    return tot, weighted.sum(axis=1).astype(np.float32) / den[:, None]
-
-
 def _builder_tabs(n_prim, n_sec, n_nodes=4, n_xi=42):
-    """The first n_nodes nodes of utils/synthetic's 64-node builders
-    (grid64: n_sec=1; the wide grid: n_sec=2), as tabcorr_tpu TabCorrs
+    """The first n_nodes nodes of utils/synthetic's 64-node wide grid
+    (n_sec=2), as tabcorr_tpu TabCorrs
     (the same draws; test_torch_grid/test_torch_slab check the builders
     against them)."""
     tabs = []
@@ -365,13 +336,6 @@ def wide():
     return tabs, stacked, fused.slab_tc_table_constants(stacked, 4)
 
 
-@pytest.fixture(scope="module")
-def grid64():
-    tabs = _builder_tabs(30, 1)
-    stacked = _port_stack(tabs)
-    return tabs, stacked, fused.grid_table_constants(stacked, 4)
-
-
 def test_slab_tc_emulation_meets_the_scaled_contract(wide):
     _, stacked, s = wide
     assert s.n_bins == 160 and s.n_xi == 42 and s.auto
@@ -392,31 +356,11 @@ def test_slab_tc_emulation_meets_the_scaled_contract(wide):
                                rtol=1e-7)
 
 
-@pytest.mark.parametrize("fold", [False, True])
-def test_grid_tc_emulation_meets_the_scaled_contract(grid64, fold):
-    _, stacked, g = grid64
-    assert g.n_bins == 60 and g.npair == 1830
-    n, _ = _densities(stacked, 64, 6)
-    dense = stacked.tpcf_dense.numpy().astype(np.float64).reshape(
-        4, 42, 60, 60)
-    exact = _exact(dense, n, True) / (np.sum(n.astype(np.float64), 1) ** 2)[
-        :, None, None]
-    nw = None
-    if fold:
-        nw = np.random.default_rng(2).dirichlet(np.ones(4), 64).astype(
-            np.float32)
-        exact = np.sum(nw[:, :, None] * exact, axis=1)
-    _, xi = emulate_grid_tc(g, n, nw)
-    err = _check_scaled(xi, exact, f"grid_tc emulation (fold={fold})")
-    print(f"grid_tc emulation vs float64 (fold={fold}): {err:.3e} scaled "
-          f"(margin {SCALED / err:.1f}x)")
-
-
-@pytest.mark.parametrize("kind", ["slab", "packed"])
-def test_tc_emulation_matches_the_jax_kernels(wide, grid64, kind):
+@pytest.mark.parametrize("kind", ["slab"])
+def test_tc_emulation_matches_the_jax_kernels(wide, kind):
     """8 rows through tabcorr_tpu's Pallas kernel (interpret mode) and
     through the emulation fed the port's float32 densities."""
-    tabs, stacked, consts = wide if kind == "slab" else grid64
+    tabs, stacked, consts = wide
     jax_model = tt.Zheng07Model(threshold=-20, redshift=0.0)
     jax_f = jax_fused.make_fused_grid_predictor(
         _stack(tabs), 4, *jax_pred.occupation_functions(jax_model),
@@ -425,8 +369,7 @@ def test_tc_emulation_matches_the_jax_kernels(wide, grid64, kind):
     n, p = _densities(stacked, 8, 9)
     p_jax = {k: np.asarray(v) for k, v in p.items()}
     ng_j, xi_j = (np.asarray(a, np.float64) for a in jax_f(p_jax))
-    emulate = emulate_slab_tc if kind == "slab" else emulate_grid_tc
-    tot, xi = emulate(consts, n)
+    tot, xi = emulate_slab_tc(consts, n)
     np.testing.assert_allclose(tot, ng_j, rtol=1e-6)
     err = _check_scaled(xi, xi_j, f"{kind} emulation vs tabcorr_tpu")
     print(f"{kind} tc emulation vs tabcorr_tpu: {err:.3e} scaled")
@@ -487,11 +430,8 @@ def test_predictor_builds_only_its_tiers_constants(monkeypatch, accuracy):
 def test_tc_wrappers_need_cuda_and_report_their_shapes():
     table = _table("auto", 24, 2, 3, seed=7)
     s = fused.slab_split_table_constants(table, 2)
-    g = fused.grid_table_constants(table, 2)
     with pytest.raises(ValueError, match="CUDA"):
         fused.slab_tc_launch(s, torch.ones((4, 5)))
-    with pytest.raises(ValueError, match="CUDA"):
-        fused.grid_tc_launch(g, torch.ones((4, 5)))
     # slab_tc: 128-row blocks (two consumer warpgroups) at the wide grid;
     # 64-row blocks (one) where the densities of 128 rows leave no room
     # for 3 ring slots (400 bins), as far as the slab kernel goes.
@@ -500,34 +440,17 @@ def test_tc_wrappers_need_cuda_and_report_their_shapes():
     assert fused.contraction_fits(736, 42) and fused.slab_tc_config(736, 42)
     assert not fused.contraction_fits(800, 42)
     assert fused.grid_kernel_takes(400, "auto", 42)
-    # grid_tc: 64-row blocks with the pair offsets in shared memory at 60
-    # bins, 32 rows at the 1104-bin Delta Sigma table, 16 at 1400 bins, as
-    # the grid kernel.
-    assert fused.grid_tc_config(60, 42) == (64, True)
-    assert fused.grid_tc_config(1104, 13, auto=False) == (32, False)
-    assert fused.grid_block_rows(1400, 13) == 16
-    assert fused.grid_tc_config(1400, 13, auto=False) == (16, False)
-    # A packed auto grid past the packed layout's 127 bins: the offsets
-    # stay in device memory.
-    assert fused.grid_tc_config(300, 42) == (64, False)
 
 
-@pytest.mark.parametrize("kernel", ["grid_tc auto", "grid_tc cross",
-                                    "slab_tc"])
+@pytest.mark.parametrize("kernel", ["slab_tc"])
 def test_tc_kernels_take_every_shape_their_fp32_twins_take(kernel):
-    """Wherever the FP32 kernel's block fits in shared memory, the _tc
-    kernel's does: the 'scaled' tier never refuses a shape the
+    """Wherever the FP32 slab kernel's block fits in shared memory,
+    slab_tc's does: the 'scaled' tier never refuses a shape the
     'elementwise' tier takes."""
     taken = 0
     for n_xi in (1, 4, 13, 42, 100, 300, 700):
         for n_bins in range(1, 1700, 7):
-            if kernel == "slab_tc":
-                if fused.contraction_fits(n_bins, n_xi):
-                    taken += 1
-                    assert fused.slab_tc_config(n_bins, n_xi), (n_bins, n_xi)
-            elif fused.grid_block_rows(n_bins, n_xi) is not None:
+            if fused.contraction_fits(n_bins, n_xi):
                 taken += 1
-                assert fused.grid_tc_config(n_bins, n_xi,
-                                            auto=kernel.endswith("auto")), \
-                    (n_bins, n_xi)
+                assert fused.slab_tc_config(n_bins, n_xi), (n_bins, n_xi)
     assert taken > 500
